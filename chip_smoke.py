@@ -7,20 +7,27 @@ Phases, each of which exits non-zero on failure:
 
 1. build: nvcc compiles every CUDA kernel of the port (one process per
    source, all at once) and the libraries are loaded;
-2. kernels: K1-K4 each run at the shapes the main synthesis path gives them
-   and are held against their plain PyTorch versions on the card, in float32
-   with TF32 off; each is timed beside its plain version, a PyTorch library
-   yardstick where one exists, and its least possible time on an H100;
-3. slice: the gst_lj preset at full width with the bench workload overrides
-   (B=32 texts of 64 tokens, 32 reference wavs of 128 frames, 200 decode
-   steps at r=2, 15 Griffin-Lim iterations with momentum 0.99, stop
-   threshold 1.0) synthesizes through ``Synthesizer`` on the card with
-   seeded random weights; the kernels' launch counters must show that the
-   run went through every kernel; outputs must be finite with the expected
-   shapes and the mel must agree with the plain path on the card.
+2. kernels: K1-K5 and K4's location-sensitive branch each run at the shapes
+   their main path gives them and are held against their plain PyTorch
+   versions on the card, in float32 with TF32 off; each is timed beside its
+   plain version, a PyTorch library yardstick where one exists, and its
+   least possible time on an H100;
+3. paths: three configurations synthesize through ``Synthesizer`` on the
+   card with seeded random weights, B=32 texts of 64 tokens and 32
+   reference wavs of 128 frames, stop threshold 1.0 (every step decodes):
+     gst_lj           200 decode steps at r=2 (the bench workload's cut),
+                      15 Griffin-Lim iterations with momentum 0.99;
+     gst_r1_location  its 1000 steps at r=1, its 30 Griffin-Lim iterations;
+     gst_wavernn      the WaveRNN vocoder, decode cut to 64 steps (128
+                      frames, 32,768 samples a row).
+   Before each path every launch counter is set to 0, and after it the
+   counts must show that the path went through each of its kernels; outputs
+   must be finite with the expected shapes, the wav within [-1, 1], and the
+   path must agree with the plain path on the card.
 
-It prints one JSON line per kernel check, one ``{"kernels": [...]}`` line,
-the card's name and power limit, and last ``{"ok": true, "device": ...}``.
+It prints one JSON line per kernel check and per path, one
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -268,16 +275,19 @@ def check_stft(torch, rng, dev, cfg):
 # ---------------------------------------------------------------------------
 
 
-def check_decode(torch, rng, dev, cfg):
+def check_decode(torch, rng, dev, cfg, init_seed=7):
+    """K4 at ``cfg``'s shapes: the Bahdanau branch (gst_lj) or the
+    location-sensitive one (gst_r1_location)."""
     from gst_tacotron_tpu_torch.models.decoder import DecoderCell
     from gst_tacotron_tpu_torch.ops.decode import decode_scan, decode_scan_plain
     from gst_tacotron_tpu_torch.weights import init_weights
 
     m = cfg.model
+    lsa = m.attention.kind == "location_sensitive"
     mem_dim = m.encoder.output_dim + m.gst.style_dim
     steps = m.decoder.max_decode_steps
     cell = DecoderCell(m.decoder, m.attention, m.num_mels, mem_dim)
-    init_weights(cell, seed=7)
+    init_weights(cell, seed=init_seed)
     cell = cell.to(dev)
     packed = cell.pack()
     memory = torch.from_numpy(rng.normal(0, 0.5, (B, TEXT_TOKENS, mem_dim)).astype(np.float32)).to(dev)
@@ -309,7 +319,7 @@ def check_decode(torch, rng, dev, cfg):
                                             use_dropout=True, **kw), iters=3)
     plain = time_ms(torch, lambda: decode_scan_plain(packed, memory, keys, full, seed=3,
                                                      use_dropout=True, **kw), iters=1)
-    n_w = sum(packed[k].numel() for k in packed if k != "loca")
+    n_w = sum(x.numel() for x in packed.values())
     d = m.decoder
     per_step = 2.0 * (m.num_mels * d.prenet_dims[0] + d.prenet_dims[0] * d.prenet_dims[1]
                       + (d.prenet_dims[1] + mem_dim + d.attention_rnn_dim) * 3 * d.attention_rnn_dim
@@ -318,24 +328,102 @@ def check_decode(torch, rng, dev, cfg):
                       + 2 * 2 * d.decoder_rnn_dim * 3 * d.decoder_rnn_dim
                       + (d.decoder_rnn_dim + mem_dim) * (d.reduction_factor * (m.num_mels + 1))
                       + TEXT_TOKENS * (m.attention.dim + mem_dim))
+    if lsa:
+        per_step += 2.0 * TEXT_TOKENS * m.attention.location_kernel_size \
+            * m.attention.location_channels * m.attention.dim
     flops = per_step * B * steps
     r = d.reduction_factor
     nbytes = 4.0 * (n_w + memory.numel() + keys.numel() + B
                     + B * steps * r * (m.num_mels + 1) + B * steps * TEXT_TOKENS)
     b_ms, b_by = bound(flops, nbytes)
-    return dict(name="decode_scan", route="cuda",
+    # a kernel row is named by the launch counter its path reads
+    return dict(name="decode_scan:location_sensitive" if lsa else "decode_scan", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/decode_scan.cu",
                 replaces="gst_tacotron_tpu/ops/decode_pallas.py:328", max_err=err, tol=1e-3,
                 max_err_dropout=err_dropout,
-                tol_reason="float32 GEMV sums in another order, fed back through 200 "
-                           "autoregressive steps (the last frame re-enters the prenet)",
+                tol_reason=f"float32 GEMV sums in another order, fed back through {steps} "
+                           "autoregressive steps (the last frame re-enters the prenet"
+                           + (", the alignment the location taps)" if lsa else ")"),
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library="none: no single PyTorch call runs an autoregressive decode",
-                work="one 200-step decode of 32 utterances, dropout on")
+                work=f"one {steps}-step decode of 32 utterances at r={r}, "
+                     f"{m.attention.kind} attention, dropout on")
 
 
 # ---------------------------------------------------------------------------
-# the slice
+# K5: WaveRNN sampling
+# ---------------------------------------------------------------------------
+
+
+def check_wavernn(torch, rng, dev, cfg, frames=128):
+    """K5 at config 5's widths, B=32 rows of ``frames`` mel frames. A
+    reordered float32 sum can flip a near-tie, after which the kernel's and
+    the plain version's histories part, so the kernel is held teacher-forced:
+    the plain pass runs on the kernel's own classes and every class must
+    score within the tolerance of its step's best."""
+    from gst_tacotron_tpu_torch.ops.wavernn import (score_gaps, wavernn_sample,
+                                                    wavernn_sample_plain)
+    from gst_tacotron_tpu_torch.weights import build_wavernn
+
+    v = cfg.model.vocoder
+    model = build_wavernn(cfg, seed=3, device=dev)
+    mel = torch.from_numpy(rng.uniform(0, 1, (B, frames, cfg.model.num_mels))
+                           .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        cond = model.cond_frames(mel).contiguous()
+    packed = model.pack()
+    hop, k = v.wavernn_hop, model.num_classes
+    n = frames * hop
+
+    greedy = wavernn_sample(packed, cond, hop=hop, greedy=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    c1 = wavernn_sample(packed, cond, hop=hop, seed=1)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    # sampling is causal: on the first 8 frames the same seed must repeat the
+    # first 8 * hop classes exactly, and another seed must not
+    head = cond[:, :8].contiguous()
+    c1b = wavernn_sample(packed, head, hop=hop, seed=1)
+    c2 = wavernn_sample(packed, head, hop=hop, seed=2)
+    torch.cuda.synchronize()
+    for c in (greedy, c1):
+        if c.shape != (B, n) or int(c.min()) < 0 or int(c.max()) >= k:
+            fail(f"wavernn_sample: classes of shape {tuple(c.shape)} in "
+                 f"[{int(c.min())}, {int(c.max())}]")
+    if not torch.equal(c1[:, : 8 * hop], c1b):
+        fail("wavernn_sample: the same seed gave different classes")
+    if torch.equal(c1b, c2):
+        fail("wavernn_sample: two seeds gave the same classes")
+    with torch.no_grad():
+        gaps_greedy = score_gaps(packed, cond, greedy, hop=hop, greedy=True)
+        gaps = score_gaps(packed, cond, c1, hop=hop, seed=1)
+    plain = time_ms(torch, lambda: wavernn_sample_plain(packed, cond, hop=hop, seed=1),
+                    iters=1, warmup=0)
+    c, h, f = cond.shape[-1], v.wavernn_gru_dim, v.wavernn_fc_dim
+    flops = 2.0 * (c * 3 * h + h * 3 * h + h * f + f * k) * B * n
+    nbytes = 4.0 * (sum(x.numel() for x in packed.values()) + cond.numel() + B * n)
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(name="wavernn_sample", route="cuda",
+                source="gst_tacotron_tpu_torch/csrc/wavernn_sample.cu",
+                replaces="gst_tacotron_tpu/ops/wavernn_pallas.py:119",
+                max_err=max(float(gaps_greedy.max()), float(gaps.max())), tol=1e-3,
+                max_err_greedy=float(gaps_greedy.max()), max_err_sampled=float(gaps.max()),
+                share_plain_argmax=float((gaps == 0).float().mean()),
+                share_plain_argmax_greedy=float((gaps_greedy == 0).float().mean()),
+                err_unit="score (logit / temperature + Gumbel noise) below the plain "
+                         "teacher-forced pass's best at each step",
+                tol_reason="float32 GEMV sums over 512 terms in another order than the "
+                           "plain version's products, through 32,768 recurrent steps",
+                kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library="none: no single PyTorch call runs autoregressive sampling",
+                work=f"32 rows of {frames} frames ({n} samples), Gumbel-max at temperature 1")
+
+
+# ---------------------------------------------------------------------------
+# the paths
 # ---------------------------------------------------------------------------
 
 
@@ -357,43 +445,55 @@ def make_inputs(rng, sr):
     return texts, wavs
 
 
-def run_slice(torch, rng, dev, cfg, kernels):
+def run_path(torch, rng, dev, name, cfg, expected, vocoder_seed=None, timed_runs=3):
+    """Synthesize one batch through the path ``name`` and check it.
+    ``vocoder_seed``: the seed of a seeded WaveRNN vocoder (None: inline
+    Griffin-Lim). Returns the launch counts of the counted run."""
     from gst_tacotron_tpu_torch import ops
-    from gst_tacotron_tpu_torch.synthesize import Synthesizer
-    from gst_tacotron_tpu_torch.weights import build_model
+    from gst_tacotron_tpu_torch.dsp.mulaw import mulaw_encode
+    from gst_tacotron_tpu_torch.ops.wavernn import score_gaps
+    from gst_tacotron_tpu_torch.synthesize import VOCODER_SEED_OFFSET, Synthesizer
+    from gst_tacotron_tpu_torch.vocoder import WaveRNNVocoder
+    from gst_tacotron_tpu_torch.weights import build_model, build_wavernn
 
     model = build_model(cfg, seed=0, device=dev)
+    vocoder = None
+    if vocoder_seed is not None:
+        vocoder = WaveRNNVocoder(cfg, build_wavernn(cfg, seed=vocoder_seed, device=dev),
+                                 device=dev)
     texts, wavs = make_inputs(rng, cfg.audio.sample_rate)
-    synth = Synthesizer(cfg, model, device=dev)
+    synth = Synthesizer(cfg, model, device=dev, vocoder=vocoder)
 
     ops.reset_launch_counts()
     out = synth(texts, reference_wavs=wavs, seed=0)
     torch.cuda.synchronize()
-    counts = {k.name: k.launches for k in ops.all_kernels()}
-    expected = {"gru_scan": 5, "refenc_stack": 1, "stft_features": 4, "decode_scan": 1}
-    log(f"launches on the main path: {counts}")
+    counts = ops.launch_counts()
+    log(f"{name}: launches {counts}")
     if counts != expected:
-        fail(f"launch counts {counts}, expected {expected}")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+        fail(f"{name}: launch counts {counts}, expected {expected}")
 
     steps, r = cfg.model.decoder.max_decode_steps, cfg.model.decoder.reduction_factor
-    n_frames = steps * r
+    n_frames, hop = steps * r, cfg.audio.hop_length
+    wav_len = n_frames * hop if vocoder is not None else hop * (n_frames - 1)
     shapes = {"mel": (B, n_frames, cfg.model.num_mels), "linear": (B, n_frames, cfg.model.num_freq),
-              "alignments": (B, steps, TEXT_TOKENS), "wav": (B, cfg.audio.hop_length * (n_frames - 1)),
+              "alignments": (B, steps, TEXT_TOKENS), "wav": (B, wav_len),
               "style_embedding": (B, cfg.model.gst.style_dim)}
     for key, shape in shapes.items():
         if out[key].shape != shape:
-            fail(f"{key} has shape {out[key].shape}, expected {shape}")
+            fail(f"{name}: {key} has shape {out[key].shape}, expected {shape}")
         if not np.all(np.isfinite(out[key])):
-            fail(f"{key} has non-finite values")
+            fail(f"{name}: {key} has non-finite values")
+    if not np.abs(out["wav"]).max() <= 1.0:
+        fail(f"{name}: wav leaves [-1, 1]: max |wav| {np.abs(out['wav']).max()}")
     if not np.all(out["frame_lengths"] == n_frames):
-        fail(f"frame_lengths {out['frame_lengths']} (stop threshold 1.0 decodes every step)")
+        fail(f"{name}: frame_lengths {out['frame_lengths']} (stop threshold 1.0 decodes every step)")
+    if not np.all(out["wav_lengths"] == n_frames * hop):
+        fail(f"{name}: wav_lengths {out['wav_lengths']}")
     if not np.allclose(out["alignments"].sum(-1), 1.0, atol=1e-4):
-        fail("alignments are not distributions")
+        fail(f"{name}: alignments are not distributions")
 
     walls = []
-    for i in range(3):
+    for i in range(timed_runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         o = synth(texts, reference_wavs=wavs, seed=i + 1)
@@ -401,31 +501,49 @@ def run_slice(torch, rng, dev, cfg, kernels):
     wall = float(np.median(walls))
     audio_s = float(np.sum(o["wav_lengths"])) / cfg.audio.sample_rate
 
-    det = Synthesizer(cfg, model, device=dev, deterministic_prenet=True)(
+    det = Synthesizer(cfg, model, device=dev, deterministic_prenet=True, vocoder=vocoder)(
         texts, reference_wavs=wavs, seed=0)
     t0 = time.perf_counter()
-    plain = Synthesizer(cfg, model, device=dev, deterministic_prenet=True, plain=True)(
-        texts, reference_wavs=wavs, seed=0)
+    plain = Synthesizer(cfg, model, device=dev, deterministic_prenet=True, plain=True,
+                        vocoder=vocoder)(texts, reference_wavs=wavs, seed=0)
     plain_wall = time.perf_counter() - t0
     mel_err = float(np.abs(det["mel"] - plain["mel"]).max())
     wav_err = float(np.abs(det["wav"] - plain["wav"]).max())
     mel_tol = 2e-3
-    info = {"slice": {"preset": "gst_lj", "batch": B, "text_tokens": TEXT_TOKENS,
-                      "ref_frames": 128, "decode_steps": steps,
-                      "wall_ms_per_batch": 1e3 * wall, "wall_ms_runs": [1e3 * w for w in walls],
-                      "audio_seconds": audio_s, "audio_s_per_s": audio_s / wall,
-                      "plain_path_wall_ms": 1e3 * plain_wall,
-                      "mel_max_abs_err_vs_plain": mel_err, "mel_tol": mel_tol,
-                      "wav_max_abs_err_vs_plain": wav_err,
-                      "wav_max_abs": float(np.abs(plain["wav"]).max()),
-                      "note": "informational, a first unoptimized baseline"}}
-    print(json.dumps(info), flush=True)
+    info = {"name": name, "batch": B, "text_tokens": TEXT_TOKENS, "ref_frames": 128,
+            "decode_steps": steps, "reduction_factor": r, "launches": counts,
+            "wall_ms_per_batch": 1e3 * wall, "wall_ms_runs": [1e3 * w for w in walls],
+            "audio_seconds": audio_s, "audio_s_per_s": audio_s / wall,
+            "plain_path_wall_ms": 1e3 * plain_wall,
+            "mel_max_abs_err_vs_plain": mel_err, "mel_tol": mel_tol,
+            "wav_max_abs_err_vs_plain": wav_err,
+            "wav_max_abs": float(np.abs(plain["wav"]).max()),
+            "note": "informational, a first unoptimized baseline"}
+    gap_tol = 1e-3
+    if vocoder is not None:
+        # the kernel path's samples, held teacher-forced on the plain path's mel
+        with torch.no_grad():
+            mel_plain = torch.from_numpy(plain["mel"]).to(dev)
+            classes = mulaw_encode(torch.from_numpy(det["wav"]).to(dev),
+                                   cfg.model.vocoder.wavernn_bits)
+            gaps = score_gaps(vocoder.model.pack(), vocoder.model.cond_frames(mel_plain),
+                              classes, hop=hop, seed=VOCODER_SEED_OFFSET)
+        info.update({"vocoder": "wavernn", "cut": "decode 64 steps (128 frames) of the "
+                     "preset's 500", "sample_score_gap_max": float(gaps.max()),
+                     "sample_score_gap_tol": gap_tol,
+                     "samples_equal_to_plain_path": float(np.mean(det["wav"] == plain["wav"]))})
+    print(json.dumps({"path": info}), flush=True)
     if not mel_err <= mel_tol:
-        fail(f"slice mel differs from the plain path by {mel_err} > {mel_tol}")
-    print(json.dumps(profile_slice(torch, dev, cfg, model, texts, wavs)), flush=True)
+        fail(f"{name}: mel differs from the plain path by {mel_err} > {mel_tol}")
+    if vocoder is not None and not info["sample_score_gap_max"] <= gap_tol:
+        fail(f"{name}: a sampled class scores {info['sample_score_gap_max']} below the "
+             f"plain path's best > {gap_tol}")
+    print(json.dumps(profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder)),
+          flush=True)
+    return counts
 
 
-def profile_slice(torch, dev, cfg, model, texts, wavs):
+def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
     """Where one synthesis spends its time: host-clock stage times (each
     stage ends in a synchronize) and the device time of each kernel from
     torch.profiler, with the device's idle share of the profiled call."""
@@ -458,11 +576,14 @@ def profile_slice(torch, dev, cfg, model, texts, wavs):
             tok, tok_len, ref, ref_len, generator=gen))
         dec_out, stages["decode"] = timed(lambda: model.decoder.decode(memory, tok_len, seed=1))
         linear, stages["postnet"] = timed(lambda: model.postnet(dec_out[0], dec_out[3]))
-        dsp = TorchDSP(cfg.audio, dev)
-        _, stages["griffin_lim"] = timed(lambda: dsp.inv_linear_spectrogram(linear))
+        if vocoder is None:
+            dsp = TorchDSP(cfg.audio, dev)
+            _, stages["griffin_lim"] = timed(lambda: dsp.inv_linear_spectrogram(linear))
+        else:
+            _, stages["wavernn"] = timed(lambda: vocoder({"mel": dec_out[0]}, seed=2))
 
-    synth = Synthesizer(cfg, model, device=dev)
-    synth(texts, reference_wavs=wavs, seed=5)
+    # the path's timed runs came before: kernels, plans and caches are warm
+    synth = Synthesizer(cfg, model, device=dev, vocoder=vocoder)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -482,7 +603,7 @@ def profile_slice(torch, dev, cfg, model, texts, wavs):
             rows.append((e.key[:60], us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"profile": {"stage_ms": stages, "profiled_wall_ms": wall,
+    return {"profile": {"name": name, "stage_ms": stages, "profiled_wall_ms": wall,
                         "device_busy_ms": busy,
                         "device_idle_share": max(0.0, 1.0 - busy / wall),
                         "top_device_ms": [list(r) for r in rows[:14]]}}
@@ -522,12 +643,19 @@ def main() -> None:
         "audio.griffin_lim_momentum": 0.99,
         "model.decoder.stop_threshold": 1.0,
     })
+    cfg3 = apply_overrides(get_preset("gst_r1_location"), {"model.decoder.stop_threshold": 1.0})
+    cfg5 = apply_overrides(get_preset("gst_wavernn"), {
+        "model.decoder.max_decode_steps": 64,
+        "model.decoder.stop_threshold": 1.0,
+    })
     rng = np.random.default_rng(0)
     kernels = []
     for check in (lambda: check_gru(torch, rng, dev),
                   lambda: check_refenc(torch, rng, dev),
                   lambda: check_stft(torch, rng, dev, cfg),
-                  lambda: check_decode(torch, rng, dev, cfg)):
+                  lambda: check_decode(torch, rng, dev, cfg),
+                  lambda: check_decode(torch, np.random.default_rng(1), dev, cfg3, init_seed=8),
+                  lambda: check_wavernn(torch, np.random.default_rng(2), dev, cfg5)):
         t0 = time.perf_counter()
         res = check()
         log(f"{res['name']} checked in {time.perf_counter() - t0:.1f} s")
@@ -540,9 +668,25 @@ def main() -> None:
                  f"{res['max_err_dropout']} > {res['tol']}")
         kernels.append(res)
 
-    t0 = time.perf_counter()
-    run_slice(torch, rng, dev, cfg, kernels)
-    log(f"slice done in {time.perf_counter() - t0:.1f} s")
+    taco = {**dict.fromkeys(ops.launch_counts(), 0), "gru_scan": 5, "refenc_stack": 1,
+            "stft_features": 4, "decode_scan": 1}
+    # (path, config, launches beyond taco's, run_path options); each kernel
+    # row takes its launches from the first path that launches it
+    paths = (("gst_lj", cfg, {}, {}),
+             ("gst_r1_location", cfg3, {"decode_scan:location_sensitive": 1}, {}),
+             ("gst_wavernn", cfg5, {"wavernn_sample": 1}, {"vocoder_seed": 1, "timed_runs": 2}))
+    for i, (name, c, extra, opts) in enumerate(paths):
+        t0 = time.perf_counter()
+        # the gst_lj path keeps drawing its inputs from the checks' generator
+        path_rng = rng if i == 0 else np.random.default_rng(2 + i)
+        counts = run_path(torch, path_rng, dev, name, c, {**taco, **extra}, **opts)
+        for r in kernels:
+            if "launches" not in r and counts[r["name"]]:
+                r["launches"] = counts[r["name"]]
+        log(f"{name} path done in {time.perf_counter() - t0:.1f} s")
+    for r in kernels:
+        if "launches" not in r:
+            fail(f"{r['name']}: no path launched it")
 
     line = [{"name": r["name"], "route": r["route"], "source": r["source"],
              "replaces": r["replaces"], "launches": r["launches"],

@@ -10,6 +10,7 @@ JAX layout so each counterpart is easy to find:
   ops/               — one wrapper per Hopper kernel plus its plain PyTorch twin
   csrc/              — the CUDA C++ kernels (sm_90a), built by nvcc at first use
   weights.py         — flat JAX variables -> port modules; seeded init
+  vocoder.py         — Griffin-Lim and WaveRNN vocoders
   synthesize.py      — ``Synthesizer``: texts + reference wavs -> waveforms
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

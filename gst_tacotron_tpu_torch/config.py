@@ -111,6 +111,11 @@ class AttentionConfig:
     location_kernel_size: int = 31
     cumulative: bool = True
 
+    @property
+    def location_channels(self) -> int:
+        """Channels of the location features: [prev ; cum], or [prev]."""
+        return 2 if self.cumulative else 1
+
 
 @dataclass(frozen=True)
 class DecoderConfig:

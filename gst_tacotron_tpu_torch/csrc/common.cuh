@@ -49,8 +49,10 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
   return r;
 }
 
-// A uniform draw strictly inside (0, 1) from 32 random bits: the top 24 bits
-// plus one half, scaled by 2^-24. Unsigned throughout.
+// A uniform draw strictly inside (0, 1) from 32 random bits: the top 23 bits
+// plus one half, scaled by 2^-23, so every value (2k+1) * 2^-24 is exact in
+// float32 (with 24 bits, 2^24 - 1 + 0.5 rounds up to 2^24 and the draw to
+// 1.0). Unsigned throughout.
 __device__ __forceinline__ float uniform_open01(uint32_t bits) {
-  return (static_cast<float>(bits >> 8) + 0.5f) * (1.0f / 16777216.0f);
+  return (static_cast<float>(bits >> 9) + 0.5f) * (1.0f / 8388608.0f);
 }

@@ -1,9 +1,8 @@
-// K4 — the whole fixed-length autoregressive decode (Bahdanau attention) in
-// one launch.
+// K4 — the whole fixed-length autoregressive decode (Bahdanau or
+// location-sensitive attention) in one launch.
 //
 // Replaces: gst_tacotron_tpu/ops/decode_pallas.py::decode_scan_pallas
-//           (kernel _decode_kernel), Bahdanau branch. The location-sensitive
-//           branch is not ported yet.
+//           (kernel _decode_kernel), both branches.
 //
 // Each step, per utterance: prenet (2 x dense + ReLU, optional inverted
 // dropout) of the last frame -> attention GRU over [prenet ; context] ->
@@ -14,6 +13,20 @@
 // [h ; context] -> the frame in slot r-1 feeds the next step. Position 0 is
 // always valid, so a row of length 0 gets a one-hot alignment.
 //
+// Location term: the score's tanh argument gains
+// loc[t][a] = sum_{j,c} feat_c[t + j - (k-1)/2] * loca[j*c_n + c][a] over the
+// previous alignment (c = 0) and, when cumulative, the running sum of
+// alignments (c = 1), zero outside [0, T). The folded taps loca (k*c_n, A;
+// 62 x 256 floats = 63.5 KB at config 3) and both alignment rows, zero-padded
+// by k-1, stay in shared memory for the whole decode: a direct 31-tap sum
+// with loca read conflict-free across lanes and the features broadcast. It
+// costs about 2*T*k*c_n*A FLOP a step and row (2 MFLOP at config 3) and no
+// device-memory traffic. The TPU kernel's banded-Toeplitz matrix (an MXU
+// device for the same sum, up to 48 MB) is not carried over. After the
+// softmax: prev = align, cum += align, as the JAX code orders it. Bahdanau
+// attention runs the same loop with one zero tap (k = c_n = 1), which adds
+// exactly 0 to each argument.
+//
 // Dropout draws one Philox4x32-10 number per prenet unit, keyed by the seed
 // and counted by (unit, step, layer, row), as a uniform strictly inside
 // (0, 1); a unit is kept when the draw is >= rate and then scaled by
@@ -23,7 +36,9 @@
 // 256, 200 steps at r=2; ~1.9 M weights): about 3.9 MFLOP a step and row,
 // 25 GFLOP per synthesis against ~20 MB of inputs, weights and outputs, so
 // the float32 pipe bounds it (about 0.37 ms at 67 TFLOP/s). Each step
-// depends on the one before.
+// depends on the one before. Location-sensitive at config 3 (the same
+// widths, r=1, 1000 steps): about 5.9 MFLOP a step and row, 189 GFLOP per
+// synthesis, so about 2.8 ms.
 //
 // Design: one block of 1024 threads per utterance runs all steps. Every
 // recurrent state (both attention and decoder GRU states, the context, the
@@ -42,7 +57,7 @@
 struct DecodeWeights {
   const float *pw1, *pb1, *pw2, *pb2;
   const float *awi, *abi, *awh, *abh;
-  const float *qproj, *vvec;
+  const float *qproj, *vvec, *loca;
   const float *dwi, *dbi;
   const float *g1wi, *g1bi, *g1wh, *g1bh;
   const float *g2wi, *g2bi, *g2wh, *g2bh;
@@ -51,7 +66,12 @@ struct DecodeWeights {
 
 struct DecodeDims {
   int T, S, r, NM, P1, P2, Ha, A, Hd, Md, ld_pw1, ld_fw;
+  int loc_k, loc_c;  // location taps, feature channels
 };
+
+// Scores: each warp takes SC_TT consecutive positions, its lanes the
+// attention columns, so one read of a tap column serves SC_TT positions.
+#define SC_TT 2
 
 // y[j] = bias[j] + sum_k x[k] * W[k * ld + j] for j < N; x and y in shared
 // memory (distinct), red holds blockDim floats. Ends with a barrier.
@@ -154,6 +174,10 @@ decode_scan_kernel(const float* __restrict__ memory,   // (B, T, Md)
   float* outv = hdec + d.Hd;
   float* red = outv + d.r * d.NM + d.r;
   float* scratch32 = red + DEC_THREADS;
+  // location state
+  const int KC = d.loc_k * d.loc_c, FW = d.T + d.loc_k - 1, pad = (d.loc_k - 1) / 2;
+  float* loca = scratch32 + 32;          // (KC, A) folded taps
+  float* fpad = loca + KC * d.A;         // (loc_c, FW): prev, cum, zero-padded
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -167,6 +191,9 @@ decode_scan_kernel(const float* __restrict__ memory,   // (B, T, Md)
   for (int i = tid; i < d.Hd; i += nthr) h_d1[i] = h_d2[i] = 0.0f;
   for (int i = tid; i < d.Md; i += nthr) ctx[i] = 0.0f;
   for (int i = tid; i < d.NM; i += nthr) last[i] = 0.0f;
+  for (int i = tid; i < KC * d.A; i += nthr) loca[i] = w.loca[i];
+  // the initial alignment state: a delta at position 0, zero cumulative
+  for (int i = tid; i < d.loc_c * FW; i += nthr) fpad[i] = (i == pad) ? 1.0f : 0.0f;
   __syncthreads();
 
   for (int step = 0; step < d.S; ++step) {
@@ -191,13 +218,37 @@ decode_scan_kernel(const float* __restrict__ memory,   // (B, T, Md)
 
     // scores and masked softmax
     gemv(w.qproj, d.A, nullptr, h_attn, d.Ha, d.A, q, red);
-    for (int t = warp; t < d.T; t += nwarps) {
-      const float* kr = keys_b + (size_t)t * d.A;
-      float s = 0.0f;
-      for (int a = lane; a < d.A; a += 32) s = fmaf(w.vvec[a], tanhf(kr[a] + q[a]), s);
+    for (int t0 = warp * SC_TT; t0 < d.T; t0 += nwarps * SC_TT) {
+      float s[SC_TT];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) sc[t] = (t < len || t == 0) ? s : -1e9f;
+      for (int i = 0; i < SC_TT; ++i) s[i] = 0.0f;
+      for (int a = lane; a < d.A; a += 32) {
+        float loc[SC_TT];
+#pragma unroll
+        for (int i = 0; i < SC_TT; ++i) loc[i] = 0.0f;
+        for (int j = 0; j < d.loc_k; ++j) {
+          for (int c = 0; c < d.loc_c; ++c) {
+            const float wv = loca[(j * d.loc_c + c) * d.A + a];
+            const float* f = fpad + c * FW + j + t0;
+#pragma unroll
+            for (int i = 0; i < SC_TT; ++i)
+              if (t0 + i < d.T) loc[i] = fmaf(f[i], wv, loc[i]);
+          }
+        }
+        const float qa = q[a], va = w.vvec[a];
+#pragma unroll
+        for (int i = 0; i < SC_TT; ++i)
+          if (t0 + i < d.T)
+            s[i] = fmaf(va, tanhf(keys_b[(size_t)(t0 + i) * d.A + a] + qa + loc[i]), s[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < SC_TT; ++i) {
+        float v = s[i];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        const int t = t0 + i;
+        if (lane == 0 && t < d.T) sc[t] = (t < len || t == 0) ? v : -1e9f;
+      }
     }
     __syncthreads();
     float mx = -INFINITY;
@@ -215,6 +266,8 @@ decode_scan_kernel(const float* __restrict__ memory,   // (B, T, Md)
       float a = sc[t] / sum;
       sc[t] = a;
       al[t] = a;
+      fpad[pad + t] = a;                              // prev = align
+      if (d.loc_c == 2) fpad[FW + pad + t] += a;      // cum += align
     }
     __syncthreads();
 
@@ -281,7 +334,8 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
   int hmax = d.Ha > d.Hd ? d.Ha : d.Hd;
   const int XIN = (d.P2 > hmax ? d.P2 : hmax) + d.Md;
   size_t floats = (size_t)d.Ha + 2 * d.Hd + d.Md + d.NM + d.P1 + d.P2 + XIN +
-                  2 * G + d.A + d.T + d.Hd + d.r * d.NM + d.r + DEC_THREADS + 32;
+                  2 * G + d.A + d.T + d.Hd + d.r * d.NM + d.r + DEC_THREADS + 32 +
+                  (size_t)d.loc_k * d.loc_c * d.A + (size_t)d.loc_c * (d.T + d.loc_k - 1);
   size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       decode_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,10 +1,10 @@
-"""Bahdanau attention parameters, the initial attention state and the
-alignment diagonality metric (counterparts of
+"""Bahdanau and location-sensitive attention parameters, the initial
+attention state and the alignment diagonality metric (counterparts of
 ``gst_tacotron_tpu/models/attention.py``).
 
 The per-step score, masked softmax and context of the decoder live in
 ``ops/decode.py`` (the plain version of the decode kernel) and in the
-kernel itself; the module holds the parameters and projects the keys once.
+kernel itself; the modules hold the parameters and project the keys once.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..config import AttentionConfig
-from .modules import Dense
+from .modules import Dense, MatmulConv1D
 
 
 def init_attention_state(batch: int, memory_time: int, device=None) -> Dict[str, torch.Tensor]:
@@ -31,8 +31,6 @@ class BahdanauAttention(nn.Module):
 
     def __init__(self, cfg: AttentionConfig, query_dim: int, memory_dim: int):
         super().__init__()
-        if cfg.kind != "bahdanau":
-            raise ValueError("only Bahdanau attention is ported")
         self.cfg = cfg
         self.query_proj = Dense(query_dim, cfg.dim, use_bias=False)
         self.memory_proj = Dense(memory_dim, cfg.dim, use_bias=False)
@@ -41,6 +39,27 @@ class BahdanauAttention(nn.Module):
     def precompute(self, memory: torch.Tensor) -> torch.Tensor:
         """(B, T, M) encoder states -> (B, T, dim) keys, once per utterance."""
         return self.memory_proj(memory)
+
+
+class LocationSensitiveAttention(BahdanauAttention):
+    """Content + location attention (Chorowski 2015):
+    score = v . tanh(W_k memory + W_q query + W_f conv([prev ; cum])).
+    ``location_conv`` is a (k, c, filters) ``MatmulConv1D`` over c = 2
+    channels [prev ; cum] (1, [prev], without ``cumulative``)."""
+
+    def __init__(self, cfg: AttentionConfig, query_dim: int, memory_dim: int):
+        super().__init__(cfg, query_dim, memory_dim)
+        self.location_conv = MatmulConv1D(cfg.location_channels, cfg.location_filters,
+                                          cfg.location_kernel_size)
+        self.location_proj = Dense(cfg.location_filters, cfg.dim, use_bias=False)
+
+
+def make_attention(cfg: AttentionConfig, query_dim: int, memory_dim: int) -> nn.Module:
+    if cfg.kind == "bahdanau":
+        return BahdanauAttention(cfg, query_dim, memory_dim)
+    if cfg.kind == "location_sensitive":
+        return LocationSensitiveAttention(cfg, query_dim, memory_dim)
+    raise ValueError(f"unknown attention kind {cfg.kind!r}")
 
 
 def alignment_diagonality(alignments: torch.Tensor, text_lengths: torch.Tensor,

@@ -1,5 +1,6 @@
 """Autoregressive mel decoder (counterpart of
-``gst_tacotron_tpu/models/decoder.py``), Bahdanau attention.
+``gst_tacotron_tpu/models/decoder.py``), Bahdanau or location-sensitive
+attention.
 
 ``DecoderCell`` holds the step's parameters under the flax names. The step
 itself runs inside ``ops.decode.decode_scan``: the decode kernel (K4) on the
@@ -17,7 +18,7 @@ from torch import nn
 
 from ..config import AttentionConfig, DecoderConfig
 from ..ops.decode import decode_scan, decode_scan_plain, pack_decoder_weights
-from .attention import BahdanauAttention
+from .attention import make_attention
 from .modules import Dense, Prenet, length_mask
 from .rnn import GRUCell
 
@@ -34,7 +35,7 @@ class DecoderCell(nn.Module):
         self.prenet = Prenet(num_mels, cfg.prenet_dims, cfg.prenet_dropout)
         self.attention_rnn = GRUCell(cfg.prenet_dims[-1] + memory_dim,
                                      cfg.attention_rnn_dim)
-        self.attention = BahdanauAttention(attn_cfg, cfg.attention_rnn_dim, memory_dim)
+        self.attention = make_attention(attn_cfg, cfg.attention_rnn_dim, memory_dim)
         self.decoder_input_proj = Dense(cfg.attention_rnn_dim + memory_dim,
                                         cfg.decoder_rnn_dim)
         for i in range(cfg.num_decoder_rnn_layers):

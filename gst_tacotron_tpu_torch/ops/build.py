@@ -46,13 +46,19 @@ class CudaKernel:
     """One CUDA source and its exported launcher, with a launch counter.
 
     ``launches`` counts successful launches made through ``__call__``; the
-    ops wrapper calls it exactly where it launches the kernel."""
+    ops wrapper calls it exactly where it launches the kernel. A kernel with
+    named branches also counts each branch's launches in
+    ``branch_launches``, from the ``branch`` its wrapper names: the form it
+    launched the kernel in (K4 with location-sensitive taps), so a run shows
+    which form served it."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 branches: Sequence[str] = ()):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.branch_launches = {b: 0 for b in branches}
         self._fn = None
 
     @property
@@ -94,12 +100,14 @@ class CudaKernel:
             self._lib, self._fn, self._err = lib, fn, err
         return self._fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, branch: Optional[str] = None) -> None:
         rc = self.load()(*args)
         if rc != 0:
             msg = self._err(rc).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({rc})")
         self.launches += 1
+        if branch is not None:
+            self.branch_launches[branch] += 1
 
 
 def finish_builds(procs: Iterable[Optional[subprocess.Popen]]) -> None:

@@ -1,14 +1,18 @@
 """Synthesis (counterpart of ``gst_tacotron_tpu/synthesize.py::Synthesizer``).
 
 (texts, reference wavs | token weights) -> tokens + reference mels ->
-encoder + GST -> fixed-length AR decode -> post-net -> Griffin-Lim ->
+encoder + GST -> fixed-length AR decode -> post-net -> vocoder ->
 waveforms, in the three stages of the JAX ``use_pallas_decoder`` mode:
 
   1. encode: text encoder, reference mels through the STFT kernel (K3), the
      GST conv stack (K2) and the reference GRU (K1), memory and keys;
-  2. decode: the decode kernel (K4);
+  2. decode: the decode kernel (K4), Bahdanau or location-sensitive;
   3. finish: frame lengths from the stop logits, frame masking, post-net
      (its BiGRU through K1), Griffin-Lim, alignment diagonality.
+
+With a ``WaveRNNVocoder`` the waveform comes from the masked decoded mel
+through the sampling kernel (K5) instead of Griffin-Lim, drawn with seed
+``seed + 104729``, as the JAX package offsets its vocoder's key.
 
 On the card every kernel launches; with ``device="cpu"`` the same math runs
 through the kernels' plain versions. ``plain=True`` picks the plain versions
@@ -30,6 +34,9 @@ from .models.attention import alignment_diagonality
 from .models.tacotron import GSTTacotron
 from .text import batch_text_to_ids
 
+# the vocoder's seed offset from the call's seed (the JAX package's)
+VOCODER_SEED_OFFSET = 104729
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -40,11 +47,17 @@ class Synthesizer:
 
     def __init__(self, cfg: Config, model: GSTTacotron, *, device=None,
                  text_pad_multiple: int = 32, deterministic_prenet: bool = False,
-                 plain: bool = False):
+                 plain: bool = False, vocoder=None):
         """deterministic_prenet: turn off the prenet dropout that otherwise
         stays on at inference, in both prenets; synthesis is then a
-        deterministic function of (text, style)."""
+        deterministic function of (text, style).
+
+        vocoder: a ``vocoder.make_vocoder`` object. None or a
+        ``GriffinLimVocoder`` keeps Griffin-Lim inline; a ``WaveRNNVocoder``
+        samples the waveform from the decoded mel."""
         self.cfg = cfg
+        self.vocoder = vocoder
+        self._inline_gl = vocoder is None or getattr(vocoder, "kind", "") == "griffin_lim"
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.text_pad_multiple = text_pad_multiple
@@ -98,7 +111,10 @@ class Synthesizer:
             tok, tok_len, ref_mel, ref_lengths, tw, max_steps=steps,
             deterministic_prenet=self.deterministic_prenet, seed=seed,
             plain=self.plain)
-        wav = self.dsp.inv_linear_spectrogram(out["linear"])
+        if self._inline_gl:
+            wav = self.dsp.inv_linear_spectrogram(out["linear"])
+        else:
+            wav = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET, plain=self.plain)
         r = cfg.model.decoder.reduction_factor
         out["diagonality"] = alignment_diagonality(
             out["alignments"], tok_len, torch.clamp(out["frame_lengths"] // r, min=1))

@@ -26,6 +26,7 @@ from torch import nn
 from .config import Config
 from .device import resolve_device
 from .models.tacotron import GSTTacotron
+from .models.wavernn import WaveRNN
 from .text import NUM_SYMBOLS
 
 _RENAMES = {"forward": "fwd", "backward": "bwd"}
@@ -108,9 +109,23 @@ def build_model(cfg: Config, *, seed: Optional[int] = None,
     """A GSTTacotron for ``cfg`` with weights from ``flat`` (JAX variables)
     or from a seeded init, on ``device`` (``cuda`` unless named), in eval
     mode."""
+    return _built(GSTTacotron(cfg.model, cfg.model.num_symbols or NUM_SYMBOLS),
+                  seed, flat, device)
+
+
+def build_wavernn(cfg: Config, *, seed: Optional[int] = None,
+                  flat: Optional[Mapping[str, np.ndarray]] = None,
+                  device=None) -> WaveRNN:
+    """The WaveRNN vocoder of ``cfg.model.vocoder`` with weights from ``flat``
+    (a JAX WaveRNN's variables, ``params/sample_embed/embedding``, ...) or
+    from a seeded init, on ``device`` (``cuda`` unless named), in eval mode."""
+    return _built(WaveRNN(cfg.model.vocoder, cfg.model.num_mels), seed, flat, device)
+
+
+def _built(model: nn.Module, seed: Optional[int],
+           flat: Optional[Mapping[str, np.ndarray]], device) -> nn.Module:
     if (seed is None) == (flat is None):
         raise ValueError("pass exactly one of seed and flat")
-    model = GSTTacotron(cfg.model, cfg.model.num_symbols or NUM_SYMBOLS)
     if flat is not None:
         load_flat(model, flat)
     else:

@@ -106,3 +106,72 @@ def test_decode_scan_kernel(dev, use_dropout):
     ref = decode_scan_plain(cell.pack(), memory, keys, lengths, **kw)
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("use_dropout", [False, True])
+@pytest.mark.parametrize("r,cumulative", [(1, True), (2, False)])
+def test_decode_scan_lsa_kernel(dev, use_dropout, r, cumulative):
+    from gst_tacotron_tpu_torch.config import AttentionConfig, DecoderConfig
+    from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+    from gst_tacotron_tpu_torch.ops.decode import decode_scan, decode_scan_plain
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    dec = DecoderConfig(prenet_dims=(16, 8), attention_rnn_dim=16, decoder_rnn_dim=24,
+                        reduction_factor=r, max_decode_steps=9)
+    attn = AttentionConfig(kind="location_sensitive", dim=12, location_filters=5,
+                           location_kernel_size=7, cumulative=cumulative)
+    cell = DecoderCell(dec, attn, 10, 20)
+    init_weights(cell, seed=5)
+    cell = cell.to(dev)
+    g = torch.Generator().manual_seed(6)
+    t = 37                                # not a multiple of 32 (nor of the warp's 2)
+    memory = rand(g, 3, t, 20).to(dev)
+    with torch.no_grad():
+        keys = cell.precompute_keys(memory).contiguous()
+    lengths = torch.tensor([t, 0, 20], device=dev)
+    kw = dict(dec_cfg=dec, attn_cfg=attn, num_mels=10, steps=9, seed=13,
+              use_dropout=use_dropout)
+    got = decode_scan(cell.pack(), memory, keys, lengths, **kw)
+    ref = decode_scan_plain(cell.pack(), memory, keys, lengths, **kw)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,t,c,h,bits", [(3, 5, 16, 16, 8), (2, 4, 12, 13, 5), (2, 0, 8, 8, 3)])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_wavernn_sample_kernel(dev, b, t, c, h, bits, greedy):
+    """Held teacher-forced: with the plain pass run on the kernel's own
+    classes, every class scores within rounding of its step's best (a
+    near-tie may flip under another summation order, and the histories part
+    after it). Also: the same seed gives the same classes."""
+    from gst_tacotron_tpu_torch.config import VocoderConfig
+    from gst_tacotron_tpu_torch.models.wavernn import WaveRNN
+    from gst_tacotron_tpu_torch.ops.wavernn import KERNEL, score_gaps, wavernn_sample
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    hop = 4
+    model = WaveRNN(VocoderConfig(kind="wavernn", wavernn_gru_dim=h, wavernn_fc_dim=c,
+                                  wavernn_bits=bits, wavernn_hop=hop), 6)
+    init_weights(model, seed=b + c)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape))
+    model = model.to(dev)
+    g = torch.Generator().manual_seed(t + h)
+    mel = torch.rand(b, t, 6, generator=g).to(dev)
+    with torch.no_grad():
+        cond = model.cond_frames(mel).contiguous()
+    packed = model.pack()
+    kw = dict(hop=hop, seed=21, temperature=0.9, greedy=greedy)
+    before = KERNEL.launches
+    classes = wavernn_sample(packed, cond, **kw)
+    again = wavernn_sample(packed, cond, **kw)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + (2 if t else 0)
+    assert classes.shape == (b, t * hop) and classes.dtype == torch.int32
+    assert torch.equal(classes, again)
+    if t:
+        assert int(classes.min()) >= 0 and int(classes.max()) < 2 ** bits
+        gaps = score_gaps(packed, cond, classes, **kw)
+        assert float(gaps.max()) <= 1e-4

@@ -1,4 +1,5 @@
-"""The port imports and runs with ``jax`` blocked, and no file of the port
+"""The port imports and runs with ``jax`` blocked (the gst_lj slice, the
+location-sensitive decode and the WaveRNN vocoder), and no file of the port
 (nor chip_smoke.py) imports jax or the JAX package."""
 
 import ast
@@ -52,6 +53,19 @@ def test_port_imports_and_runs_with_jax_blocked():
         "s = Synthesizer(cfg, build_model(cfg, seed=0, device='cpu'), device='cpu')\n"
         "out = s(['blocked jax.'], max_steps=3)\n"
         "assert out['mel'].shape == (1, 6, 80), out['mel'].shape\n"
+        "from gst_tacotron_tpu_torch.config import apply_overrides\n"
+        "from gst_tacotron_tpu_torch.vocoder import WaveRNNVocoder\n"
+        "from gst_tacotron_tpu_torch.weights import build_wavernn\n"
+        "lsa = apply_overrides(cfg, {'model.attention.kind': 'location_sensitive'})\n"
+        "out = Synthesizer(lsa, build_model(lsa, seed=0, device='cpu'), device='cpu')(\n"
+        "    ['blocked jax.'], max_steps=3)\n"
+        "assert out['alignments'].shape[1] == 3, out['alignments'].shape\n"
+        "voc = apply_overrides(cfg, {'model.vocoder.wavernn_hop': 128,\n"
+        "    'model.vocoder.wavernn_gru_dim': 8, 'model.vocoder.wavernn_fc_dim': 8})\n"
+        "v = WaveRNNVocoder(voc, build_wavernn(voc, seed=0, device='cpu'), device='cpu')\n"
+        "out = Synthesizer(voc, build_model(voc, seed=0, device='cpu'), device='cpu',\n"
+        "                  vocoder=v)(['blocked jax.'], max_steps=2)\n"
+        "assert out['wav'].shape == (1, 4 * 128), out['wav'].shape\n"
         "assert 'gst_tacotron_tpu' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
