@@ -7,11 +7,11 @@ Phases, each of which exits non-zero on failure:
 
 1. build: nvcc compiles every CUDA kernel of the port (one process per
    source, all at once) and the libraries are loaded;
-2. kernels: K1-K5 and K4's location-sensitive branch each run at the shapes
-   their main path gives them and are held against their plain PyTorch
-   versions on the card, in float32 with TF32 off; each is timed beside its
-   plain version, a PyTorch library yardstick where one exists, and its
-   least possible time on an H100;
+2. kernels: K1-K5, K3′, K3″ and K4's location-sensitive branch each run at
+   the shapes their main path gives them and are held against their plain
+   PyTorch versions on the card, in float32 with TF32 off; each is timed
+   beside its plain version, a PyTorch library yardstick where one exists,
+   and its least possible time on an H100;
 3. paths: three configurations synthesize through ``Synthesizer`` on the
    card with seeded random weights, B=32 texts of 64 tokens and 32
    reference wavs of 128 frames, stop threshold 1.0 (every step decodes):
@@ -23,7 +23,12 @@ Phases, each of which exits non-zero on failure:
    Before each path every launch counter is set to 0, and after it the
    counts must show that the path went through each of its kernels; outputs
    must be finite with the expected shapes, the wav within [-1, 1], and the
-   path must agree with the plain path on the card.
+   path must agree with the plain path on the card;
+4. corpus: the training-corpus path on gst_lj (192 synthetic utterances of
+   varied length): patterns with device features (K3), every route of the
+   feature extractor and ``KernelDSP`` (K3′, K3″), the bucketed loader in
+   both transports and the wav-transport features on the card, each held
+   against the host numpy oracle, with launch counts per route.
 
 It prints one JSON line per kernel check and per path, one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -215,59 +220,161 @@ def check_refenc(torch, rng, dev):
 
 
 # ---------------------------------------------------------------------------
-# K3: STFT features
+# K3, K3′, K3″: STFT features
 # ---------------------------------------------------------------------------
 
+STFT_FRAMES = 128       # a reference wav's frames on the main path
+STFT_TOL = 5e-3
+STFT_TOL_REASON = ("normalized-dB units, the JAX kernels' own test tolerance "
+                   "(tests/test_pallas.py); float32 DFT sums over 1024 taps in "
+                   "another order, and the log amplifies errors of quiet bins")
 
-def check_stft(torch, rng, dev, cfg):
-    from gst_tacotron_tpu_torch.ops.stft import (db_normalize, live_tap_span, stft_bases,
-                                                 stft_features, stft_features_plain)
 
-    a = cfg.audio
-    frames = 128
-    length = (frames - 1) * a.hop_length + a.n_fft
-    bases = stft_bases(a, dev)
+def stft_groups(torch, rng, dev, a):
+    """K3's main-path inputs: 4 launches of 8 wavs of 128 frames."""
+    length = (STFT_FRAMES - 1) * a.hop_length + a.n_fft
     groups = []
     for _ in range(B // 8):
         env = rng.uniform(0.05, 0.5, (8, 1))
         wav = rng.uniform(-1, 1, (8, length)) * env
         groups.append(torch.from_numpy(wav.astype(np.float32)).to(dev))
+    return groups
+
+
+def stft_bound(a, n_frames: int, in_bytes: float):
+    """The bound of n_frames frames of features over the live taps: two DFT
+    products and the mel product, against the input bytes plus the bases read
+    once and the outputs written once."""
+    from gst_tacotron_tpu_torch.ops.stft import live_tap_span
+
+    _, _, n_live = live_tap_span(a)
+    flops = n_frames * (2.0 * 2 * n_live * a.num_freq + 2.0 * a.num_freq * a.num_mels)
+    nbytes = in_bytes + 4.0 * (2 * n_live * a.num_freq + a.num_freq * a.num_mels
+                               + n_frames * (a.num_freq + a.num_mels))
+    return bound(flops, nbytes)
+
+
+def torch_stft_yardstick(torch, a, groups, bases):
+    """The library yardstick of K3 and K3′ on ``groups``: torch.stft (cuFFT)
+    + abs + mel product + dB normalization."""
+    from gst_tacotron_tpu_torch.ops.stft import db_normalize
+
+    window = torch.from_numpy(np.pad(
+        0.5 - 0.5 * np.cos(2 * np.pi * np.arange(a.win_length) / a.win_length),
+        ((a.n_fft - a.win_length) // 2, (a.n_fft - a.win_length + 1) // 2)
+    ).astype(np.float32)).to(groups[0].device)
+    mel_t = bases["mel_t"][: a.num_freq]
+
+    def run():
+        for g in groups:
+            spec = torch.stft(g, a.n_fft, a.hop_length, window=window, center=False,
+                              return_complex=True).abs().transpose(1, 2)
+            db_normalize(spec @ mel_t, a), db_normalize(spec, a)
+
+    return run
+
+
+def check_stft(torch, rng, dev, cfg):
+    from gst_tacotron_tpu_torch.ops.stft import stft_bases, stft_features, stft_features_plain
+
+    a = cfg.audio
+    bases = stft_bases(a, dev)
+    groups = stft_groups(torch, rng, dev, a)
     err = 0.0
     for g in groups:
         got = stft_features(g, a, bases)
         ref = stft_features_plain(g, a, bases)
         err = max(err, max_err(got, ref))
 
-    window = torch.from_numpy(np.pad(
-        0.5 - 0.5 * np.cos(2 * np.pi * np.arange(a.win_length) / a.win_length),
-        ((a.n_fft - a.win_length) // 2, (a.n_fft - a.win_length + 1) // 2)
-    ).astype(np.float32)).to(dev)
-    mel_t = bases["mel_t"][: a.num_freq]
-
-    def library():
-        for g in groups:
-            spec = torch.stft(g, a.n_fft, a.hop_length, window=window, center=False,
-                              return_complex=True).abs().transpose(1, 2)
-            db_normalize(spec @ mel_t, a), db_normalize(spec, a)
-
     ms = time_ms(torch, lambda: [stft_features(g, a, bases) for g in groups], iters=10)
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
-    lib = time_ms(torch, library, iters=10)
-    _, _, n_live = live_tap_span(a)
-    n_frames = B * frames
-    flops = n_frames * (2.0 * 2 * n_live * a.num_freq + 2.0 * a.num_freq * a.num_mels)
-    nbytes = 4.0 * (B * length + 2 * n_live * a.num_freq + a.num_freq * a.num_mels
-                    + n_frames * (a.num_freq + a.num_mels))
-    b_ms, b_by = bound(flops, nbytes)
+    lib = time_ms(torch, torch_stft_yardstick(torch, a, groups, bases), iters=10)
+    b_ms, b_by = stft_bound(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups))
     return dict(name="stft_features", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_features.cu",
-                replaces="gst_tacotron_tpu/ops/stft_pallas.py:417", max_err=err, tol=5e-3,
-                tol_reason="normalized-dB units, the JAX kernel's own test tolerance "
-                           "(tests/test_pallas.py); float32 DFT sums over 1024 taps in "
-                           "another order, and the log amplifies errors of quiet bins",
+                replaces="gst_tacotron_tpu/ops/stft_pallas.py:417", max_err=err, tol=STFT_TOL,
+                tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 library="torch.stft (cuFFT) + abs + mel product + dB normalization",
                 work="the 4 launches (32 wavs of 128 frames) of one synthesis")
+
+
+def check_stft_fused(torch, dev, cfg):
+    """K3′ at K3's shapes, in float32 (the extractor's route) and with bf16
+    bases (held against the plain version's bf16 rounding)."""
+    from gst_tacotron_tpu_torch.ops.stft import (stft_bases, stft_features_fused,
+                                                 stft_features_plain)
+
+    a = cfg.audio
+    bases = stft_bases(a, dev)
+    groups = stft_groups(torch, np.random.default_rng(11), dev, a)
+    err = err_bf16 = 0.0
+    for g in groups:
+        err = max(err, max_err(stft_features_fused(g, a, bases), stft_features_plain(g, a, bases)))
+        err_bf16 = max(err_bf16, max_err(stft_features_fused(g, a, bases, bf16_bases=True),
+                                         stft_features_plain(g, a, bases, bf16_bases=True)))
+    first = stft_features_fused(groups[0], a, bases)
+    if max_err(first, stft_features_fused(groups[0], a, bases)) != 0.0:
+        fail("stft_fused: two runs on the same input differ (the tile sum must be ordered)")
+
+    ms = time_ms(torch, lambda: [stft_features_fused(g, a, bases) for g in groups], iters=10)
+    ms_bf16 = time_ms(torch, lambda: [stft_features_fused(g, a, bases, bf16_bases=True)
+                                      for g in groups], iters=10)
+    plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
+    lib = time_ms(torch, torch_stft_yardstick(torch, a, groups, bases), iters=10)
+    b_ms, b_by = stft_bound(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups))
+    return dict(name="stft_fused", route="cuda",
+                source="gst_tacotron_tpu_torch/csrc/stft_fused.cu",
+                replaces="gst_tacotron_tpu/ops/stft_pallas.py:265",
+                max_err=max(err, err_bf16), max_err_f32=err, max_err_bf16=err_bf16,
+                tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
+                kernel_ms=ms, kernel_ms_bf16=ms_bf16, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                library="torch.stft (cuFFT) + abs + mel product + dB normalization",
+                work="K3's 4 launches (32 wavs of 128 frames), float32 bases")
+
+
+def check_stft_frames(torch, dev, cfg):
+    """K3″ at K3's shapes: the (1024, n_fft) frames of each 8-wav launch."""
+    from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+    from gst_tacotron_tpu_torch.ops.stft import (db_normalize, live_tap_span, stft_bases,
+                                                 stft_features_frames,
+                                                 stft_features_frames_plain)
+
+    a = cfg.audio
+    bases = stft_bases(a, dev)
+    dsp = TorchDSP(a, dev)
+    frames = [dsp.frame_precentered(g).reshape(-1, a.n_fft).contiguous()
+              for g in stft_groups(torch, np.random.default_rng(12), dev, a)]
+    err = 0.0
+    for f in frames:
+        err = max(err, max_err(stft_features_frames(f, a, bases),
+                               stft_features_frames_plain(f, a, bases)))
+
+    window = dsp.window
+    mel_t = bases["mel_t"][: a.num_freq]
+
+    def library():
+        for f in frames:
+            spec = torch.fft.rfft(f * window, n=a.n_fft, dim=-1).abs()
+            db_normalize(spec @ mel_t, a), db_normalize(spec, a)
+
+    ms = time_ms(torch, lambda: [stft_features_frames(f, a, bases) for f in frames], iters=10)
+    plain = time_ms(torch, lambda: [stft_features_frames_plain(f, a, bases) for f in frames],
+                    iters=10)
+    lib = time_ms(torch, library, iters=10)
+    _, _, n_live = live_tap_span(a)
+    n_frames = sum(f.shape[0] for f in frames)
+    # the function reads only the live columns of each frame
+    b_ms, b_by = stft_bound(a, n_frames, 4.0 * n_frames * n_live)
+    return dict(name="stft_frames", route="cuda",
+                source="gst_tacotron_tpu_torch/csrc/stft_frames.cu",
+                replaces="gst_tacotron_tpu/ops/stft_pallas.py:118", max_err=err, tol=STFT_TOL,
+                tol_reason=STFT_TOL_REASON,
+                kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library="torch.fft.rfft (cuFFT) of the windowed frames + abs + mel product "
+                        "+ dB normalization",
+                work="4 launches of 1024 frames (the frames of K3's 4 x 8 wavs)")
 
 
 # ---------------------------------------------------------------------------
@@ -584,29 +691,255 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
 
     # the path's timed runs came before: kernels, plans and caches are warm
     synth = Synthesizer(cfg, model, device=dev, vocoder=vocoder)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        synth(texts, reference_wavs=wavs, seed=6)
+
+    def profiled():
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels and copies); host ops report the
-        # device time of their kernels again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((e.key[:60], us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            synth(texts, reference_wavs=wavs, seed=6)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        rows = []
+        for e in prof.key_averages():
+            # device-side events only (kernels and copies); host ops report
+            # the device time of their kernels again
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((e.key[:60], us / 1e3, e.count))
+        rows.sort(key=lambda r: -r[1])
+        return rows, wall, sum(r[1] for r in rows)
+
+    # the device is busy at least as long as the longest stage takes; a
+    # profile below that lost events (one lost K5 whole), so take it once
+    # more, and flag the line if the second is short too
+    rows, wall, busy = profiled()
+    longest = max(stages.values())
+    reprofiled = busy < longest
+    if reprofiled:
+        log(f"{name}: profiled device busy {busy:.1f} ms < the longest stage "
+            f"{longest:.1f} ms; profiling once more")
+        rows, wall, busy = profiled()
     return {"profile": {"name": name, "stage_ms": stages, "profiled_wall_ms": wall,
                         "device_busy_ms": busy,
                         "device_idle_share": max(0.0, 1.0 - busy / wall),
+                        "reprofiled": reprofiled, "suspect": busy < longest,
                         "top_device_ms": [list(r) for r in rows[:14]]}}
+
+
+# ---------------------------------------------------------------------------
+# the training-corpus path
+# ---------------------------------------------------------------------------
+
+CORPUS_UTTERANCES = 192   # with batch 32, every gst_lj bucket fills a batch
+CORPUS_TOL = 5e-4         # normalized dB, tests/test_device_features.py's oracle budget
+# KernelDSP preemphasizes and frames in float32 on the card, as PallasDSP does
+# on the TPU: tests/test_pallas.py's budget for that drop-in
+DSP_TOL = 5e-3
+# tests/test_wav_transport.py's budgets for features from the float16 wire
+# against the feature batches. Its linear max (1e-1) is not enforced here: the
+# wire's dither lifts single near-cancellation bins (mostly DC, true level
+# ~1e-4) above it, as that test's note says, and at this corpus's 130 M bins
+# a few cross it; the line reports the max and the count of such bins, and
+# the card's features are held against the float64 oracle of the same wire
+# rows instead (CORPUS_TOL).
+WIRE_MAE, WIRE_MAX = 1e-3, {"mel": 2e-2, "linear": 1e-1}
+
+
+def wire_oracle(row: np.ndarray, a, frames: int):
+    """Host float64 (mel, linear) of the first ``frames`` frames of one wire
+    row (preemphasized and centre-padded already): the numpy oracle's
+    arithmetic without its own preemphasis and pad."""
+    from gst_tacotron_tpu_torch.dsp import ref as dsp_ref
+    from gst_tacotron_tpu_torch.dsp.mel import mel_filterbank
+
+    fr = dsp_ref.frame_signal(row.astype(np.float64), a.n_fft, a.hop_length,
+                              center=False)[:frames]
+    mag = np.abs(np.fft.rfft(fr * dsp_ref.padded_window(a.win_length, a.n_fft), axis=-1))
+    basis = mel_filterbank(a.sample_rate, a.n_fft, a.num_mels, a.mel_fmin,
+                           a.mel_fmax).astype(np.float64)
+    db = lambda x: dsp_ref.normalize_db(dsp_ref.amp_to_db(x) - a.ref_level_db, a)
+    return db(mag @ basis.T), db(mag)
+
+
+def run_corpus(torch, dev, cfg):
+    """The training-corpus path on ``cfg`` (gst_lj): a variable-length
+    synthetic corpus -> ``generate_patterns(device_features=True)`` (K3) ->
+    every extractor route and ``KernelDSP`` on the same prepared wavs (K3′,
+    K3″, the plain route) -> ``BucketedLoader`` batches in both transports ->
+    ``_materialize_features`` on the card. Each route is held against the
+    host numpy oracle and the resident route's patterns, the wire features
+    against the feature batches. Counts are set to 0 once before the path
+    and read after it; each phase's launches are the counts' growth over
+    it. Returns the path's launch counts."""
+    import tempfile
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.data import (BucketedLoader, PatternDataset, generate_patterns,
+                                             synthetic_utterances)
+    from gst_tacotron_tpu_torch.dsp import ref as dsp_ref
+    from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
+    from gst_tacotron_tpu_torch.ops.stft import KernelDSP
+    from gst_tacotron_tpu_torch.train import _materialize_features
+
+    a = cfg.audio
+    t_path = time.perf_counter()
+    launches, before = {}, {}
+
+    def start():
+        torch.cuda.synchronize()
+        before.update(ops.launch_counts())
+        return time.perf_counter()
+
+    def stop(phase, t0):
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[phase] = {k: n - before[k] for k, n in ops.launch_counts().items()
+                           if n != before[k]}
+        return dt
+
+    def errs(results, refs):
+        return [max(float(np.abs(r[i] - f[i]).max()) for r, f in zip(results, refs))
+                for i in (0, 1)]
+
+    utts = synthetic_utterances(CORPUS_UTTERANCES, variable=True)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = start()
+        generate_patterns(utts, a, out, store_wav=True, device_features=True, device=dev)
+        patterns_s = stop("patterns", t0)
+        ds = PatternDataset(out)
+        items = [ds.load(i) for i in range(len(ds))]
+        wavs = [it["wav"] for it in items]
+        resident = [(it["mel"], it["linear"]) for it in items]
+        num_frames = [1 + len(w) // a.hop_length for w in wavs]
+        t0 = time.perf_counter()
+        oracle = [(dsp_ref.melspectrogram(w, a), dsp_ref.spectrogram(w, a)) for w in wavs]
+        oracle_s = time.perf_counter() - t0
+
+        err_oracle = {"patterns (resident)": errs(resident, oracle)}
+        err_resident, route_ms = {}, {}
+        min_calls = len(DeviceFeatureExtractor(a, dev).plan(num_frames))
+        kernel_of = {"resident": "stft_features", "fused": "stft_fused",
+                     "frames": "stft_frames", None: None}
+        for route, kname in kernel_of.items():
+            ex = DeviceFeatureExtractor(a, dev, stft_kernel=route)
+            label = str(route)
+            t0 = start()
+            res = ex.extract(wavs)
+            route_ms[label] = 1e3 * stop(label, t0)
+            calls = len(ex.plan(num_frames))
+            if launches[label] != ({kname: calls} if kname else {}):
+                fail(f"corpus: route {label} launched {launches[label]}, expected "
+                     f"{calls} launches of {kname}")
+            err_oracle[label] = errs(res, oracle)
+            err_resident[label] = errs(res, resident)
+        kd = KernelDSP(a, dev)
+        t0 = start()
+        res = []
+        for w in wavs:
+            mel, lin = kd.features(torch.from_numpy(w)[None].to(dev))
+            res.append((mel[0].cpu().numpy(), lin[0].cpu().numpy()))
+        route_ms["KernelDSP"] = 1e3 * stop("KernelDSP", t0)
+        if launches["KernelDSP"] != {"stft_frames": len(wavs)}:
+            fail(f"corpus: KernelDSP launched {launches['KernelDSP']}, expected "
+                 f"{len(wavs)} launches of stft_frames")
+        err_oracle["KernelDSP"] = errs(res, oracle)
+        err_resident["KernelDSP"] = errs(res, resident)
+        # the generator extracts in chunks, so at least the one-call plan's count
+        if launches["patterns"].keys() != {"stft_features"} or \
+                launches["patterns"]["stft_features"] < min_calls:
+            fail(f"corpus: generate_patterns launched {launches['patterns']}")
+        del oracle, resident, res
+
+        r = cfg.model.decoder.reduction_factor
+        wire_cfg = apply_overrides(cfg, {"data.wav_transport": True})
+        feat = BucketedLoader(ds, cfg.data, r, seed=0)
+        wire = BucketedLoader(ds, wire_cfg.data, r, seed=0, audio_cfg=a)
+        sizes = [len(m) for m in feat.bucket_members]
+        if min(sizes) < cfg.data.batch_size:
+            fail(f"corpus: bucket sizes {sizes}: a bucket fills no batch of "
+                 f"{cfg.data.batch_size}; raise CORPUS_UTTERANCES")
+        stream = feat.stream()
+        first = next(stream)
+        stream.close()
+        wire_err = {"mel": [0.0, 0.0], "linear": [0.0, 0.0]}
+        wire_vs_oracle, lin_over = [0.0, 0.0], 0
+        zeros_ok, n_batches, mat_ms, feat_s, wire_s = True, 0, 0.0, 0.0, 0.0
+        t0 = start()
+        feat_batches, wire_batches = feat.epoch(0), wire.epoch(0)
+        while True:
+            t1 = time.perf_counter()
+            fb = next(feat_batches, None)
+            t2 = time.perf_counter()
+            wb = next(wire_batches, None)
+            feat_s, wire_s = feat_s + t2 - t1, wire_s + time.perf_counter() - t2
+            if fb is None or wb is None:
+                if fb is not wb:
+                    fail("corpus: the two transports' epochs differ in length")
+                break
+            if n_batches == 0 and any(not np.array_equal(first[k], fb[k]) for k in fb):
+                fail("corpus: the prefetching stream's first batch is not the epoch's")
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in wb.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mat = _materialize_features(wire_cfg, batch)
+            torch.cuda.synchronize()
+            mat_ms += 1e3 * (time.perf_counter() - t1)
+            for k in ("tokens", "token_lengths", "mel_lengths", "speaker_ids"):
+                if not np.array_equal(mat[k].cpu().numpy(), fb[k]):
+                    fail(f"corpus: the wire batch's {k} differ from the feature batch's")
+            t = fb["mel"].shape[1]
+            true_frames = torch.from_numpy(wb["ints"][:, -2]).to(dev)
+            past = torch.arange(mat["mel"].shape[1], device=dev)[None, :] >= true_frames[:, None]
+            for k in ("mel", "linear"):
+                d = (mat[k][:, :t] - torch.from_numpy(fb[k]).to(dev)).abs()
+                wire_err[k][0] = max(wire_err[k][0], float(d.mean()))
+                wire_err[k][1] = max(wire_err[k][1], float(d.max()))
+                zeros_ok &= bool((mat[k][past] == 0).all())
+                if k == "linear":
+                    lin_over += int((d >= WIRE_MAX[k]).sum())
+            got = [mat[k].cpu().numpy() for k in ("mel", "linear")]
+            for j, (row, tf) in enumerate(zip(wb["wav"], wb["ints"][:, -2])):
+                for i, ref in enumerate(wire_oracle(row, a, tf)):
+                    wire_vs_oracle[i] = max(wire_vs_oracle[i],
+                                            float(np.abs(got[i][j, :tf] - ref).max()))
+            n_batches += 1
+        stop("loader", t0)
+
+    info = {"name": "corpus (gst_lj)", "utterances": len(wavs), "frames": sum(num_frames),
+            "audio_seconds": sum(len(w) for w in wavs) / a.sample_rate,
+            "wall_s": time.perf_counter() - t_path, "patterns_s": patterns_s,
+            "oracle_host_s": oracle_s, "extractor_ms": route_ms, "launches": launches,
+            "max_err_vs_oracle": err_oracle, "max_err_vs_resident": err_resident,
+            "tol": CORPUS_TOL, "tol_kernel_dsp": DSP_TOL, "buckets": sizes,
+            "batches_per_transport": n_batches,
+            "feature_batches_s": feat_s, "wire_batches_s": wire_s,
+            "materialize_ms": mat_ms,
+            "wire_vs_feature_mae_max": wire_err, "wire_budget": [WIRE_MAE, WIRE_MAX],
+            "wire_linear_bins_over_max": lin_over,
+            "wire_vs_wire_oracle_max": wire_vs_oracle,
+            "wire_zeros_past_length": zeros_ok,
+            "note": "errors are [mel, linear] max abs in normalized dB; routes by "
+                    "stft_kernel (None is the plain path); extractor ms include host prep"}
+    print(json.dumps({"path": info}), flush=True)
+    for label, (em, el) in err_oracle.items():
+        tol = DSP_TOL if label == "KernelDSP" else CORPUS_TOL
+        if not max(em, el) <= tol:
+            fail(f"corpus: {label} differs from the host oracle by {max(em, el)} > {tol}")
+    if not max(wire_vs_oracle) <= CORPUS_TOL:
+        fail(f"corpus: wire features differ from the wire's host oracle by "
+             f"{max(wire_vs_oracle)} > {CORPUS_TOL}")
+    for k, (mae, mx) in wire_err.items():
+        if not (mae < WIRE_MAE and (k == "linear" or mx < WIRE_MAX[k])):
+            fail(f"corpus: wire {k} MAE {mae} / max {mx} outside ({WIRE_MAE}, {WIRE_MAX[k]})")
+    if not zeros_ok or n_batches < len(sizes):
+        fail(f"corpus: zeros past length {zeros_ok}, {n_batches} batches")
+    return ops.launch_counts()
 
 
 def main() -> None:
@@ -653,6 +986,8 @@ def main() -> None:
     for check in (lambda: check_gru(torch, rng, dev),
                   lambda: check_refenc(torch, rng, dev),
                   lambda: check_stft(torch, rng, dev, cfg),
+                  lambda: check_stft_fused(torch, dev, cfg),
+                  lambda: check_stft_frames(torch, dev, cfg),
                   lambda: check_decode(torch, rng, dev, cfg),
                   lambda: check_decode(torch, np.random.default_rng(1), dev, cfg3, init_seed=8),
                   lambda: check_wavernn(torch, np.random.default_rng(2), dev, cfg5)):
@@ -684,6 +1019,12 @@ def main() -> None:
             if "launches" not in r and counts[r["name"]]:
                 r["launches"] = counts[r["name"]]
         log(f"{name} path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts = run_corpus(torch, dev, get_preset("gst_lj"))
+    for r in kernels:
+        if "launches" not in r and counts[r["name"]]:
+            r["launches"] = counts[r["name"]]
+    log(f"corpus path done in {time.perf_counter() - t0:.1f} s")
     for r in kernels:
         if "launches" not in r:
             fail(f"{r['name']}: no path launched it")

@@ -232,11 +232,13 @@ class DataConfig:
     # Deterministic held-out split: an entry goes to "val" iff
     # md5(entry id) mod 1000 < val_fraction * 1000 (stable across runs/hosts).
     val_fraction: float = 0.0
-    # Wav transport: ship preemphasized int16 wav and compute features on
-    # the device (training path of the JAX package; not ported yet).
+    # Wav transport: the loader ships preemphasized float16 wav and one
+    # packed int32 sidecar a batch, and the features are computed on the
+    # device (train._materialize_features). Needs patterns with --store-wav.
     wav_transport: bool = False
-    # Device-resident corpus (requires wav_transport; training path of the
-    # JAX package; not ported yet).
+    # Device-resident corpus (requires wav_transport): the loader preps it
+    # (BucketedLoader.build_wav_corpus); the trainer that holds it on the
+    # card is not ported yet.
     device_corpus: bool = False
     device_corpus_max_gb: float = 8.0
 

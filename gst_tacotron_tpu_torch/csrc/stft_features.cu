@@ -1,7 +1,8 @@
 // K3 — mel-STFT features: hop-chunk framing of the live window taps,
 // window-baked DFT cos/sin products, magnitude, normalized-dB linear
-// spectrogram, then the mel product and its normalized-dB epilogue, all in
-// one launch.
+// spectrogram (or the raw magnitude, normalize_linear = 0), then the mel
+// product and its normalized-dB epilogue, all in one launch. The DFT tile
+// and the dB map are shared with K3' and K3'' (stft.cuh).
 //
 // Replaces: gst_tacotron_tpu/ops/stft_pallas.py::stft_features_pallas_resident
 //           (kernel _stft_resident_kernel).
@@ -25,30 +26,13 @@
 // overlap, so TF frames need only (TF-1)*hop + n_live samples), walks the
 // frequency axis in FT-bin tiles, and for each tile streams KC-row slices of
 // the cos and sin bases through shared memory into a register-tiled product
-// (each thread holds 4 frames x 2 bins of both real and imaginary sums). The
-// magnitudes of all bins stay in shared memory, so the mel product and its
-// epilogue run in the same block without reading the linear spectrogram
-// back. Tensor-core (TF32/bf16) products are left for a later change.
+// (each thread holds 4 frames x 2 bins of both real and imaginary sums;
+// stft.cuh::stft_tile). The magnitudes of all bins stay in shared memory, so
+// the mel product and its epilogue run in the same block without reading the
+// linear spectrogram back. Tensor-core (TF32/bf16) products are left for a
+// later change.
 
-#include "common.cuh"
-
-#define STFT_TF 16      // frames a block
-#define STFT_FT 128     // frequency bins a tile
-#define STFT_KC 32      // taps a basis slice
-#define STFT_THREADS 256
-
-struct NormConsts {
-  float ref_db, min_db, max_abs;
-  int symmetric;
-};
-
-__device__ __forceinline__ float db_normalize(float x, NormConsts c) {
-  float db = 20.0f * log10f(fmaxf(x, 1e-5f)) - c.ref_db;
-  float unit = (db - c.min_db) / (-c.min_db);
-  if (c.symmetric)
-    return fminf(fmaxf(2.0f * c.max_abs * unit - c.max_abs, -c.max_abs), c.max_abs);
-  return fminf(fmaxf(unit, 0.0f), 1.0f);
-}
+#include "stft.cuh"
 
 __global__ void __launch_bounds__(STFT_THREADS)
 stft_features_kernel(const float* __restrict__ wav,    // (B, L)
@@ -58,7 +42,7 @@ stft_features_kernel(const float* __restrict__ wav,    // (B, L)
                      float* __restrict__ mel_out,      // (B, T, M)
                      float* __restrict__ lin_out,      // (B, T, NF)
                      int L, int T, int hop, int n0, int n_live, int NF,
-                     int NFp, int M, NormConsts nc) {
+                     int NFp, int M, NormConsts nc, int normalize_linear) {
   extern __shared__ float smem[];
   const int seg_len = (STFT_TF - 1) * hop + n_live;
   float* seg = smem;                           // seg_len
@@ -69,8 +53,6 @@ stft_features_kernel(const float* __restrict__ wav,    // (B, L)
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * STFT_TF;
   const int tid = threadIdx.x;
-  const int ty = tid / 64;   // frames 4*ty .. 4*ty+3
-  const int tx = tid % 64;   // bins tx and tx + 64 of the tile
 
   const float* w = wav + (size_t)b * L;
   const int base = t0 * hop + n0;
@@ -79,50 +61,9 @@ stft_features_kernel(const float* __restrict__ wav,    // (B, L)
     seg[i] = s < L ? w[s] : 0.0f;
   }
 
-  for (int f0 = 0; f0 < NFp; f0 += STFT_FT) {
-    float re[4][2], im[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      re[i][0] = re[i][1] = 0.0f;
-      im[i][0] = im[i][1] = 0.0f;
-    }
-    for (int k0 = 0; k0 < n_live; k0 += STFT_KC) {
-      __syncthreads();
-      for (int e = tid; e < STFT_KC * STFT_FT; e += STFT_THREADS) {
-        int kk = e / STFT_FT, ff = e % STFT_FT;
-        int k = k0 + kk;
-        size_t g = (size_t)k * NFp + f0 + ff;
-        bc[e] = k < n_live ? cosb[g] : 0.0f;
-        bs[e] = k < n_live ? sinb[g] : 0.0f;
-      }
-      __syncthreads();
-      const int kmax = min(STFT_KC, n_live - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        float c0 = bc[kk * STFT_FT + tx], c1 = bc[kk * STFT_FT + tx + 64];
-        float s0 = bs[kk * STFT_FT + tx], s1 = bs[kk * STFT_FT + tx + 64];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = seg[(4 * ty + i) * hop + k0 + kk];
-          re[i][0] = fmaf(a, c0, re[i][0]);
-          re[i][1] = fmaf(a, c1, re[i][1]);
-          im[i][0] = fmaf(a, s0, im[i][0]);
-          im[i][1] = fmaf(a, s1, im[i][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lt = 4 * ty + i;
-      const int t = t0 + lt;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int f = f0 + tx + 64 * j;
-        float m = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-        mag[lt * NFp + f] = m;
-        if (t < T && f < NF) lin_out[((size_t)b * T + t) * NF + f] = db_normalize(m, nc);
-      }
-    }
-  }
+  for (int f0 = 0; f0 < NFp; f0 += STFT_FT)
+    stft_tile(seg, hop, cosb, sinb, n_live, NFp, f0, false, bc, bs, mag + f0, NFp,
+              lin_out + (size_t)b * T * NF, T, t0, NF, nc, normalize_linear != 0);
   __syncthreads();
 
   for (int e = tid; e < STFT_TF * M; e += STFT_THREADS) {
@@ -142,7 +83,7 @@ extern "C" int stft_features_launch(const float* wav, const float* cosb,
                                     int L, int T, int hop, int n0, int n_live,
                                     int NF, int NFp, int M, float ref_db,
                                     float min_db, float max_abs, int symmetric,
-                                    cudaStream_t stream) {
+                                    int normalize_linear, cudaStream_t stream) {
   if (NFp % STFT_FT != 0) return (int)cudaErrorInvalidValue;
   NormConsts nc{ref_db, min_db, max_abs, symmetric};
   const int seg_len = (STFT_TF - 1) * hop + n_live;
@@ -154,6 +95,6 @@ extern "C" int stft_features_launch(const float* wav, const float* cosb,
   dim3 grid((T + STFT_TF - 1) / STFT_TF, B);
   stft_features_kernel<<<grid, STFT_THREADS, smem, stream>>>(
       wav, cosb, sinb, melT, mel_out, lin_out, L, T, hop, n0, n_live, NF, NFp,
-      M, nc);
+      M, nc, normalize_linear);
   return (int)cudaGetLastError();
 }

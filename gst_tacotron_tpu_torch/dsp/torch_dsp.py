@@ -1,13 +1,13 @@
 """PyTorch DSP — counterpart of ``gst_tacotron_tpu/dsp/jax_dsp.py``.
 
-Batch-first: wav (B, S) -> spectra (B, T, bins). The forward and inverse
-STFTs use ``torch.fft`` on hop-chunk frames (Griffin-Lim has no Pallas
-kernel in the JAX package, so it stays plain PyTorch here, in float32:
-the port ignores ``AudioConfig.griffin_lim_bf16``). The feature path
-``features_precentered`` is the STFT kernel (K3) through
-``ops.stft.stft_features``. The inverse preemphasis IIR runs blockwise: a
-lower-triangular product inside each block, then the carries across blocks
-as a second triangular product.
+Batch-first: wav (B, S) -> spectra (B, T, bins). Everything here is plain
+PyTorch, as the JAX module is plain jnp: the forward and inverse STFTs use
+``torch.fft`` on hop-chunk frames, Griffin-Lim iterates in float32 (the port
+ignores ``AudioConfig.griffin_lim_bf16``), and ``features_precentered`` is
+the plain feature path of the wav-transport step and of the extractor's
+plain route (the STFT kernels live in ``ops/stft.py``). The inverse
+preemphasis IIR runs blockwise: a lower-triangular product inside each
+block, then the carries across blocks as a second triangular product.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ import torch
 import torch.nn.functional as F
 
 from ..config import AudioConfig
-from ..ops.stft import stft_features
 from .mel import mel_filterbank
 from .ref import padded_window
 
@@ -66,11 +65,26 @@ class TorchDSP:
             cfg.mel_fmax)).to(self.device)                     # (M, F)
         self._winsq = win * win
 
-    # -- forward ------------------------------------------------------------
+    # -- framing ------------------------------------------------------------
+
+    def _frame(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, S) -> (B, T, n_fft) raw frames with reflect centre padding."""
+        pad = self.cfg.n_fft // 2
+        wav = F.pad(wav[:, None, :], (pad, pad), mode="reflect")[:, 0]
+        return self.frame_precentered(wav)
+
+    def frame_precentered(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, L) already preemphasized and centre-padded -> (B, T, n_fft),
+        T = 1 + (L - n_fft) // hop: frame t is samples [t*hop, t*hop + n_fft)
+        (a strided view; the batched extractors zero-pad to bucket lengths
+        after the per-utterance reflect pad, so no pad happens here)."""
+        return wav.unfold(-1, self.cfg.n_fft, self.cfg.hop_length)
+
+    # -- forward STFT / features -------------------------------------------
 
     def stft_ri_precentered(self, wav: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) already centre-padded -> real/imag, each (B, T, F)."""
-        frames = wav.unfold(-1, self.cfg.n_fft, self.cfg.hop_length) * self.window
+        frames = self.frame_precentered(wav) * self.window
         spec = torch.fft.rfft(frames, n=self.cfg.n_fft, dim=-1)
         return spec.real, spec.imag
 
@@ -80,10 +94,43 @@ class TorchDSP:
         wav = F.pad(wav[:, None, :], (pad, pad), mode="reflect")[:, 0]
         return self.stft_ri_precentered(wav)
 
+    def stft(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, S) -> complex (B, T, num_freq)."""
+        re, im = self.stft_ri(wav)
+        return torch.complex(re, im)
+
+    def magnitude(self, wav: torch.Tensor) -> torch.Tensor:
+        re, im = self.stft_ri(wav)
+        return torch.sqrt(re * re + im * im)
+
+    def linear_spectrogram(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, S) -> normalized linear dB spectrogram (B, T, num_freq)."""
+        return self.features(wav)[1]
+
+    def mel_spectrogram(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, S) -> normalized mel spectrogram (B, T, num_mels)."""
+        return self.features(wav)[0]
+
+    def features(self, wav: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, S) raw wav -> (mel, linear), one STFT shared by both maps."""
+        return self._features_from_mag(self.magnitude(self.preemphasis(wav)))
+
+    def features_from_frames(self, frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, n_fft) raw frames -> (mel, linear), normalized dB."""
+        spec = torch.fft.rfft(frames * self.window, n=self.cfg.n_fft, dim=-1)
+        return self._features_from_mag(spec.abs())
+
     def features_precentered(self, wav: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) preemphasized + centre-padded -> (mel, linear), normalized
-        dB: the STFT kernel on the card, its plain version on the CPU."""
-        return stft_features(wav, self.cfg)
+        dB, in plain PyTorch (``JaxDSP.features_precentered`` is plain XLA)."""
+        re, im = self.stft_ri_precentered(wav)
+        return self._features_from_mag(torch.sqrt(re * re + im * im))
+
+    def _features_from_mag(self, mag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        lin = normalize_db(amp_to_db(mag) - cfg.ref_level_db, cfg)
+        mel = normalize_db(amp_to_db(mag @ self.mel_basis.T) - cfg.ref_level_db, cfg)
+        return mel, lin
 
     # -- inverse ------------------------------------------------------------
 

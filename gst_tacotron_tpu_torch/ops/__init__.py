@@ -1,10 +1,12 @@
 """Hopper kernels of the port, one module each, with their plain PyTorch twins.
 
-  gru.py     K1  gru_scan        <- gst_tacotron_tpu/ops/gru_pallas.py
-  refenc.py  K2  refenc_stack    <- gst_tacotron_tpu/ops/refenc_pallas.py
-  stft.py    K3  stft_features   <- gst_tacotron_tpu/ops/stft_pallas.py
-  decode.py  K4  decode_scan     <- gst_tacotron_tpu/ops/decode_pallas.py
-  wavernn.py K5  wavernn_sample  <- gst_tacotron_tpu/ops/wavernn_pallas.py
+  gru.py     K1  gru_scan              <- gst_tacotron_tpu/ops/gru_pallas.py
+  refenc.py  K2  refenc_stack          <- gst_tacotron_tpu/ops/refenc_pallas.py
+  stft.py    K3  stft_features         <- gst_tacotron_tpu/ops/stft_pallas.py
+             K3′ stft_features_fused   <- the same file, frequency-split form
+             K3″ stft_features_frames  <- the same file, pre-framed form
+  decode.py  K4  decode_scan           <- gst_tacotron_tpu/ops/decode_pallas.py
+  wavernn.py K5  wavernn_sample        <- gst_tacotron_tpu/ops/wavernn_pallas.py
 
 ``philox.py`` is the kernels' random stream for their plain versions.
 
@@ -14,10 +16,11 @@ the plain version for CPU tensors.
 
 
 def all_kernels():
-    """Every CUDA kernel of the port, in K1..K5 order."""
+    """Every CUDA kernel of the port, in K1..K5 order (K3′, K3″ after K3)."""
     from . import decode, gru, refenc, stft, wavernn
 
-    return [gru.KERNEL, refenc.KERNEL, stft.KERNEL, decode.KERNEL, wavernn.KERNEL]
+    return [gru.KERNEL, refenc.KERNEL, stft.KERNEL, stft.FUSED_KERNEL, stft.FRAMES_KERNEL,
+            decode.KERNEL, wavernn.KERNEL]
 
 
 def launch_counts():

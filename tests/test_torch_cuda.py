@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small and ragged shapes that chip_smoke.py's main-path shapes do not reach
 (tiny widths, odd lengths, length-0 rows, a frame count off the kernel's
-tile). Needs an NVIDIA GPU and nvcc; skipped without a card. On the GPU
-machine, which has no JAX (tests/conftest.py imports it), run:
+tile), and the STFT extractor's routes. Needs an NVIDIA GPU and nvcc;
+skipped without a card. On the GPU machine, which has no JAX
+(tests/conftest.py imports it), run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -80,6 +81,99 @@ def test_stft_features_kernel(dev, win):
     assert got[0].shape == (3, frames, 80) and got[1].shape == (3, frames, 257)
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("win", [512, 256])
+@pytest.mark.parametrize("normalize_linear", [True, False])
+def test_stft_fused_kernel(dev, win, normalize_linear):
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops.stft import (FUSED_KERNEL, stft_features_fused,
+                                                 stft_features_plain)
+
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=win)
+    g = torch.Generator().manual_seed(win + 1)
+    frames = 21                           # not a multiple of the kernel's 16-frame tile
+    wav = (torch.rand(3, 512 + 128 * (frames - 1) + 77, generator=g) - 0.5).to(dev)
+    before = FUSED_KERNEL.launches
+    got = stft_features_fused(wav, cfg, normalize_linear=normalize_linear)
+    torch.cuda.synchronize()
+    assert FUSED_KERNEL.launches == before + 1
+    ref = stft_features_plain(wav, cfg, normalize_linear=normalize_linear)
+    assert got[0].shape == (3, frames, 80) and got[1].shape == (3, frames, 257)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, atol=5e-4, rtol=1e-5)
+    # deterministic: the partial mels are summed in a fixed order
+    again = stft_features_fused(wav, cfg, normalize_linear=normalize_linear)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_stft_fused_kernel_bf16(dev):
+    """bf16 bases: the kernel rounds frames and bases as the plain version
+    does, so the two agree to float32 sums; both stay near float32 features
+    on loud bins (tests/test_pallas.py's bf16 budget)."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops.stft import stft_features_fused, stft_features_plain
+
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=512)
+    g = torch.Generator().manual_seed(5)
+    wav = (torch.rand(2, 512 + 128 * 40, generator=g) - 0.5).to(dev)
+    got = stft_features_fused(wav, cfg, bf16_bases=True)
+    ref = stft_features_plain(wav, cfg, bf16_bases=True)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, atol=5e-4, rtol=1e-5)
+    f32 = stft_features_plain(wav, cfg)[0]
+    loud = f32 > 0.5
+    assert loud.any() and float((got[0] - f32).abs()[loud].max()) < 0.05
+
+
+@pytest.mark.parametrize("win", [512, 256])
+@pytest.mark.parametrize("n", [37, 1, 16])
+def test_stft_frames_kernel(dev, win, n):
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops.stft import (FRAMES_KERNEL, stft_features_frames,
+                                                 stft_features_frames_plain)
+
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=win)
+    g = torch.Generator().manual_seed(n + win)
+    frames = (torch.rand(n, 512, generator=g) - 0.5).to(dev)
+    for normalize_linear in (True, False):
+        before = FRAMES_KERNEL.launches
+        got = stft_features_frames(frames, cfg, normalize_linear=normalize_linear)
+        torch.cuda.synchronize()
+        assert FRAMES_KERNEL.launches == before + 1
+        ref = stft_features_frames_plain(frames, cfg, normalize_linear=normalize_linear)
+        assert got[0].shape == (n, 80) and got[1].shape == (n, 257)
+        for x, y in zip(got, ref):
+            torch.testing.assert_close(x, y, atol=5e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("route,kernel", [("resident", "stft_features"),
+                                          ("fused", "stft_fused"),
+                                          ("frames", "stft_frames"),
+                                          (None, None)])
+def test_extractor_route_launches_its_own_kernel(dev, route, kernel):
+    """Each extractor route launches its own kernel once per device batch and
+    no other; the plain route (None) launches none."""
+    import numpy as np
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.dsp import ref as dsp_ref
+    from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
+
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=256)
+    rng = np.random.default_rng(8)
+    wavs = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for n in (1000, 2500, 700, 5000, 1001)]
+    ex = DeviceFeatureExtractor(cfg, dev, batch_size=2, frame_bucket=8, stft_kernel=route)
+    ops.reset_launch_counts()
+    res = ex.extract(wavs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    calls = len(ex.plan([1 + len(w) // cfg.hop_length for w in wavs]))
+    assert counts == {**dict.fromkeys(counts, 0), **({kernel: calls} if kernel else {})}
+    for wav, (mel, lin) in zip(wavs, res):
+        np.testing.assert_allclose(mel, dsp_ref.melspectrogram(wav, cfg), atol=5e-4)
+        np.testing.assert_allclose(lin, dsp_ref.spectrogram(wav, cfg), atol=5e-4)
 
 
 @pytest.mark.parametrize("use_dropout", [False, True])

@@ -1,5 +1,5 @@
 """Device rules of the port, for every kernel's wrapper (K4's location-
-sensitive branch and K5 included): CPU tensors take the plain path and
+sensitive branch, K5, K3′ and K3″ included): CPU tensors take the plain path and
 launch no kernel; with no card and no device named, entry points raise; a tensor on
 any other device raises instead of falling back; a failed launch raises and
 is not counted; a build with no nvcc raises."""
@@ -12,7 +12,8 @@ import torch
 
 from gst_tacotron_tpu_torch import ops
 from gst_tacotron_tpu_torch.config import AudioConfig, load_config
-from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
+from gst_tacotron_tpu_torch.data import generate_patterns, synthetic_utterances
+from gst_tacotron_tpu_torch.dsp.device_features import ROUTES, DeviceFeatureExtractor
 from gst_tacotron_tpu_torch.config import AttentionConfig, DecoderConfig, VocoderConfig
 from gst_tacotron_tpu_torch.models.decoder import DecoderCell
 from gst_tacotron_tpu_torch.models.wavernn import WaveRNN
@@ -73,6 +74,14 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     wav = torch.rand(2, 512 + 128 * 3)
     assert all(torch.equal(x, y) for x, y in zip(stft.stft_features(wav, cfg),
                                                   stft.stft_features_plain(wav, cfg)))
+    assert all(torch.equal(x, y) for x, y in zip(stft.stft_features_fused(wav, cfg),
+                                                  stft.stft_features_plain(wav, cfg)))
+    frames = torch.rand(5, 512)
+    assert all(torch.equal(x, y) for x, y in zip(stft.stft_features_frames(frames, cfg),
+                                                  stft.stft_features_frames_plain(frames, cfg)))
+    assert stft.KernelDSP(cfg, device="cpu").features(wav)[0].shape == (2, 8, 80)
+    for route in ROUTES:
+        DeviceFeatureExtractor(cfg, "cpu", stft_kernel=route).extract([np.zeros(900)])
     packed, cond = _wavernn_args("cpu")
     assert torch.equal(wavernn.wavernn_sample(packed, cond, hop=2, seed=3),
                        wavernn.wavernn_sample_plain(packed, cond, hop=2, seed=3))
@@ -87,14 +96,20 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     assert not any(ops.launch_counts().values())
 
 
-def test_no_card_and_no_device_raises(monkeypatch):
+def test_no_card_and_no_device_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config(GOLDEN_CFG)
     model = build_model(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Synthesizer(cfg, model)
+    for route in ROUTES:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceFeatureExtractor(cfg.audio, stft_kernel=route)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        DeviceFeatureExtractor(cfg.audio)
+        stft.KernelDSP(cfg.audio)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate_patterns(synthetic_utterances(1), cfg.audio, str(tmp_path),
+                          device_features=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(cfg, seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -106,9 +121,12 @@ def test_no_card_and_no_device_raises(monkeypatch):
 def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         gru.gru_scan(*_gru_args("meta"))
+    small = AudioConfig(n_fft=512, hop_length=128, win_length=512)
+    for fn in (stft.stft_features, stft.stft_features_fused):
+        with pytest.raises(ValueError, match="expected CUDA tensors"):
+            fn(torch.zeros(1, 1024, device="meta"), small)
     with pytest.raises(ValueError, match="expected CUDA tensors"):
-        stft.stft_features(torch.zeros(1, 1024, device="meta"),
-                           AudioConfig(n_fft=512, hop_length=128, win_length=512))
+        stft.stft_features_frames(torch.zeros(3, 512, device="meta"), small)
     packed, cond = _wavernn_args("meta")
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         wavernn.wavernn_sample(packed, cond, hop=2)
@@ -145,5 +163,6 @@ def test_every_kernel_source_exists_with_its_note():
         assert "Bound on the H100" in src and "Design:" in src
         assert f'extern "C" int {k.symbol}(' in src
     assert [k.name for k in ops.all_kernels()] == [
-        "gru_scan", "refenc_stack", "stft_features", "decode_scan", "wavernn_sample"]
+        "gru_scan", "refenc_stack", "stft_features", "stft_fused", "stft_frames",
+        "decode_scan", "wavernn_sample"]
     assert decode.KERNEL.library_path().name.startswith("decode_scan-")

@@ -1,5 +1,6 @@
 """The port imports and runs with ``jax`` blocked (the gst_lj slice, the
-location-sensitive decode and the WaveRNN vocoder), and no file of the port
+location-sensitive decode, the WaveRNN vocoder, and the training-corpus path:
+a pattern run and a loader batch in both transports), and no file of the port
 (nor chip_smoke.py) imports jax or the JAX package."""
 
 import ast
@@ -66,6 +67,22 @@ def test_port_imports_and_runs_with_jax_blocked():
         "out = Synthesizer(voc, build_model(voc, seed=0, device='cpu'), device='cpu',\n"
         "                  vocoder=v)(['blocked jax.'], max_steps=2)\n"
         "assert out['wav'].shape == (1, 4 * 128), out['wav'].shape\n"
+        "import tempfile\n"
+        "from gst_tacotron_tpu_torch.data import (BucketedLoader, PatternDataset,\n"
+        "    generate_patterns, synthetic_utterances)\n"
+        "from gst_tacotron_tpu_torch.train import _materialize_features\n"
+        "d = tempfile.mkdtemp()\n"
+        "meta = generate_patterns(synthetic_utterances(3), cfg.audio, d, store_wav=True,\n"
+        "                         device_features=True, device='cpu')\n"
+        "assert len(meta['entries']) == 3\n"
+        "data = apply_overrides(cfg, {'data.batch_size': 2, 'data.buckets': [[128, 1024]]})\n"
+        "fb = next(iter(BucketedLoader(PatternDataset(d), data.data, 2).epoch(0)))\n"
+        "assert fb['mel'].shape == (2, 1024, 80), fb['mel'].shape\n"
+        "wd = apply_overrides(data, {'data.wav_transport': True})\n"
+        "wb = next(iter(BucketedLoader(PatternDataset(d), wd.data, 2,\n"
+        "                              audio_cfg=wd.audio).epoch(0)))\n"
+        "mat = _materialize_features(wd, {k: torch.from_numpy(v) for k, v in wb.items()})\n"
+        "assert mat['mel'].shape == (2, 1024, 80), mat['mel'].shape\n"
         "assert 'gst_tacotron_tpu' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
