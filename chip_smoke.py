@@ -9,9 +9,10 @@ Phases, each of which exits non-zero on failure:
    source, all at once) and the libraries are loaded;
 2. kernels: K1-K5, K3′, K3″ and K4's location-sensitive branch each run at
    the shapes their main path gives them and are held against their plain
-   PyTorch versions on the card, in float32 with TF32 off; each is timed
-   beside its plain version, a PyTorch library yardstick where one exists,
-   and its least possible time on an H100;
+   PyTorch versions on the card, in float32 with TF32 off (K1 and K3 also
+   give the same bits on two runs); each is timed beside its plain version,
+   a PyTorch library yardstick where one exists, and its least possible time
+   on an H100 (K1's two phases from torch.profiler);
 3. paths: three configurations synthesize through ``Synthesizer`` on the
    card with seeded random weights, B=32 texts of 64 tokens and 32
    reference wavs of 128 frames, stop threshold 1.0 (every step decodes):
@@ -45,7 +46,7 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth. Every kernel of this slice computes in
+# tensor cores, and HBM3 bandwidth. Every kernel of the port computes in
 # float32 on the CUDA cores.
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -88,71 +89,148 @@ def max_err(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def device_rows(prof):
+    """(name, device ms, count) of each device-side event (kernels and
+    copies) with time in a torch.profiler run; host ops, which report their
+    kernels' time again, are left out."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    return rows
+
+
+def kernel_device_ms(torch, fn, names):
+    """Device ms of one call of ``fn`` by kernel: {label: summed device time
+    of the kernels whose name contains names[label]} from torch.profiler
+    ("" sums every device event)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return {label: sum(ms for key, ms, _ in rows if sub in key) for label, sub in names.items()}
+
+
 # ---------------------------------------------------------------------------
 # K1: GRU scan
 # ---------------------------------------------------------------------------
 
 
 def check_gru(torch, rng, dev):
-    from gst_tacotron_tpu_torch.ops.gru import gru_scan, gru_scan_plain
+    """K1 at the main path's three calls, each with ragged and full lengths:
+    the encoder and post-net BiGRUs (both directions in one launch,
+    ``bigru_scan``, which must give the bits of two one-direction calls) and
+    the reference-encoder GRU (``gru_scan``); two runs give the same bits."""
+    from gst_tacotron_tpu_torch.ops.gru import bigru_scan, gru_scan, gru_scan_plain
 
     h = 128
-    # (T, D, directions) of the main path's GRU scans: encoder BiGRU,
+    # (T, D, directions) of the main path's GRU calls: encoder BiGRU,
     # post-net BiGRU, reference-encoder GRU
-    calls = [(TEXT_TOKENS, 128, (False, True)), (400, 128, (False, True)), (2, 256, (False,))]
+    calls = [(TEXT_TOKENS, 128, 2), (400, 128, 2), (2, 256, 1)]
     t32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def kernel(xs, dirs, lens):
+        if len(dirs) == 2:
+            ys, finals = bigru_scan(xs, *dirs, lengths=lens)
+            return [ys, *finals]
+        return list(gru_scan(xs, *dirs[0], lengths=lens))
+
+    def plain(xs, dirs, lens):
+        outs = [gru_scan_plain(xs, *dr, lengths=lens, reverse=i == 1)
+                for i, dr in enumerate(dirs)]
+        return [torch.cat([ys for ys, _ in outs], -1), *(f for _, f in outs)]
+
     err, flops, nbytes, jobs = 0.0, 0.0, 0.0, []
-    for t, d, dirs in calls:
+    for t, d, ndir in calls:
         lim_i, lim_h = np.sqrt(6 / (d + 3 * h)), np.sqrt(6 / (4 * h))
-        wi = t32(rng.uniform(-lim_i, lim_i, (d, 3 * h)))
-        wh = t32(rng.uniform(-lim_h, lim_h, (h, 3 * h)))
-        bi, bh = t32(rng.normal(0, 0.1, 3 * h)), t32(rng.normal(0, 0.1, 3 * h))
+        dirs = [(torch.zeros(B, h, device=dev), t32(rng.uniform(-lim_i, lim_i, (d, 3 * h))),
+                 t32(rng.normal(0, 0.1, 3 * h)), t32(rng.uniform(-lim_h, lim_h, (h, 3 * h))),
+                 t32(rng.normal(0, 0.1, 3 * h))) for _ in range(ndir)]
         xs = t32(rng.normal(0, 1, (B, t, d)))
-        h0 = torch.zeros(B, h, device=dev)
         ragged = torch.from_numpy(rng.integers(1, t + 1, B)).to(dev)
         full = torch.full((B,), t, device=dev, dtype=torch.int64)
-        for rev in dirs:
-            for lens in (ragged, full):
-                got = gru_scan(xs, h0, wi, bi, wh, bh, lengths=lens, reverse=rev)
-                ref = gru_scan_plain(xs, h0, wi, bi, wh, bh, lengths=lens, reverse=rev)
-                err = max(err, max_err(got, ref))
-            jobs.append((xs, h0, wi, bi, wh, bh, full, rev))
-            flops += 2.0 * B * t * (d + h) * 3 * h
-            nbytes += 4.0 * (B * t * d + B * t * h + 2 * B * h + (d + h + 2) * 3 * h + B)
+        for lens in (ragged, full):
+            got = kernel(xs, dirs, lens)
+            err = max(err, max_err(got, plain(xs, dirs, lens)))
+            if max_err(got, kernel(xs, dirs, lens)) != 0.0:
+                fail("gru_scan: two runs on the same input differ")
+            if ndir == 2:
+                f = gru_scan(xs, *dirs[0], lengths=lens)
+                b = gru_scan(xs, *dirs[1], lengths=lens, reverse=True)
+                if max_err(got, [torch.cat([f[0], b[0]], -1), f[1], b[1]]) != 0.0:
+                    fail("bigru_scan differs from two one-direction gru_scan calls")
+        jobs.append((xs, dirs, full))
+        flops += ndir * 2.0 * B * t * (d + h) * 3 * h
+        nbytes += 4.0 * (B * t * d + B + ndir * (B * t * h + 2 * B * h + (d + h + 2) * 3 * h))
 
     def run(fn):
-        return lambda: [fn(*j[:6], lengths=j[6], reverse=j[7]) for j in jobs]
+        return lambda: [fn(*j) for j in jobs]
 
-    gru_mods = []
-    for xs, h0, wi, bi, wh, bh, _, rev in jobs:
-        d = wi.shape[0]
-        m = torch.nn.GRU(d, h, batch_first=True).to(dev)
-        reorder = lambda w: torch.cat([w[..., h:2 * h], w[..., :h], w[..., 2 * h:]], -1)
+    reorder = lambda w: torch.cat([w[..., h:2 * h], w[..., :h], w[..., 2 * h:]], -1)
+
+    def cudnn(dirs, bidirectional):
+        m = torch.nn.GRU(dirs[0][1].shape[0], h, batch_first=True,
+                         bidirectional=bidirectional).to(dev)
         with torch.no_grad():
-            m.weight_ih_l0.copy_(reorder(wi).T)
-            m.weight_hh_l0.copy_(reorder(wh).T)
-            m.bias_ih_l0.copy_(reorder(bi))
-            m.bias_hh_l0.copy_(reorder(bh))
-        gru_mods.append((m, xs, h0, rev))
+            for sfx, (_, wi, bi, wh, bh) in zip(("", "_reverse"), dirs):
+                getattr(m, "weight_ih_l0" + sfx).copy_(reorder(wi).T)
+                getattr(m, "weight_hh_l0" + sfx).copy_(reorder(wh).T)
+                getattr(m, "bias_ih_l0" + sfx).copy_(reorder(bi))
+                getattr(m, "bias_hh_l0" + sfx).copy_(reorder(bh))
+        return m
+
+    # the library call of each kernel call (bidirectional cuDNN for a BiGRU),
+    # and the earlier yardstick, one unidirectional cuDNN call a direction
+    bi_mods = [(cudnn(dirs, len(dirs) == 2), xs, torch.stack([dr[0] for dr in dirs]))
+               for xs, dirs, _ in jobs]
+    uni_mods = [(cudnn([dr], False), xs, dr[0], i == 1)
+                for xs, dirs, _ in jobs for i, dr in enumerate(dirs)]
 
     def library():
         with torch.no_grad():
-            for m, xs, h0, rev in gru_mods:
+            for m, xs, h0 in bi_mods:
+                m(xs, h0)
+
+    def library_uni():
+        with torch.no_grad():
+            for m, xs, h0, rev in uni_mods:
                 m(torch.flip(xs, [1]) if rev else xs, h0[None])
 
     torch.cuda.synchronize()
-    ms = time_ms(torch, run(gru_scan))
-    plain = time_ms(torch, run(gru_scan_plain), iters=2)
+    ms = time_ms(torch, run(kernel))
+    plain_ms = time_ms(torch, run(plain), iters=2)
     lib = time_ms(torch, library)
+    lib_uni = time_ms(torch, library_uni)
+    phases = {}
+    for _ in range(2):      # the profiler once lost every event of a call
+        phases = kernel_device_ms(torch, run(kernel), {"input_gemm_ms": "gru_input_gemm",
+                                                       "recurrence_ms": "gru_recur_kernel"})
+        if phases["recurrence_ms"] > 0:
+            break
+    phases.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
     b_ms, b_by = bound(flops, nbytes)
     return dict(name="gru_scan", route="cuda", source="gst_tacotron_tpu_torch/csrc/gru_scan.cu",
                 replaces="gst_tacotron_tpu/ops/gru_pallas.py:56", max_err=err, tol=1e-4,
                 tol_reason="float32 sums over D+H terms in another order, carried "
                            "through up to 400 recurrent steps",
-                kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library="torch.nn.GRU (cuDNN), weights reordered to r,z,n; the main "
-                        "path's rows are full length, so it computes the same function",
-                work="the 5 GRU scans of one synthesis")
+                kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library_ms_unidirectional=lib_uni, **phases,
+                library="torch.nn.GRU (cuDNN), bidirectional for the two BiGRUs, weights "
+                        "reordered to r,z,n; the main path's rows are full length, so it "
+                        "computes the same function; library_ms_unidirectional: one "
+                        "unidirectional call a direction (5 calls)",
+                work="the 3 K1 calls (2 BiGRUs, 1 GRU; 5 scans) of one synthesis; phases "
+                     "are device time by kernel name over one run of the 3 (torch.profiler)")
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +304,9 @@ def check_refenc(torch, rng, dev):
 STFT_FRAMES = 128       # a reference wav's frames on the main path
 STFT_TOL = 5e-3
 STFT_TOL_REASON = ("normalized-dB units, the JAX kernels' own test tolerance "
-                   "(tests/test_pallas.py); float32 DFT sums over 1024 taps in "
-                   "another order, and the log amplifies errors of quiet bins")
+                   "(tests/test_pallas.py); float32 sums (K3: an FFT, K3′ and K3″: "
+                   "DFT products over 1024 taps) in another order than the plain "
+                   "version's, and the log amplifies errors of quiet bins")
 
 
 def stft_groups(torch, rng, dev, a):
@@ -242,15 +321,21 @@ def stft_groups(torch, rng, dev, a):
 
 
 def stft_bound(a, n_frames: int, in_bytes: float):
-    """The bound of n_frames frames of features over the live taps: two DFT
-    products and the mel product, against the input bytes plus the bases read
-    once and the outputs written once."""
-    from gst_tacotron_tpu_torch.ops.stft import live_tap_span
+    """The least time of n_frames frames of features on an H100, from the
+    function's least work and not from any kernel's method: the real FFT of
+    each n_fft-point frame, 2.5 n_fft log2 n_fft operations (half of a complex
+    FFT's 5 N log2 N), plus a multiply and an add for each nonzero weight of
+    the mel filters, against the input bytes, the live window taps and the
+    nonzero mel weights read once and the mel and linear outputs written
+    once. The magnitudes and the dB maps are not counted."""
+    import math
+
+    from gst_tacotron_tpu_torch.ops.stft import live_tap_span, stft_bases
 
     _, _, n_live = live_tap_span(a)
-    flops = n_frames * (2.0 * 2 * n_live * a.num_freq + 2.0 * a.num_freq * a.num_mels)
-    nbytes = in_bytes + 4.0 * (2 * n_live * a.num_freq + a.num_freq * a.num_mels
-                               + n_frames * (a.num_freq + a.num_mels))
+    nnz_mel = stft_bases(a, "cpu")["mel_w"].numel()
+    flops = n_frames * (2.5 * a.n_fft * math.log2(a.n_fft) + 2.0 * nnz_mel)
+    nbytes = in_bytes + 4.0 * (n_live + nnz_mel + n_frames * (a.num_freq + a.num_mels))
     return bound(flops, nbytes)
 
 
@@ -285,16 +370,25 @@ def check_stft(torch, rng, dev, cfg):
         got = stft_features(g, a, bases)
         ref = stft_features_plain(g, a, bases)
         err = max(err, max_err(got, ref))
+        if max_err(got, stft_features(g, a, bases)) != 0.0:
+            fail("stft_features: two runs on the same input differ")
 
     ms = time_ms(torch, lambda: [stft_features(g, a, bases) for g in groups], iters=10)
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
     lib = time_ms(torch, torch_stft_yardstick(torch, a, groups, bases), iters=10)
+    # device time alone: at microseconds a launch, the timed loop may wait on
+    # the host's calls rather than on the card
+    device = kernel_device_ms(torch, lambda: [stft_features(g, a, bases) for g in groups],
+                              {"kernel_device_ms": "stft_features_kernel"})
+    device.update(kernel_device_ms(torch, torch_stft_yardstick(torch, a, groups, bases),
+                                   {"library_device_ms": ""}))
     b_ms, b_by = stft_bound(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups))
     return dict(name="stft_features", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_features.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:417", max_err=err, tol=STFT_TOL,
                 tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                **device,
                 library="torch.stft (cuFFT) + abs + mel product + dB normalization",
                 work="the 4 launches (32 wavs of 128 frames) of one synthesis")
 
@@ -654,7 +748,6 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
     """Where one synthesis spends its time: host-clock stage times (each
     stage ends in a synchronize) and the device time of each kernel from
     torch.profiler, with the device's idle share of the profiled call."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
@@ -699,18 +792,8 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
             synth(texts, reference_wavs=wavs, seed=6)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        rows = []
-        for e in prof.key_averages():
-            # device-side events only (kernels and copies); host ops report
-            # the device time of their kernels again
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            if us > 0:
-                rows.append((e.key[:60], us / 1e3, e.count))
-        rows.sort(key=lambda r: -r[1])
+        rows = sorted(((k[:60], ms, n) for k, ms, n in device_rows(prof)),
+                      key=lambda r: -r[1])
         return rows, wall, sum(r[1] for r in rows)
 
     # the device is busy at least as long as the longest stage takes; a
@@ -1003,7 +1086,9 @@ def main() -> None:
                  f"{res['max_err_dropout']} > {res['tol']}")
         kernels.append(res)
 
-    taco = {**dict.fromkeys(ops.launch_counts(), 0), "gru_scan": 5, "refenc_stack": 1,
+    # gru_scan: the encoder and post-net BiGRUs (one launch each, both
+    # directions) and the reference-encoder GRU
+    taco = {**dict.fromkeys(ops.launch_counts(), 0), "gru_scan": 3, "refenc_stack": 1,
             "stft_features": 4, "decode_scan": 1}
     # (path, config, launches beyond taco's, run_path options); each kernel
     # row takes its launches from the first path that launches it

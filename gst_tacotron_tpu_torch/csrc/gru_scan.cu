@@ -1,4 +1,5 @@
-// K1 — masked Keras-v2 GRU sequence scan, forward or reverse.
+// K1 — masked Keras-v2 GRU sequence scan, forward or reverse, or both
+// directions of a BiGRU in one call.
 //
 // Replaces: gst_tacotron_tpu/ops/gru_pallas.py::gru_scan_pallas
 //           (kernel body _gru_seq_kernel).
@@ -14,115 +15,391 @@
 // 2*(D+H)*3H FLOPs a step and row, about 5.9 GFLOP per synthesis against
 // ~30 MB of inputs and outputs, so the float32 pipe bounds it (about 0.09 ms
 // at 67 TFLOP/s). But the recurrence serialises the T steps of a row: the
-// real limit is the latency of one step, a dot product of length H per gate
-// column and two block barriers.
+// real limit is the latency of one step.
 //
-// Design: one block per batch row. A prologue computes the input term
-// x_t @ wi + bi of every step, 16 steps at a time (16 partial sums in
-// registers per gate column, so each weight read from L2 serves 16 steps),
-// into a per-row scratch in device memory; it does not depend on h, so it
-// runs at full parallelism. The recurrent weights (H x 3H floats, 192 KB at
-// H=128) are then copied once into shared memory, and each of the T serial
-// steps reads only shared memory and its own row of the prologue's output:
-// one thread per gate column forms h @ wh, then H threads apply the gate
-// update. The state lives in shared memory for the whole scan. Faster
-// designs (several rows per block, tensor-core products in the prologue)
-// are left for a later change.
+// Design: two launches of one call (ndir = 1 or 2 directions, each with its
+// own weights; a BiGRU's backward direction writes columns H..2H of ys):
+// 1. gru_input_gemm: gx = xs @ wi + bi for every step, row and direction at
+//    once, a tiled float32 GEMM over the whole card ((B*T, D) x (D, 3H) a
+//    direction, 128 x 64 output tiles, 8 x 4 a thread, the next k-tile
+//    loaded while the current one multiplies) into the wrapper's scratch.
+//    It does not depend on h, so it needs no serial order.
+// 2. gru_recur_kernel on thread-block clusters, one set of clusters a
+//    direction, all in one launch: a cluster of C CTAs serves GRU_ROWS batch
+//    rows. CTA c owns hidden units [c*Hc, (c+1)*Hc) and keeps their z, r, n
+//    columns of wh in registers: thread (unit, slice) holds the GRU_KS
+//    recurrent weights of its slice of the length-H dot product for each
+//    gate, so no FMA chain is longer than GRU_KS, and the S slices of a unit (consecutive
+//    lanes of one warp) finish the sums with a reduce-scatter of shuffles
+//    that leaves each lane one row. Every CTA holds the whole state h
+//    (GRU_ROWS x H) in shared memory, double-buffered. After the gate update
+//    the lanes of a row push its unit's new value into every CTA of the
+//    cluster with st.async, which counts the bytes on the receiver's
+//    mbarrier: a CTA waits only until its next state has arrived, with no
+//    cluster-wide barrier in the loop. The split is by output unit, not by
+//    the reduction axis: no sum crosses CTAs, and the result has the same
+//    bits every run (and each direction the bits of its own one-direction
+//    call). The input term of the next step is prefetched into registers
+//    while the current step computes.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
-#define GRU_TC 16  // steps of the prologue's input term per pass
+namespace cg = cooperative_groups;
 
-__global__ void gru_scan_kernel(const float* __restrict__ xs,      // (B, T, D)
-                                const int* __restrict__ lengths,   // (B,) or null
-                                const float* __restrict__ h0,      // (B, H)
-                                const float* __restrict__ wi,      // (D, 3H)
-                                const float* __restrict__ bi,      // (3H,)
-                                const float* __restrict__ wh,      // (H, 3H)
-                                const float* __restrict__ bh,      // (3H,)
-                                float* __restrict__ ys,            // (B, T, H)
-                                float* __restrict__ final_h,       // (B, H)
-                                float* gxs,                        // (B, T, 3H) scratch
-                                int T, int D, int H, int reverse) {
-  extern __shared__ float smem[];
-  const int G = 3 * H;
-  float* wh_s = smem;          // H * G
-  float* h_s = wh_s + H * G;   // H
-  float* gx_s = h_s + H;       // G
-  float* gh_s = gx_s + G;      // G
-  float* x_s = gh_s + G;       // GRU_TC * D
+#define GEMM_BM 128
+#define GEMM_BN 64
+#define GEMM_BK 16
+#define GRU_ROWS 4    // batch rows a cluster
+#define GRU_KS 8      // recurrent weights a lane holds for each gate
+#define GRU_MAX_THREADS 256   // 16 units x 16 lanes at H = 128
 
-  const int b = blockIdx.x;
+// C (M, N) = A (M, K) @ W (K, N) + bias (N,), row-major, any M, N, K, for
+// the direction blockIdx.z (W0, bias0, C0 or W1, bias1, C1). A
+// block computes a GEMM_BM x GEMM_BN tile, a thread 8 rows x 4 columns,
+// each output one FMA chain over k in ascending order. The next k-tile is
+// loaded into registers while the current one is multiplied.
+__global__ void __launch_bounds__(256, 2)
+gru_input_gemm(const float* __restrict__ A, const float* __restrict__ W0,
+               const float* __restrict__ W1, const float* __restrict__ bias0,
+               const float* __restrict__ bias1, float* __restrict__ C0, float* __restrict__ C1,
+               int M, int N, int K) {
+  // direction blockIdx.z: its weights, bias and output
+  const float* __restrict__ W = blockIdx.z ? W1 : W0;
+  const float* __restrict__ bias = blockIdx.z ? bias1 : bias0;
+  float* __restrict__ C = blockIdx.z ? C1 : C0;
+  __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + 4];  // padded: fewer bank conflicts
+  __shared__ float Ws[GEMM_BK][GEMM_BN];
+  constexpr int LA = GEMM_BM * GEMM_BK / 256, LW = GEMM_BK * GEMM_BN / 256;
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  float* gx_b = gxs + (size_t)b * T * G;
+  const int tx = tid % 16, ty = tid / 16;   // columns tx + 16j, rows 8ty + i
+  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  // prologue: gx[t, j] = bi[j] + sum_d x[t, d] * wi[d, j] for every step
-  for (int t0 = 0; t0 < T; t0 += GRU_TC) {
-    const int tc = min(GRU_TC, T - t0);
-    const float* x = xs + ((size_t)b * T + t0) * D;
-    for (int i = tid; i < tc * D; i += nthr) x_s[i] = x[i];
+  float ra[LA], rw[LW];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int e = tid + 256 * l, m = m0 + e / GEMM_BK, k = k0 + e % GEMM_BK;
+      ra[l] = (m < M && k < K) ? A[(size_t)m * K + k] : 0.0f;
+    }
+#pragma unroll
+    for (int l = 0; l < LW; ++l) {
+      const int e = tid + 256 * l, k = k0 + e / GEMM_BN, n = n0 + e % GEMM_BN;
+      rw[l] = (k < K && n < N) ? W[(size_t)k * N + n] : 0.0f;
+    }
+  };
+  load(0);
+  for (int k0 = 0; k0 < K; k0 += GEMM_BK) {
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int e = tid + 256 * l;
+      As[e % GEMM_BK][e / GEMM_BK] = ra[l];
+    }
+#pragma unroll
+    for (int l = 0; l < LW; ++l) {
+      const int e = tid + 256 * l;
+      Ws[e / GEMM_BN][e % GEMM_BN] = rw[l];
+    }
     __syncthreads();
-    for (int j = tid; j < G; j += nthr) {
-      float acc[GRU_TC];
+    if (k0 + GEMM_BK < K) load(k0 + GEMM_BK);
 #pragma unroll
-      for (int u = 0; u < GRU_TC; ++u) acc[u] = bi[j];
-      for (int d = 0; d < D; ++d) {
-        const float w = __ldg(wi + (size_t)d * G + j);
+    for (int kk = 0; kk < GEMM_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][8 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][8 * ty + 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int u = 0; u < GRU_TC; ++u) acc[u] = fmaf(x_s[u * D + d], w, acc[u]);
+      for (int j = 0; j < 4; ++j) {
+        const float b = Ws[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(av[i], b, acc[i][j]);
       }
-      for (int u = 0; u < tc; ++u) gx_b[(size_t)(t0 + u) * G + j] = acc[u];
     }
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 8 * ty + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) C[(size_t)m * N + n] = acc[i][j] + bias[n];
+    }
+  }
+}
 
-  for (int i = tid; i < H * G; i += nthr) wh_s[i] = wh[i];
-  for (int k = tid; k < H; k += nthr) h_s[k] = h0[b * H + k];
-  const int len = lengths ? lengths[b] : T;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared-memory word in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive once and expect `bytes` more of asynchronous stores in this phase.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// Store v to the cluster address `addr` and count its 4 bytes on the
+// mbarrier `bar` of the same CTA.
+__device__ __forceinline__ void push(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::"r"(
+                   addr),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+
+// One direction of a call: its input term, weights, outputs and order.
+struct GruDir {
+  const float* gx;   // (B, T, 3H) xs @ wi + bi
+  const float* h0;   // (B, H)
+  const float* wh;   // (H, 3H)
+  const float* bh;   // (3H,)
+  float* ys;         // (B, T, .) with row stride ys_stride
+  float* final_h;    // (B, H)
+  int reverse;
+};
+
+struct GruDirs {
+  GruDir d[2];
+};
+
+// Grid (C, ndir * clusters) in clusters of (C, 1, 1), blockIdx.y / clusters
+// the direction (dirs.d[0] or dirs.d[1]); blockDim.x threads,
+// thread tid = unit_local * S + slice (S a power of two, 4 <= S <= 16),
+// holding GRU_KS recurrent weights a gate. hp = S * GRU_KS >= H is the padded row
+// length of the shared state. Lane slice sl owns row sl % 4 of the cluster's
+// four after the reduction; the S / 4 lanes of a row push its new value to
+// C / (S / 4) CTAs each. State buffer b = s & 1 holds h before step s;
+// mbarrier b completes when every CTA's pushes of step s - 1 have landed in
+// it (4 * H * rows bytes), once every two steps, so step s waits on phase
+// parity ((s - 1) / 2) & 1. A CTA pushes step s into buffer (s + 1) & 1 of
+// another only after it has every push of step s - 1, each sent after its
+// sender's reads of that buffer: no CTA overwrites state another still reads.
+__global__ void __launch_bounds__(GRU_MAX_THREADS)
+gru_recur_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
+                 int B, int T, int H, int hc, int S, int ys_stride, int clusters) {
+  static_assert(GRU_ROWS == 4, "the reduce-scatter splits rows on two lane bits");
+  // this CTA's direction, field by field (a reference into the parameters
+  // would copy them to local memory)
+  const bool d1 = blockIdx.y >= clusters;
+  const float* __restrict__ gx = d1 ? dirs.d[1].gx : dirs.d[0].gx;
+  const float* __restrict__ h0 = d1 ? dirs.d[1].h0 : dirs.d[0].h0;
+  const float* __restrict__ wh = d1 ? dirs.d[1].wh : dirs.d[0].wh;
+  const float* __restrict__ bh = d1 ? dirs.d[1].bh : dirs.d[0].bh;
+  float* __restrict__ ys = d1 ? dirs.d[1].ys : dirs.d[0].ys;
+  float* __restrict__ final_h = d1 ? dirs.d[1].final_h : dirs.d[0].final_h;
+  const int reverse = d1 ? dirs.d[1].reverse : dirs.d[0].reverse;
+  extern __shared__ float4 smem4[];
+  const int hp = S * GRU_KS;
+  float* hbuf = reinterpret_cast<float*>(smem4);                          // [2][GRU_ROWS][hp]
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(hbuf + 2 * GRU_ROWS * hp);  // [2]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int ul = tid / S, sl = tid % S;
+  const int u = c * hc + ul;
+  const bool unit_ok = ul < hc && u < H;
+  const int row0 = (blockIdx.y % clusters) * GRU_ROWS;
+  const int r = sl & (GRU_ROWS - 1);           // this lane's row
+  const int gi = sl / GRU_ROWS, gn = S / GRU_ROWS;  // its place among the row's lanes
+  const bool act = unit_ok && row0 + r < B;
+  const int G = 3 * H;
+  const uint32_t hb = smem_addr(hbuf), mb = smem_addr(mbar);
+  const uint32_t tx_bytes = 4u * H * min(GRU_ROWS, B - row0);
+
+  // this thread's recurrent weights: rows sl*GRU_KS + i of columns u, H+u, 2H+u
+  float w[3][GRU_KS];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < GRU_KS; ++i) {
+      const int k = sl * GRU_KS + i;
+      w[g][i] = (unit_ok && k < H) ? wh[(size_t)k * G + g * H + u] : 0.0f;
+    }
+  float bz = 0.0f, br = 0.0f, bn = 0.0f;
+  if (unit_ok) {
+    bz = bh[u];
+    br = bh[H + u];
+    bn = bh[2 * H + u];
+  }
+  const int len = act ? (lengths ? lengths[row0 + r] : T) : 0;
+  const float* gxr = gx + ((size_t)(act ? row0 + r : 0) * T) * G + (act ? u : 0);
+
+  if (tid == 0) {
+    mbar_init(mb, 1);
+    mbar_init(mb + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < 2 * GRU_ROWS * hp; i += blockDim.x) hbuf[i] = 0.0f;
   __syncthreads();
+  for (int i = tid; i < GRU_ROWS * H; i += blockDim.x) {
+    const int rr = i / H, k = i % H;
+    if (row0 + rr < B) hbuf[rr * hp + k] = h0[(size_t)(row0 + rr) * H + k];
+  }
+  // every CTA has started and set its buffers and barriers before any push
+  cluster.sync();
+  // this lane's word (row r, unit u) of state buffer 0; cluster_addr maps it
+  // into every CTA
+  const uint32_t hu = hb + 4u * (r * hp + (unit_ok ? u : 0));
+
+  float gxn[3] = {0.0f, 0.0f, 0.0f};
+  auto prefetch = [&](int s) {
+    if (act && s < T) {
+      const float* g = gxr + (size_t)(reverse ? T - 1 - s : s) * G;
+      gxn[0] = g[0];
+      gxn[1] = g[H];
+      gxn[2] = g[2 * H];
+    }
+  };
+  prefetch(0);
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    for (int j = tid; j < G; j += nthr) {
-      float ah = bh[j];
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) ah = fmaf(h_s[k], wh_s[k * G + j], ah);
-      gh_s[j] = ah;
-      gx_s[j] = gx_b[(size_t)t * G + j];
-    }
-    __syncthreads();
+    const int cur = s & 1, nxt = cur ^ 1;
+    if (s > 0) mbar_wait(mb + 8 * cur, ((s - 1) >> 1) & 1);
+    if (tid == 0) mbar_expect(mb + 8 * nxt, tx_bytes);
+    const float* hcur = hbuf + cur * GRU_ROWS * hp;
+    const float xz = gxn[0], xr = gxn[1], xn = gxn[2];
+    prefetch(s + 1);
 
-    const bool valid = t < len;
-    float* y = ys + ((size_t)b * T + t) * H;
-    for (int k = tid; k < H; k += nthr) {
-      float h = h_s[k];
-      float hn = gru_update(gx_s[k], gx_s[H + k], gx_s[2 * H + k],
-                            gh_s[k], gh_s[H + k], gh_s[2 * H + k], h);
-      hn = valid ? hn : h;
-      h_s[k] = hn;
-      y[k] = hn;
+    float acc[GRU_ROWS][3];
+#pragma unroll
+    for (int q = 0; q < GRU_ROWS; ++q) {
+      const float4* hv = reinterpret_cast<const float4*>(hcur + q * hp + sl * GRU_KS);
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+      for (int i4 = 0; i4 < GRU_KS / 4; ++i4) {
+        const float4 x = hv[i4];
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          a0 = fmaf(xv[j], w[0][4 * i4 + j], a0);
+          a1 = fmaf(xv[j], w[1][4 * i4 + j], a1);
+          a2 = fmaf(xv[j], w[2][4 * i4 + j], a2);
+        }
+      }
+      acc[q][0] = a0;
+      acc[q][1] = a1;
+      acc[q][2] = a2;
     }
-    __syncthreads();
+    // reduce-scatter over the unit's S consecutive lanes: lane bit 1 keeps
+    // rows {2b, 2b+1}, lane bit 0 one of them, so lane sl ends with row
+    // sl % 4; then a butterfly over the higher bits (every lane of a row
+    // gets the same bits: a + b == b + a)
+    const bool b1 = sl & 2, b0 = sl & 1;
+    float k2[2][3], v[3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float send = b1 ? acc[h][g] : acc[2 + h][g];
+        const float keep = b1 ? acc[2 + h][g] : acc[h][g];
+        k2[h][g] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float send = b0 ? k2[0][g] : k2[1][g];
+      const float keep = b0 ? k2[1][g] : k2[0][g];
+      v[g] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+    }
+    for (int off = GRU_ROWS; off < S; off <<= 1) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) v[g] += __shfl_xor_sync(0xffffffffu, v[g], off);
+    }
+
+    const float h = hcur[r * hp + (unit_ok ? u : 0)];
+    float hn = gru_update(xz, xr, xn, v[0] + bz, v[1] + br, v[2] + bn, h);
+    hn = t < len ? hn : h;
+    if (act) {
+      if (gi == 0) ys[((size_t)(row0 + r) * T + t) * ys_stride + u] = hn;
+      const uint32_t a = hu + 4u * nxt * GRU_ROWS * hp;
+      for (int q = gi; q < C; q += gn) push(cluster_addr(a, q), hn, cluster_addr(mb + 8 * nxt, q));
+    }
   }
-  for (int k = tid; k < H; k += nthr) final_h[b * H + k] = h_s[k];
+
+  if (T > 0) mbar_wait(mb + 8 * (T & 1), ((T - 1) >> 1) & 1);
+  if (act && gi == 0)
+    final_h[(size_t)(row0 + r) * H + u] = hbuf[(T & 1) * GRU_ROWS * hp + r * hp + u];
+  // no CTA leaves while another may still address its shared memory
+  cluster.sync();
 }
 
-extern "C" int gru_scan_launch(const float* xs, const int* lengths,
-                               const float* h0, const float* wi,
-                               const float* bi, const float* wh,
-                               const float* bh, float* ys, float* final_h,
-                               float* gx_scratch, int B, int T, int D, int H,
-                               int reverse, cudaStream_t stream) {
+// One call: the input GEMM of every direction, then the clustered
+// recurrence of every direction in one launch. ndir 1: the scan of
+// direction 0 (reverse as given), ys (B, T, H). ndir 2: a BiGRU, direction 0
+// forward and 1 reverse, ys (B, T, 2H) with the backward states in columns
+// H..2H. C CTAs a cluster (C <= 8), hc units a CTA, S slices of GRU_KS
+// weights a unit (4 <= S <= 16), `threads` = hc * S rounded up to a warp;
+// the wrapper's launch plan (ops/gru.py::launch_plan) picks them.
+// gx_scratch holds ndir * B * T * 3H floats.
+extern "C" int gru_scan_launch(const float* xs, const int* lengths, int ndir,
+                               const float* h0a, const float* h0b, const float* wia,
+                               const float* wib, const float* bia, const float* bib,
+                               const float* wha, const float* whb, const float* bha,
+                               const float* bhb, float* ys, float* fina, float* finb,
+                               float* gx_scratch, int B, int T, int D, int H, int reverse,
+                               int C, int hc, int S, int threads, cudaStream_t stream) {
+  if (ndir < 1 || ndir > 2 || C < 1 || C > 8 || S < 4 || S > 16 || (S & (S - 1)) != 0 ||
+      threads % 32 != 0 || threads > GRU_MAX_THREADS || threads < hc * S || C * hc < H ||
+      S * GRU_KS < H)
+    return (int)cudaErrorInvalidValue;
   const int G = 3 * H;
-  int threads = ((G + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  size_t smem = sizeof(float) * ((size_t)H * G + H + 2 * G + (size_t)GRU_TC * D);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long M = (long long)B * T;
+  float* gxa = gx_scratch;
+  float* gxb = gx_scratch + (ndir == 2 ? M * G : 0);
+  if (M > 0) {
+    dim3 grid((G + GEMM_BN - 1) / GEMM_BN, (unsigned)((M + GEMM_BM - 1) / GEMM_BM), ndir);
+    gru_input_gemm<<<grid, 256, 0, stream>>>(xs, wia, wib, bia, bib, gxa, gxb, (int)M, G, D);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int clusters = (B + GRU_ROWS - 1) / GRU_ROWS;
+  GruDirs dirs;
+  dirs.d[0] = GruDir{gxa, h0a, wha, bha, ys, fina, ndir == 2 ? 0 : reverse};
+  dirs.d[1] = GruDir{gxb, h0b, whb, bhb, ys + H, finb, 1};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, ndir * clusters, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = sizeof(float) * 2 * GRU_ROWS * S * GRU_KS + 2 * sizeof(uint64_t);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_recur_kernel, dirs, lengths, B, T, H, hc, S,
+                                       ndir * H, clusters);
   if (err != cudaSuccess) return (int)err;
-  gru_scan_kernel<<<B, threads, smem, stream>>>(xs, lengths, h0, wi, bi, wh,
-                                                bh, ys, final_h, gx_scratch,
-                                                T, D, H, reverse);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 
 Layout as in the JAX package: ``kernel`` (in, 3H) and ``recurrent_kernel``
 (H, 3H) with gate order z, r, n, separate ``bias`` and ``recurrent_bias``,
-reset_after. ``GRU`` runs its whole sequence through ``ops.gru.gru_scan``:
-the CUDA kernel (K1) on the card, its plain version on the CPU. ``plain=True``
+reset_after. ``GRU`` runs its whole sequence through ``ops.gru.gru_scan``,
+``BiGRU`` both directions through ``ops.gru.bigru_scan`` (one launch): the
+CUDA kernel (K1) on the card, its plain version on the CPU. ``plain=True``
 picks the plain version on any device.
 """
 
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.gru import gru_scan, gru_scan_plain, gru_update
+from ..ops.gru import bigru_scan, gru_scan, gru_scan_plain, gru_update
 
 
 class _GRUParams(nn.Module):
@@ -68,6 +69,11 @@ class BiGRU(nn.Module):
 
     def forward(self, xs: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 *, plain: bool = False):
-        f, f_final = self.fwd(xs, lengths, plain=plain)
-        b, b_final = self.bwd(xs, lengths, plain=plain)
-        return torch.cat([f, b], dim=-1), (f_final, b_final)
+        if plain:
+            f, f_final = self.fwd(xs, lengths, plain=True)
+            b, b_final = self.bwd(xs, lengths, plain=True)
+            return torch.cat([f, b], dim=-1), (f_final, b_final)
+        h0 = xs.new_zeros(xs.shape[0], self.fwd.features)
+        fwd, bwd = ((h0, g.kernel, g.bias, g.recurrent_kernel, g.recurrent_bias)
+                    for g in (self.fwd, self.bwd))
+        return bigru_scan(xs, fwd, bwd, lengths=lengths)

@@ -1,10 +1,12 @@
 """The three mel-STFT kernels (counterparts of ``gst_tacotron_tpu/ops/stft_pallas.py``).
 
-All three compute normalized-dB mel and linear features with the window
-baked into DFT cos/sin bases over the window's live taps:
+All three compute normalized-dB mel and linear features of the window's
+live taps. K3 runs a shared-memory real FFT and a sparse mel; K3′ and K3″
+multiply by DFT cos/sin bases with the window baked in:
 
   K3   ``stft_features``        <- ``stft_features_pallas_resident``:
-       (B, L) wav, every frequency in one block (``csrc/stft_features.cu``);
+       (B, L) wav, a block's frames through one FFT each, power-of-two
+       n_fft on the card (``csrc/stft_features.cu``, ``csrc/fft.cuh``);
   K3′  ``stft_features_fused``  <- ``stft_features_pallas_fused``: the same
        function split over 128-bin frequency tiles, the mel summed over the
        tiles by a second launch; ``bf16_bases`` opt-in (``csrc/stft_fused.cu``);
@@ -37,7 +39,7 @@ from ..dsp.torch_dsp import TorchDSP
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream_ptr
 
 KERNEL = CudaKernel("stft_features.cu", "stft_features_launch",
-                    [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, F, I, I, P])
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, I, I, P])
 FUSED_KERNEL = CudaKernel("stft_fused.cu", "stft_fused_launch",
                           [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, F, I, I,
                            I, P])
@@ -52,6 +54,7 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+@functools.lru_cache(maxsize=16)
 def live_tap_span(cfg: AudioConfig) -> Tuple[int, int, int]:
     """(j0, j1, n_live): the hop-chunk span [j0, j1) of the padded window
     with a nonzero tap, and its sample count n_live = (j1 - j0) * hop."""
@@ -87,10 +90,87 @@ def _bases_np(cfg: AudioConfig):
             mel_t)
 
 
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """K3's twiddle table (complex128, n_fft entries; see ``csrc/fft.cuh``)
+    for the n_fft/2-point Stockham FFT and its real split step: per stage
+    (radix 4 while it fits, then one radix 2), p sub-transforms long so far,
+    the entries exp(-2*pi*i*k*q / (R*p)) for q = 1..R-1 (q-major), k < p;
+    n_fft/2 - 1 entries in all. Then exp(-2*pi*i*k / n_fft) for k = 0..n_fft/2."""
+    n = n_fft // 2
+    parts, p = [], 1
+    while 4 * p <= n:
+        k = np.arange(p)
+        parts += [np.exp(-2j * np.pi * k * q / (4 * p)) for q in (1, 2, 3)]
+        p *= 4
+    if p < n:
+        parts.append(np.exp(-2j * np.pi * np.arange(p) / (2 * p)))
+    parts.append(np.exp(-2j * np.pi * np.arange(n + 1) / n_fft))
+    return np.concatenate(parts)
+
+
+def sparse_mel(mel_t: np.ndarray, num_freq: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each mel filter's nonzero bins, from the dense (>= num_freq, M) basis:
+    (lo (M,) its first nonzero bin, off (M + 1,) offsets into w, w the
+    weights of bins lo .. last nonzero in ascending order, zeros between
+    included). An all-zero filter has no weights."""
+    dense = mel_t[:num_freq]
+    lo, off, w = [], [0], []
+    for m in range(dense.shape[1]):
+        nz = np.flatnonzero(dense[:, m])
+        first, last = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        lo.append(first)
+        w.append(dense[first:last, m])
+        off.append(off[-1] + last - first)
+    return (np.asarray(lo, np.int32), np.asarray(off, np.int32),
+            np.concatenate(w).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=4)
+def _fft_tables_np(cfg: AudioConfig):
+    """K3's tables: the float64 twiddles and live window taps as float32,
+    and the sparse mel of the float32 basis."""
+    j0, j1, _ = live_tap_span(cfg)
+    tw = fft_twiddles(cfg.n_fft)
+    win = padded_window(cfg.win_length, cfg.n_fft)[j0 * cfg.hop_length: j1 * cfg.hop_length]
+    lo, off, w = sparse_mel(_bases_np(cfg)[2], cfg.num_freq)
+    return {"fft_twiddle": np.stack([tw.real, tw.imag], -1).astype(np.float32),
+            "fft_window": win.astype(np.float32),
+            "mel_lo": lo, "mel_off": off, "mel_w": w}
+
+
 def stft_bases(cfg: AudioConfig, device) -> Dict[str, torch.Tensor]:
+    """The kernels' device tables: ``cos``, ``sin``, ``mel_t`` (K3′, K3″ and
+    the plain versions) and K3's ``fft_twiddle``, ``fft_window``,
+    ``mel_lo``, ``mel_off``, ``mel_w``."""
     cos_b, sin_b, mel_t = _bases_np(cfg)
-    return {name: torch.from_numpy(a).to(device)
-            for name, a in (("cos", cos_b), ("sin", sin_b), ("mel_t", mel_t))}
+    tables = {"cos": cos_b, "sin": sin_b, "mel_t": mel_t, **_fft_tables_np(cfg)}
+    return {name: torch.from_numpy(a).to(device) for name, a in tables.items()}
+
+
+# K3's frames a block (FFT_FRAMES of the kernel), a block's shared memory,
+# and K3's entries of stft_bases
+FFT_FRAMES = 4
+_MAX_SMEM = 232448
+_FFT_TABLES = ("fft_twiddle", "fft_window", "mel_lo", "mel_off", "mel_w")
+
+
+@functools.lru_cache(maxsize=16)
+def check_fft_size(cfg: AudioConfig) -> int:
+    """K3's shared memory on the card for ``cfg``, or ValueError: its FFT
+    takes power-of-two n_fft >= 8 whose buffers fit one block (the float2
+    twiddles, two ping-pong buffers of FFT_FRAMES transforms, the live window
+    taps and the frames' samples)."""
+    n_fft = cfg.n_fft
+    if n_fft < 8 or n_fft & (n_fft - 1):
+        raise ValueError(f"stft_features: the kernel's FFT takes a power-of-two n_fft, "
+                         f"got {n_fft}; the \"fused\" route (stft_features_fused) takes "
+                         "any hop | n_fft")
+    _, _, n_live = live_tap_span(cfg)
+    smem = 8 * (1 + FFT_FRAMES) * n_fft + 4 * (2 * n_live + (FFT_FRAMES - 1) * cfg.hop_length)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"stft_features: n_fft {n_fft} needs {smem} bytes of shared "
+                         "memory, more than one block has; use the \"fused\" route")
+    return smem
 
 
 def db_normalize(x: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
@@ -161,15 +241,16 @@ def _norm_args(cfg: AudioConfig, normalize_linear: bool):
             int(cfg.symmetric_norm), int(normalize_linear))
 
 
-def _wav_launch_args(wav: torch.Tensor, cfg: AudioConfig, bases, name: str):
-    """Checks and outputs shared by the two wav-input kernels (K3, K3′)."""
+def _wav_launch_args(wav: torch.Tensor, cfg: AudioConfig, bases, name: str, tables):
+    """Checks and outputs shared by the two wav-input kernels (K3, K3′);
+    ``tables`` names the kernel's entries of ``bases``."""
     if wav.dim() != 2:
         raise ValueError(f"{name}: expected (B, L) wav, got shape {tuple(wav.shape)}")
     b, total = wav.shape
     t = _num_frames(cfg, total)
     bases = bases or stft_bases(cfg, wav.device)
     wav = wav.to(torch.float32).contiguous()
-    check_cuda(name, wav, bases["cos"], bases["sin"], bases["mel_t"])
+    check_cuda(name, wav, *(bases[k] for k in tables))
     mel = torch.empty(b, t, cfg.num_mels, device=wav.device, dtype=torch.float32)
     lin = torch.empty(b, t, cfg.num_freq, device=wav.device, dtype=torch.float32)
     return wav, bases, mel, lin
@@ -178,19 +259,24 @@ def _wav_launch_args(wav: torch.Tensor, cfg: AudioConfig, bases, name: str):
 def stft_features(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
                   normalize_linear: bool = True) -> Features:
     """K3: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. ``bases`` (from ``stft_bases``) may be passed to reuse the
-    device copies."""
+    tensors. On the card n_fft must be a power of two (``check_fft_size``
+    raises otherwise and names the ``"fused"`` route, K3′). ``bases`` (from
+    ``stft_bases``) may be passed to reuse the device copies."""
     if wav.device.type == "cpu":
         return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear)
-    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features")
+    check_fft_size(cfg)
+    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features", _FFT_TABLES)
     b, total = wav.shape
     if b == 0:
         return mel, lin
+    if b > 65535:
+        raise ValueError(f"stft_features: batch {b} > 65535")
     j0, _, n_live = live_tap_span(cfg)
-    KERNEL(ptr(wav), ptr(bases["cos"]), ptr(bases["sin"]), ptr(bases["mel_t"]),
+    KERNEL(ptr(wav), ptr(bases["fft_twiddle"]), ptr(bases["fft_window"]),
+           ptr(bases["mel_lo"]), ptr(bases["mel_off"]), ptr(bases["mel_w"]),
            ptr(mel), ptr(lin), b, total, mel.shape[1], cfg.hop_length,
-           j0 * cfg.hop_length, n_live, cfg.num_freq, bases["cos"].shape[1],
-           cfg.num_mels, *_norm_args(cfg, normalize_linear), stream_ptr(wav.device))
+           j0 * cfg.hop_length, n_live, cfg.n_fft, cfg.num_mels,
+           *_norm_args(cfg, normalize_linear), stream_ptr(wav.device))
     return mel, lin
 
 
@@ -203,7 +289,8 @@ def stft_features_fused(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
     if wav.device.type == "cpu":
         return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear,
                                    bf16_bases=bf16_bases)
-    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features_fused")
+    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features_fused",
+                                            ("cos", "sin", "mel_t"))
     b, total = wav.shape
     if b == 0:
         return mel, lin

@@ -27,9 +27,15 @@ def rand(g, *shape, scale=1.0):
     return torch.randn(*shape, generator=g) * scale
 
 
-@pytest.mark.parametrize("b,t,d,h", [(3, 7, 5, 4), (2, 33, 256, 128), (1, 1, 3, 45)])
+# tiny and odd widths (H not divisible by the 8-CTA cluster), and H=128 at the
+# main path's scans: the reference-encoder call (T=2, D=256), the post-net's
+# 400 steps, and B=33, one row past the clusters' 4-row multiple
+@pytest.mark.parametrize("b,t,d,h", [(3, 7, 5, 4), (2, 33, 256, 128), (1, 1, 3, 45),
+                                     (32, 2, 256, 128), (32, 400, 128, 128),
+                                     (33, 64, 128, 128)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_scan_kernel(dev, b, t, d, h, reverse):
+    """Ragged lengths with a length-0 row; two runs give the same bits."""
     from gst_tacotron_tpu_torch.ops.gru import KERNEL, gru_scan, gru_scan_plain
 
     g = torch.Generator().manual_seed(b * t + h)
@@ -39,10 +45,41 @@ def test_gru_scan_kernel(dev, b, t, d, h, reverse):
     lengths = torch.tensor(([t, 0, max(1, t // 2)] * b)[:b], device=dev)
     before = KERNEL.launches
     got = gru_scan(*args, lengths=lengths, reverse=reverse)
+    again = gru_scan(*args, lengths=lengths, reverse=reverse)
     torch.cuda.synchronize()
-    assert KERNEL.launches == before + 1
+    assert KERNEL.launches == before + 2
     ref = gru_scan_plain(*args, lengths=lengths, reverse=reverse)
-    for x, y in zip(got, ref):
+    for x, y, z in zip(got, ref, again):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(33, 400, 128, 128), (3, 7, 5, 45), (2, 5, 3, 4)])
+@pytest.mark.parametrize("with_lengths", [True, False])
+def test_bigru_scan_kernel_is_two_scans(dev, b, t, d, h, with_lengths):
+    """Both directions in one launch: the bits of a forward and a reverse
+    gru_scan, and the plain version's values; without lengths every step
+    counts."""
+    from gst_tacotron_tpu_torch.ops.gru import KERNEL, bigru_scan, gru_scan, gru_scan_plain
+
+    g = torch.Generator().manual_seed(b * t + h)
+    xs = rand(g, b, t, d).to(dev)
+    fwd, bwd = ([a.to(dev) for a in (rand(g, b, h, scale=0.5), rand(g, d, 3 * h, scale=0.1),
+                                    rand(g, 3 * h, scale=0.1), rand(g, h, 3 * h, scale=0.1),
+                                    rand(g, 3 * h, scale=0.1))] for _ in range(2))
+    lengths = torch.tensor(([t, 0, max(1, t // 2)] * b)[:b], device=dev) if with_lengths \
+        else None
+    before = KERNEL.launches
+    ys, (f_final, b_final) = bigru_scan(xs, fwd, bwd, lengths=lengths)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1 and ys.shape == (b, t, 2 * h)
+    f = gru_scan(xs, *fwd, lengths=lengths)
+    r = gru_scan(xs, *bwd, lengths=lengths, reverse=True)
+    assert torch.equal(ys, torch.cat([f[0], r[0]], -1))
+    assert torch.equal(f_final, f[1]) and torch.equal(b_final, r[1])
+    pf = gru_scan_plain(xs, *fwd, lengths=lengths)
+    pr = gru_scan_plain(xs, *bwd, lengths=lengths, reverse=True)
+    for x, y in zip((ys, f_final, b_final), (torch.cat([pf[0], pr[0]], -1), pf[1], pr[1])):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
 
 
@@ -67,20 +104,49 @@ def test_refenc_stack_kernel(dev, t, f, channels):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("win", [512, 256])
-def test_stft_features_kernel(dev, win):
+@pytest.mark.parametrize("n_fft,hop,win,b,frames,normalize_linear", [
+    (512, 128, 512, 3, 21, True),        # 21 frames: not a multiple of the 4-frame block
+    (512, 128, 256, 3, 21, True),
+    (2048, 256, 1024, 3, 21, True),      # the configs' STFT
+    (2048, 256, 1024, 2, 128, True),     # the main path's 128 frames
+    (2048, 256, 1024, 3, 21, False),     # the raw magnitude
+    (2048, 256, 1024, 1, 128, True),     # one wav
+    (1024, 256, 1024, 2, 37, True),      # log2(n_fft / 2) odd: the radix-2 stage
+])
+def test_stft_features_kernel(dev, n_fft, hop, win, b, frames, normalize_linear):
+    """K3's FFT: one launch a call, the plain version's features, and the
+    same bits on a second run."""
     from gst_tacotron_tpu_torch.config import AudioConfig
-    from gst_tacotron_tpu_torch.ops.stft import stft_features, stft_features_plain
+    from gst_tacotron_tpu_torch.ops.stft import KERNEL, stft_features, stft_features_plain
 
-    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=win)
-    g = torch.Generator().manual_seed(win)
-    frames = 21                           # not a multiple of the kernel's 16-frame tile
-    wav = (torch.rand(3, 512 + 128 * (frames - 1), generator=g) - 0.5).to(dev)
-    got = stft_features(wav, cfg)
-    ref = stft_features_plain(wav, cfg)
-    assert got[0].shape == (3, frames, 80) and got[1].shape == (3, frames, 257)
-    for x, y in zip(got, ref):
-        torch.testing.assert_close(x, y, atol=5e-4, rtol=0)
+    cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+    g = torch.Generator().manual_seed(win if n_fft == 512 else n_fft + frames + b)
+    wav = (torch.rand(b, n_fft + hop * (frames - 1), generator=g) - 0.5).to(dev)
+    before = KERNEL.launches
+    got = stft_features(wav, cfg, normalize_linear=normalize_linear)
+    again = stft_features(wav, cfg, normalize_linear=normalize_linear)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2
+    ref = stft_features_plain(wav, cfg, normalize_linear=normalize_linear)
+    assert got[0].shape == (b, frames, 80) and got[1].shape == (b, frames, n_fft // 2 + 1)
+    for x, y, z in zip(got, ref, again):
+        # raw magnitudes reach the hundreds: relative to their size
+        torch.testing.assert_close(x, y, atol=5e-4, rtol=0 if normalize_linear else 1e-5)
+        assert torch.equal(x, z)
+
+
+def test_stft_features_kernel_refuses_non_power_of_two(dev):
+    """n_fft 1536 on the card: K3's FFT refuses it and names the route
+    that takes it; nothing launches."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops.stft import KERNEL, stft_features
+
+    cfg = AudioConfig(n_fft=1536, hop_length=256, win_length=1024)
+    wav = torch.zeros(2, 1536 + 256 * 4, device=dev)
+    before = KERNEL.launches
+    with pytest.raises(ValueError, match='"fused"'):
+        stft_features(wav, cfg)
+    assert KERNEL.launches == before
 
 
 @pytest.mark.parametrize("win", [512, 256])

@@ -59,6 +59,33 @@ def test_plain_matches_flax_scan_and_pallas(reverse, with_lengths):
         np.testing.assert_allclose(fin.numpy(), np.asarray(ref[1]), atol=1e-5)
 
 
+@pytest.mark.parametrize("with_lengths", [True, False])
+def test_bigru_scan_matches_two_pallas_scans(with_lengths):
+    """``bigru_scan`` (both directions, one kernel launch on the card) on the
+    CPU: the forward and reverse ``gru_scan_pallas`` in interpret mode,
+    concatenated, with both finals."""
+    h = 4
+    pf, xs, lengths = make(h=h, seed=3)
+    pb, _, _ = make(h=h, seed=4)
+    lens = lengths if with_lengths else None
+    refs = []
+    for p, rev in ((pf, False), (pb, True)):
+        jp = {k: jnp.asarray(v) for k, v in p.items()}
+        refs.append(gru_scan_pallas(
+            jnp.asarray(xs), jnp.zeros((xs.shape[0], h)), jp["kernel"], jp["bias"],
+            jp["recurrent_kernel"], jp["recurrent_bias"],
+            lengths=None if lens is None else jnp.asarray(lens), reverse=rev, interpret=True))
+    dirs = [(torch.zeros(xs.shape[0], h), *(t32(p[k]) for k in
+             ("kernel", "bias", "recurrent_kernel", "recurrent_bias"))) for p in (pf, pb)]
+    ys, (f_final, b_final) = tgru.bigru_scan(
+        t32(xs), *dirs, lengths=None if lens is None else torch.from_numpy(lens))
+    np.testing.assert_allclose(ys.numpy(), np.concatenate([np.asarray(refs[0][0]),
+                                                           np.asarray(refs[1][0])], -1),
+                               atol=1e-5)
+    np.testing.assert_allclose(f_final.numpy(), np.asarray(refs[0][1]), atol=1e-5)
+    np.testing.assert_allclose(b_final.numpy(), np.asarray(refs[1][1]), atol=1e-5)
+
+
 def test_masked_steps_hold_state_and_repeat_it():
     p, xs, lengths = make(b=2, t=6)
     lens = np.array([6, 3], np.int32)
