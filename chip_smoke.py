@@ -9,10 +9,13 @@ Phases, each of which exits non-zero on failure:
    source, all at once) and the libraries are loaded;
 2. kernels: K1-K5, K3′, K3″ and K4's location-sensitive branch each run at
    the shapes their main path gives them and are held against their plain
-   PyTorch versions on the card, in float32 with TF32 off (K1 and K3 also
-   give the same bits on two runs); each is timed beside its plain version,
-   a PyTorch library yardstick where one exists, and its least possible time
-   on an H100 (K1's two phases from torch.profiler);
+   PyTorch versions on the card, in float32 with TF32 off (K1, K3, K3′ in
+   both modes and K3″ also give the same bits on two runs; K3′ and K3″ also
+   run once at n_fft 1536, 1026 and odd 1575: the radix-3 and -5 stages,
+   the generic stage and the unpacked transform); each is timed beside its
+   plain version, a PyTorch library yardstick where one exists, and its
+   least possible time on an H100 (K1's two phases and the STFT kernels'
+   device time from torch.profiler);
 3. paths: three configurations synthesize through ``Synthesizer`` on the
    card with seeded random weights, B=32 texts of 64 tokens and 32
    reference wavs of 128 frames, stop threshold 1.0 (every step decodes):
@@ -46,9 +49,11 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth. Every kernel of the port computes in
-# float32 on the CUDA cores.
+# tensor cores, dense bf16 on them, and HBM3 bandwidth. Every kernel's row
+# bounds the function it computes in float32; K3′'s bf16 mode also reports
+# the bound of its dense bf16 products.
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 B = 32
@@ -65,8 +70,8 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -304,9 +309,9 @@ def check_refenc(torch, rng, dev):
 STFT_FRAMES = 128       # a reference wav's frames on the main path
 STFT_TOL = 5e-3
 STFT_TOL_REASON = ("normalized-dB units, the JAX kernels' own test tolerance "
-                   "(tests/test_pallas.py); float32 sums (K3: an FFT, K3′ and K3″: "
-                   "DFT products over 1024 taps) in another order than the plain "
-                   "version's, and the log amplifies errors of quiet bins")
+                   "(tests/test_pallas.py); float32 sums (an FFT; K3′'s bf16 bases: "
+                   "tensor-core sums over 1024 taps) in another order than the plain "
+                   "version's DFT products, and the log amplifies errors of quiet bins")
 
 
 def stft_groups(torch, rng, dev, a):
@@ -359,6 +364,11 @@ def torch_stft_yardstick(torch, a, groups, bases):
     return run
 
 
+def same_bits(name: str, a, b) -> None:
+    if max_err(a, b) != 0.0:
+        fail(f"{name}: two runs on the same input differ")
+
+
 def check_stft(torch, rng, dev, cfg):
     from gst_tacotron_tpu_torch.ops.stft import stft_bases, stft_features, stft_features_plain
 
@@ -370,8 +380,7 @@ def check_stft(torch, rng, dev, cfg):
         got = stft_features(g, a, bases)
         ref = stft_features_plain(g, a, bases)
         err = max(err, max_err(got, ref))
-        if max_err(got, stft_features(g, a, bases)) != 0.0:
-            fail("stft_features: two runs on the same input differ")
+        same_bits("stft_features", got, stft_features(g, a, bases))
 
     ms = time_ms(torch, lambda: [stft_features(g, a, bases) for g in groups], iters=10)
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
@@ -393,43 +402,101 @@ def check_stft(torch, rng, dev, cfg):
                 work="the 4 launches (32 wavs of 128 frames) of one synthesis")
 
 
+# (n_fft, hop, win) whose FFTs run the other stages on the card: 768 =
+# 4^4 * 3 (radix 3), 513 = 3^3 * 19 (the generic stage), odd 1575 = 3^2 *
+# 5^2 * 7 (radix 5, the generic stage, the unpacked real transform)
+MIXED_SIZES = ((1536, 256, 1024), (1026, 342, 1000), (1575, 525, 1500))
+
+
+def mixed_radix_errs(torch, dev, cfg, fn, plain, frames_input: bool, suffix: str = ""):
+    """One call at each of MIXED_SIZES against the plain version, on 2 wavs
+    of 128 frames: {"max_err_n_fft_<n_fft><suffix>": error}."""
+    import dataclasses
+
+    from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+
+    out = {}
+    for n_fft, hop, win in MIXED_SIZES:
+        a = dataclasses.replace(cfg.audio, n_fft=n_fft, hop_length=hop, win_length=win)
+        rng = np.random.default_rng(n_fft)
+        wav = torch.from_numpy((rng.uniform(-1, 1, (2, (STFT_FRAMES - 1) * hop + n_fft))
+                                * 0.3).astype(np.float32)).to(dev)
+        x = TorchDSP(a, dev).frame_precentered(wav).reshape(-1, n_fft).contiguous() \
+            if frames_input else wav
+        out[f"max_err_n_fft_{n_fft}{suffix}"] = max_err(fn(x, a), plain(x, a))
+    return out
+
+
 def check_stft_fused(torch, dev, cfg):
-    """K3′ at K3's shapes, in float32 (the extractor's route) and with bf16
-    bases (held against the plain version's bf16 rounding)."""
-    from gst_tacotron_tpu_torch.ops.stft import (stft_bases, stft_features_fused,
-                                                 stft_features_plain)
+    """K3′ at K3's shapes, in float32 (the extractor's route; compared with K3
+    too, which runs the same arithmetic) and with bf16 bases on the tensor
+    cores (held against the plain version's bf16 rounding); both give the
+    same bits twice; one float32 and one bf16 call at each of MIXED_SIZES."""
+    from gst_tacotron_tpu_torch.ops.stft import (live_tap_span, stft_bases, stft_features,
+                                                 stft_features_fused, stft_features_plain)
 
     a = cfg.audio
     bases = stft_bases(a, dev)
     groups = stft_groups(torch, np.random.default_rng(11), dev, a)
-    err = err_bf16 = 0.0
+    err = err_bf16 = err_k3 = 0.0
+    k3_bits = True
     for g in groups:
-        err = max(err, max_err(stft_features_fused(g, a, bases), stft_features_plain(g, a, bases)))
+        got = stft_features_fused(g, a, bases)
+        err = max(err, max_err(got, stft_features_plain(g, a, bases)))
+        k3 = stft_features(g, a, bases)
+        err_k3 = max(err_k3, max_err(got, k3))
+        k3_bits &= all(bool(torch.equal(x, y)) for x, y in zip(got, k3))
         err_bf16 = max(err_bf16, max_err(stft_features_fused(g, a, bases, bf16_bases=True),
                                          stft_features_plain(g, a, bases, bf16_bases=True)))
-    first = stft_features_fused(groups[0], a, bases)
-    if max_err(first, stft_features_fused(groups[0], a, bases)) != 0.0:
-        fail("stft_fused: two runs on the same input differ (the tile sum must be ordered)")
+    same_bits("stft_fused", stft_features_fused(groups[0], a, bases),
+              stft_features_fused(groups[0], a, bases))
+    same_bits("stft_fused (bf16 bases)", stft_features_fused(groups[0], a, bases, bf16_bases=True),
+              stft_features_fused(groups[0], a, bases, bf16_bases=True))
+    if not err_k3 <= 1e-6:
+        fail(f"stft_fused differs from K3 (the same arithmetic) by {err_k3} > 1e-6")
+    mixed = mixed_radix_errs(torch, dev, cfg, lambda x, c: stft_features_fused(x, c),
+                             lambda x, c: stft_features_plain(x, c), False)
+    mixed.update(mixed_radix_errs(
+        torch, dev, cfg, lambda x, c: stft_features_fused(x, c, bf16_bases=True),
+        lambda x, c: stft_features_plain(x, c, bf16_bases=True), False, "_bf16"))
 
-    ms = time_ms(torch, lambda: [stft_features_fused(g, a, bases) for g in groups], iters=10)
-    ms_bf16 = time_ms(torch, lambda: [stft_features_fused(g, a, bases, bf16_bases=True)
-                                      for g in groups], iters=10)
+    f32 = lambda: [stft_features_fused(g, a, bases) for g in groups]
+    bf16 = lambda: [stft_features_fused(g, a, bases, bf16_bases=True) for g in groups]
+    library = torch_stft_yardstick(torch, a, groups, bases)
+    ms = time_ms(torch, f32, iters=10)
+    ms_bf16 = time_ms(torch, bf16, iters=10)
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
-    lib = time_ms(torch, torch_stft_yardstick(torch, a, groups, bases), iters=10)
-    b_ms, b_by = stft_bound(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups))
+    lib = time_ms(torch, library, iters=10)
+    device = kernel_device_ms(torch, f32, {"kernel_device_ms": "stft_fused_kernel"})
+    device.update(kernel_device_ms(torch, bf16, {"kernel_device_ms_bf16": "stft_fused_bf16"}))
+    device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
+    n_frames = B * STFT_FRAMES
+    b_ms, b_by = stft_bound(a, n_frames, 4.0 * sum(g.numel() for g in groups))
+    # the dense products over the live taps and the num_freq real bins (the
+    # kernel's zero padding past them is not the function's work)
+    _, _, n_live = live_tap_span(a)
+    b_bf16, b_bf16_by = bound(4.0 * n_frames * n_live * a.num_freq,
+                              4.0 * sum(g.numel() for g in groups)
+                              + 2.0 * 2 * n_live * a.num_freq
+                              + 4.0 * n_frames * (a.num_freq + a.num_mels), peak=BF16_FLOPS)
     return dict(name="stft_fused", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_fused.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:265",
-                max_err=max(err, err_bf16), max_err_f32=err, max_err_bf16=err_bf16,
-                tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
+                max_err=max(err, err_bf16, *mixed.values()), max_err_f32=err,
+                max_err_bf16=err_bf16, **mixed, max_err_vs_k3=err_k3,
+                bits_equal_k3=k3_bits, tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, kernel_ms_bf16=ms_bf16, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib,
+                bound_by=b_by, bound_ms_bf16_products=b_bf16, bound_by_bf16=b_bf16_by,
+                library_ms=lib, **device,
                 library="torch.stft (cuFFT) + abs + mel product + dB normalization",
-                work="K3's 4 launches (32 wavs of 128 frames), float32 bases")
+                work="K3's 4 launches (32 wavs of 128 frames), float32 (mixed-radix FFT) "
+                     "and bf16 bases (tensor cores); bound_ms_bf16_products: the dense "
+                     "bf16 products at 989 TFLOP/s")
 
 
 def check_stft_frames(torch, dev, cfg):
-    """K3″ at K3's shapes: the (1024, n_fft) frames of each 8-wav launch."""
+    """K3″ at K3's shapes: the (1024, n_fft) frames of each 8-wav launch; the
+    same bits twice; one call at each of MIXED_SIZES."""
     from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
     from gst_tacotron_tpu_torch.ops.stft import (db_normalize, live_tap_span, stft_bases,
                                                  stft_features_frames,
@@ -444,6 +511,10 @@ def check_stft_frames(torch, dev, cfg):
     for f in frames:
         err = max(err, max_err(stft_features_frames(f, a, bases),
                                stft_features_frames_plain(f, a, bases)))
+    same_bits("stft_frames", stft_features_frames(frames[0], a, bases),
+              stft_features_frames(frames[0], a, bases))
+    mixed = mixed_radix_errs(torch, dev, cfg, lambda x, c: stft_features_frames(x, c),
+                             lambda x, c: stft_features_frames_plain(x, c), True)
 
     window = dsp.window
     mel_t = bases["mel_t"][: a.num_freq]
@@ -453,19 +524,24 @@ def check_stft_frames(torch, dev, cfg):
             spec = torch.fft.rfft(f * window, n=a.n_fft, dim=-1).abs()
             db_normalize(spec @ mel_t, a), db_normalize(spec, a)
 
-    ms = time_ms(torch, lambda: [stft_features_frames(f, a, bases) for f in frames], iters=10)
+    kernel = lambda: [stft_features_frames(f, a, bases) for f in frames]
+    ms = time_ms(torch, kernel, iters=10)
     plain = time_ms(torch, lambda: [stft_features_frames_plain(f, a, bases) for f in frames],
                     iters=10)
     lib = time_ms(torch, library, iters=10)
+    device = kernel_device_ms(torch, kernel, {"kernel_device_ms": "stft_frames_kernel"})
+    device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
     _, _, n_live = live_tap_span(a)
     n_frames = sum(f.shape[0] for f in frames)
     # the function reads only the live columns of each frame
     b_ms, b_by = stft_bound(a, n_frames, 4.0 * n_frames * n_live)
     return dict(name="stft_frames", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_frames.cu",
-                replaces="gst_tacotron_tpu/ops/stft_pallas.py:118", max_err=err, tol=STFT_TOL,
-                tol_reason=STFT_TOL_REASON,
+                replaces="gst_tacotron_tpu/ops/stft_pallas.py:118",
+                max_err=max(err, *mixed.values()), max_err_n_fft_2048=err, **mixed,
+                tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                **device,
                 library="torch.fft.rfft (cuFFT) of the windowed frames + abs + mel product "
                         "+ dB normalization",
                 work="4 launches of 1024 frames (the frames of K3's 4 x 8 wavs)")

@@ -5,83 +5,96 @@
 // Replaces: gst_tacotron_tpu/ops/stft_pallas.py::stft_features_pallas
 //           (kernel _stft_kernel; PallasDSP's kernel).
 //
-// The window is baked into the cos/sin bases, which are zero outside the
-// window's live taps [n0, n0 + n_live), so only those columns of each frame
-// are read and multiplied: skipping the zero rows of the bases is exact. Any
-// F: the kernel masks the ragged last frame tile itself.
+// Only the window's live taps [n0, n0 + n_live) of each frame are read: the
+// padded window is zero outside them. Any F (the kernel masks the ragged
+// last block) and any n_fft whose transform fits one block
+// (ops/stft.py::fft_frames_per_block).
 //
-// Bound on the H100 at the main-path shape (1024 frames a launch, the
-// frames of 8 wavs of 128 frames; n_live = 1024, 1025 bins, 80 mels): about
-// 4.5 GFLOP a launch on the float32 pipe (67 TFLOP/s), about 67 us, against
-// 4.2 MB of live frame columns read and 4.5 MB of outputs written (about
-// 2.6 us at 3.35 TB/s): operations bound it. The frames matrix itself is the
-// intermediate that K3 and K3' avoid: its writer (the framing outside this
-// kernel) moves n_fft / hop times the wav's bytes.
+// Bound on the H100 at the main-path shape (1024 frames a launch, the frames
+// of 8 wavs of 128 frames; n_fft 2048, n_live 1024, 1025 bins, 80 mels): a
+// real FFT is about 2.5 * 2048 * 11 = 56 kFLOP a frame, 0.06 GFLOP a launch,
+// against 4.2 MB of live frame columns read and 4.5 MB of outputs written:
+// the bytes bound it (about 2.6 us at 3.35 TB/s). The frames matrix itself
+// is the intermediate that K3 and K3' avoid: its writer (the framing
+// outside this kernel) moves n_fft / hop times the wav's bytes.
 //
-// Design: the frequency split of K3' (stft_fused.cu): one block per
-// (STFT_TF-frame tile, 128-bin tile), which loads its frames' live columns
-// into shared memory (STFT_TF x n_live, 64 KB at n_live = 1024, coalesced
-// along the taps), computes the tile's DFT products and magnitudes
-// (stft.cuh::stft_tile), writes the linear tile and a partial mel to a
-// scratch buffer (tiles, F, M); a second launch sums the partials over the
-// tiles in a fixed order and applies the dB epilogue (no atomics). 576
-// blocks at the main-path shape, two to an SM. Simple float32 FMAs on the
-// CUDA cores; tensor cores are later work.
+// Design: K3's (stft_features.cu) on the mixed-radix FFT, one launch. A
+// block of 256 threads owns `fr` consecutive frames (4, 2 or 1: the most
+// whose buffers fit and whose grid still gives every SM two blocks, so the
+// KernelDSP calls of 100-1200 frames spread over the card). It loads the
+// frames' live columns once, coalesced (16 bytes a lane when the rows allow
+// it), into the FFT's second buffer; the first FFT stage forms its inputs
+// from them and the window (stft.cuh::stft_fft_block). The split step, the
+// magnitudes in the free buffer, the linear rows out coalesced, and the mel
+// over each filter's nonzero bins in ascending order follow. No scratch, no
+// atomics: the same bits every run, and at a power-of-two n_fft K3's bits.
 
 #include "stft.cuh"
 
 __global__ void __launch_bounds__(STFT_THREADS)
-stft_frames_kernel(const float* __restrict__ frames,  // (F, n_fft)
-                   const float* __restrict__ cosb,    // (n_live, NFp)
-                   const float* __restrict__ sinb,    // (n_live, NFp)
-                   const float* __restrict__ melT,    // (NFp, M)
-                   float* __restrict__ partial,       // (NFp / FT, F, M)
-                   float* __restrict__ lin_out,       // (F, NF)
-                   int F, int n_fft, int n0, int n_live, int NF, int NFp, int M,
-                   NormConsts nc, int normalize_linear) {
-  extern __shared__ float smem[];
-  float* A = smem;                             // TF * n_live
-  float* bc = A + STFT_TF * n_live;            // KC * FT
-  float* bs = bc + STFT_KC * STFT_FT;          // KC * FT
-  float* mag = bs + STFT_KC * STFT_FT;         // TF * FT
+stft_frames_kernel(const float* __restrict__ raw,      // (F, n_fft)
+                   const float2* __restrict__ table,   // fft_plan's table
+                   const float* __restrict__ window,   // (n_live,) live taps
+                   const int* __restrict__ mel_lo, const int* __restrict__ mel_off,
+                   const float* __restrict__ mel_w,
+                   float* __restrict__ mel_out,        // (F, M)
+                   float* __restrict__ lin_out,        // (F, NF)
+                   int F, int n_fft, int n0, int n_live, int M, int fr, FftPlan plan,
+                   NormConsts nc, int normalize_linear, int vec4) {
+  extern __shared__ float4 smem4[];
+  float2* bufa = reinterpret_cast<float2*>(smem4);  // fr * n
+  float2* bufb = bufa + fr * plan.n;                // fr * n; first the live taps
+  float* A = reinterpret_cast<float*>(bufb);        // fr * n_live
 
-  const int tile = blockIdx.y;
-  const int f0 = tile * STFT_FT;
-  const int t0 = blockIdx.x * STFT_TF;
-
-  for (int e = threadIdx.x; e < STFT_TF * n_live; e += STFT_THREADS) {
-    const int lt = e / n_live, k = e % n_live;
-    const int t = t0 + lt;
-    A[e] = t < F ? frames[(size_t)t * n_fft + n0 + k] : 0.0f;
+  const int t0 = blockIdx.x * fr;
+  const int frames = min(fr, F - t0);
+  const float* rows = raw + (size_t)t0 * n_fft + n0;
+  if (vec4) {
+    const int q = n_live >> 2;
+    for (int e = threadIdx.x; e < fr * q; e += STFT_THREADS) {
+      const int f = e / q, c = e - f * q;
+      reinterpret_cast<float4*>(A)[e] =
+          f < frames ? __ldg(reinterpret_cast<const float4*>(rows + (size_t)f * n_fft) + c)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < fr * n_live; e += STFT_THREADS) {
+      const int f = e / n_live, j = e - f * n_live;
+      A[e] = f < frames ? __ldg(rows + (size_t)f * n_fft + j) : 0.0f;
+    }
   }
-
-  stft_tile(A, n_live, cosb, sinb, n_live, NFp, f0, false, bc, bs, mag, STFT_FT,
-            lin_out, F, t0, NF, nc, normalize_linear != 0);
   __syncthreads();
-  stft_partial_mel(mag, melT, f0, M, partial + (size_t)tile * F * M, F, t0);
+
+  auto tap = [A, window, n_live](int f, int j) {
+    return j < n_live ? A[f * n_live + j] * __ldg(window + j) : 0.0f;
+  };
+  const int NF = n_fft / 2 + 1;
+  stft_fft_block(tap, bufa, bufb, n_fft, plan, fr, frames, table, mel_lo, mel_off, mel_w, M,
+                 mel_out + (size_t)t0 * M, lin_out + (size_t)t0 * NF, nc, normalize_linear);
 }
 
-extern "C" int stft_frames_launch(const float* frames, const float* cosb,
-                                  const float* sinb, const float* melT,
-                                  float* partial, float* mel_out, float* lin_out,
-                                  int F, int n_fft, int n0, int n_live, int NF,
-                                  int NFp, int M, float ref_db, float min_db,
+extern "C" int stft_frames_launch(const float* frames, const float* table,
+                                  const float* window, const int* mel_lo, const int* mel_off,
+                                  const float* mel_w, float* mel_out, float* lin_out, int F,
+                                  int n_fft, int n0, int n_live, int M, int fr,
+                                  const int* radix, int stages, float ref_db, float min_db,
                                   float max_abs, int symmetric, int normalize_linear,
                                   cudaStream_t stream) {
-  if (NFp % STFT_FT != 0 || F < 1 || n0 < 0 || n0 + n_live > n_fft)
+  FftPlan plan;
+  const int n = n_fft % 2 == 0 ? n_fft / 2 : n_fft;
+  if (F < 1 || fr < 1 || n0 < 0 || n_live < 1 || n0 + n_live > n_fft ||
+      !make_fft_plan(&plan, n, radix, stages))
     return (int)cudaErrorInvalidValue;
   NormConsts nc{ref_db, min_db, max_abs, symmetric};
-  size_t smem = sizeof(float) * ((size_t)STFT_TF * n_live + 2 * STFT_KC * STFT_FT +
-                                 (size_t)STFT_TF * STFT_FT);
+  const size_t smem = 2 * sizeof(float2) * (size_t)fr * n;
   cudaError_t err = cudaFuncSetAttribute(
       stft_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = NFp / STFT_FT;
-  dim3 grid((F + STFT_TF - 1) / STFT_TF, tiles);
-  stft_frames_kernel<<<grid, STFT_THREADS, smem, stream>>>(
-      frames, cosb, sinb, melT, partial, lin_out, F, n_fft, n0, n_live, NF, NFp, M,
-      nc, normalize_linear);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)stft_mel_reduce(partial, mel_out, tiles, (long long)F * M, nc, stream);
+  // float4 rows: 16-byte aligned in device memory and in shared memory
+  const int vec4 = ((uintptr_t)frames % 16 == 0) && n_fft % 4 == 0 && n0 % 4 == 0 &&
+                   n_live % 4 == 0 && ((size_t)fr * n) % 2 == 0;
+  stft_frames_kernel<<<(F + fr - 1) / fr, STFT_THREADS, smem, stream>>>(
+      frames, reinterpret_cast<const float2*>(table), window, mel_lo, mel_off, mel_w, mel_out,
+      lin_out, F, n_fft, n0, n_live, M, fr, plan, nc, normalize_linear, vec4);
+  return (int)cudaGetLastError();
 }

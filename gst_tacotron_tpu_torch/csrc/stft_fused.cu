@@ -1,7 +1,6 @@
-// K3' — mel-STFT features split over frequency tiles: the function of K3
-// (stft_features.cu) with one block per (utterance, frame tile, 128-bin
-// tile), framing in the block, and the mel summed over the tiles by a second
-// launch.
+// K3' — mel-STFT features of a wav for any hop | n_fft: K3's function
+// (stft_features.cu), which takes only power-of-two n_fft, on the
+// mixed-radix FFT; and the JAX kernel's bf16_bases mode on the tensor cores.
 //
 // Replaces: gst_tacotron_tpu/ops/stft_pallas.py::stft_features_pallas_fused
 //           (kernel _stft_fused_kernel).
@@ -9,93 +8,366 @@
 // Input: (B, L) float32 wav, preemphasized, reflect-padded at the centre per
 // utterance and zero-padded to the bucket length; frame t covers samples
 // [t*hop, t*hop + n_fft), of which only the window's live taps
-// [n0, n0 + n_live) are multiplied. Output: mel (B, T, M) normalized dB,
-// linear (B, T, NF) normalized dB or (normalize_linear = 0) the magnitude.
-// bf16 = 1 rounds the frames and the cos/sin bases to bfloat16 and sums in
-// float32 (the JAX kernel's bf16_bases); the mel product stays float32.
+// [n0, n0 + n_live) are nonzero after windowing. Output: mel (B, T, M)
+// normalized dB, linear (B, T, NF) normalized dB or (normalize_linear = 0)
+// the magnitude.
 //
-// Bound on the H100 at the main-path shape (8 wavs of 128 frames a launch;
-// n_live = 1024, 1025 bins, 80 mels): 2 * 2 * 1024 * 1025 + 2 * 1025 * 80
-// FLOPs a frame, about 4.5 GFLOP a launch on the float32 pipe (67 TFLOP/s),
-// about 67 us, against about 4.5 MB of wav read and outputs written (about
-// 1.4 us at 3.35 TB/s): operations bound it. The partial mels add 2 x 2.9 MB
-// of scratch traffic a launch, about 2 us.
+// float32 (stft_fused_kernel). Bound on the H100 at the main-path shape (8
+// wavs of 128 frames a launch; n_fft 2048, n_live 1024, 1025 bins, 80 mels):
+// a real FFT, about 56 kFLOP a frame, against 1.1 MB of wav read and 4.5 MB
+// of outputs written: the bytes bound it (about 1.7 us at 3.35 TB/s).
+// Design: K3's. A block of 256 threads owns `fr` consecutive frames of one
+// utterance (ops/stft.py::fft_frames_per_block), loads their
+// (fr-1)*hop + n_live samples once into the FFT's second buffer (framing in
+// shared memory), and runs stft.cuh::stft_fft_block: the mixed-radix FFT of
+// each windowed frame, split step, magnitudes, linear rows, sparse mel. One
+// launch, no scratch, the same bits every run; at a power-of-two n_fft,
+// K3's bits.
 //
-// Design: on the TPU the mel sum over frequency tiles rides a sequential
-// grid axis in VMEM. Blocks on the card carry nothing between them, so each
-// block owns STFT_TF frames of one utterance and one STFT_FT-bin tile: it
-// loads the frames' (STFT_TF - 1) * hop + n_live samples once into shared
-// memory (frames overlap by n_fft - hop, so this is framing from hop chunks,
-// live taps only), computes the tile's DFT products and magnitudes
-// (stft.cuh::stft_tile), writes its linear tile, and writes the partial mel
-// of its bins (STFT_TF x M) to a scratch buffer (tiles, B*T, M). A second,
-// small launch sums the partials over the tiles in a fixed order and applies
-// the dB epilogue: no atomics, so the result is deterministic. The split
-// gives the card B * ceil(T/16) * ceil(NF/128) blocks (576 at the main-path
-// shape, against K3's 64) of about 59 KB of shared memory each, three to an
-// SM. Simple float32 FMAs on the CUDA cores; tensor cores are later work.
+// bf16 bases (stft_fused_bf16_kernel): the frames and the window-baked
+// cos/sin bases rounded to bfloat16, their products summed in float32 (the
+// TPU kernel's MXU form; no FFT computes this function); the mel stays
+// float32. Bound: 2 * 2 * n_live * NF FLOPs a frame, 4.3 GFLOP a launch,
+// about 4.4 us at the 989 TFLOP/s of the bf16 tensor cores (the bytes,
+// about 1.7 us, do not bound it). Every frame tile needs all 4.7 MB of bf16
+// bases, so the design is about streaming them from L2:
+// - a cluster of BF_CW = 2 CTAs (128 CTAs at the main shape) owns a tile of
+//   16 frames (one m16 row tile) of one utterance; each CTA takes half of
+//   the 128-bin windows (8 warps x 16 bins), so it streams only half of the
+//   bases;
+// - the tile's taps stay resident in shared memory as bf16 (1024 at a
+//   time, rounded with __float2bfloat16_rn) and reach the tensor cores
+//   through ldmatrix; each warp keeps 4 k16 steps of its B fragments in
+//   flight in its own cp.async ring (cached in L2 only, no block barrier),
+//   laid out by ops/stft.py::mma_b_fragments so a warp's fragments are 256
+//   consecutive bytes; mma.sync m16n8k16 bf16 x bf16 -> f32;
+// - magnitudes stay in each CTA's shared memory; after a cluster barrier
+//   each CTA gathers the full magnitude rows of its 8 frames from its peer
+//   (distributed shared memory) and sums each mel filter's nonzero bins in
+//   ascending order. One launch, no scratch, the same bits every run.
+// Shared memory holds 19 windows, so this mode takes n_fft <= 4863.
+// Measured on the H100: 16-frame tiles over 2 CTAs beat 32 over 4, the
+// ring's depth (3, 4 or 8) did not matter, and the K loop (a warp's 4 mma a
+// k16 step, two warps a scheduler) holds it, not the L2. wgmma and TMA are
+// later work.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "stft.cuh"
 
+namespace cg = cooperative_groups;
+
 __global__ void __launch_bounds__(STFT_THREADS)
-stft_fused_kernel(const float* __restrict__ wav,     // (B, L)
-                  const float* __restrict__ cosb,    // (n_live, NFp)
-                  const float* __restrict__ sinb,    // (n_live, NFp)
-                  const float* __restrict__ melT,    // (NFp, M)
-                  float* __restrict__ partial,       // (NFp / FT, B * T, M)
-                  float* __restrict__ lin_out,       // (B, T, NF)
-                  int L, int T, int hop, int n0, int n_live, int NF, int NFp,
-                  int M, NormConsts nc, int normalize_linear, int bf16) {
-  extern __shared__ float smem[];
-  const int seg_len = (STFT_TF - 1) * hop + n_live;
-  float* seg = smem;                           // seg_len
-  float* bc = seg + seg_len;                   // KC * FT
-  float* bs = bc + STFT_KC * STFT_FT;          // KC * FT
-  float* mag = bs + STFT_KC * STFT_FT;         // TF * FT
+stft_fused_kernel(const float* __restrict__ wav,      // (B, L)
+                  const float2* __restrict__ table,   // fft_plan's table
+                  const float* __restrict__ window,   // (n_live,) live taps
+                  const int* __restrict__ mel_lo, const int* __restrict__ mel_off,
+                  const float* __restrict__ mel_w,
+                  float* __restrict__ mel_out,        // (B, T, M)
+                  float* __restrict__ lin_out,        // (B, T, NF)
+                  int L, int T, int hop, int n0, int n_live, int n_fft, int M, int fr,
+                  FftPlan plan, NormConsts nc, int normalize_linear) {
+  extern __shared__ float4 smem4[];
+  float2* bufa = reinterpret_cast<float2*>(smem4);  // fr * n
+  float2* bufb = bufa + fr * plan.n;                // fr * n; first the samples
+  float* seg = reinterpret_cast<float*>(bufb);      // (fr - 1) * hop + n_live
 
-  const int b = blockIdx.z;
-  const int tile = blockIdx.y;
-  const int f0 = tile * STFT_FT;
-  const int t0 = blockIdx.x * STFT_TF;
-
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * fr;
+  const int frames = min(fr, T - t0);
+  const int seg_len = (fr - 1) * hop + n_live;
   const float* w = wav + (size_t)b * L;
   const int base = t0 * hop + n0;
   for (int i = threadIdx.x; i < seg_len; i += STFT_THREADS) {
-    int s = base + i;
-    float x = s < L ? w[s] : 0.0f;
-    seg[i] = bf16 ? round_bf16(x) : x;
+    const int s = base + i;
+    seg[i] = s < L ? w[s] : 0.0f;
   }
-
-  stft_tile(seg, hop, cosb, sinb, n_live, NFp, f0, bf16 != 0, bc, bs, mag, STFT_FT,
-            lin_out + (size_t)b * T * NF, T, t0, NF, nc, normalize_linear != 0);
   __syncthreads();
-  const size_t rows = (size_t)gridDim.z * T;
-  stft_partial_mel(mag, melT, f0, M, partial + ((size_t)tile * rows + (size_t)b * T) * M,
-                   T, t0);
+
+  auto tap = [seg, window, hop, n_live](int f, int j) {
+    return j < n_live ? seg[f * hop + j] * __ldg(window + j) : 0.0f;
+  };
+  const size_t row0 = (size_t)b * T + t0;
+  stft_fft_block(tap, bufa, bufb, n_fft, plan, fr, frames, table, mel_lo, mel_off, mel_w, M,
+                 mel_out + row0 * M, lin_out + row0 * (n_fft / 2 + 1), nc, normalize_linear);
 }
 
-extern "C" int stft_fused_launch(const float* wav, const float* cosb,
-                                 const float* sinb, const float* melT,
-                                 float* partial, float* mel_out, float* lin_out,
-                                 int B, int L, int T, int hop, int n0, int n_live,
-                                 int NF, int NFp, int M, float ref_db, float min_db,
-                                 float max_abs, int symmetric, int normalize_linear,
-                                 int bf16, cudaStream_t stream) {
-  if (NFp % STFT_FT != 0 || B < 1 || T < 1 || B > 65535)
+#define BF_TF 16              // frames a tile: one m16 row tile
+#define BF_KA 1024            // taps of the frame tile resident in shared memory at once
+#define BF_KAS (BF_KA + 8)    // its row stride in bf16: 16-byte rows, ldmatrix conflict-free
+#define BF_WIN 128            // bins a window: 8 warps x 16
+#define BF_MS (BF_WIN + 8)    // a window's magnitude row stride in floats
+#define BF_RING 4             // k16 steps of B fragments in flight a warp
+#define BF_SLOT 128           // uint2 a ring slot: 2 n8 tiles x (cos, sin) x 32 lanes
+#define BF_CW 2               // CTAs a tile's cluster, each half of the windows
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a * b on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col),
+// C 16x8 float32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// 16 bytes global -> shared, cached in L2 only (the streamed B fragments
+// would otherwise evict the mel tables from L1)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory of a bf16 CTA (`windows` bin windows in all): the warps'
+// rings, the tile's resident taps, the magnitudes of its half of the
+// windows, and the full magnitude rows of the BF_TF / BF_CW frames whose mel
+// it sums. ops/stft.py::bf16_smem mirrors it.
+__host__ __device__ constexpr size_t bf16_smem(int windows) {
+  return sizeof(uint2) * (STFT_THREADS / 32) * BF_RING * BF_SLOT +
+         sizeof(__nv_bfloat16) * BF_TF * BF_KAS +
+         sizeof(float) * ((windows + BF_CW - 1) / BF_CW) * BF_TF * BF_MS +
+         sizeof(float) * (BF_TF / BF_CW) * windows * BF_WIN;
+}
+
+// Grid (tiles * BF_CW, B) in clusters of (BF_CW, 1, 1): the cluster owns
+// BF_TF frames of utterance blockIdx.y, and CTA `rank` of it the bin windows
+// [rank * wpc, (rank + 1) * wpc) of them and the mel of frames
+// [rank * fpr, (rank + 1) * fpr).
+__global__ void __cluster_dims__(BF_CW, 1, 1) __launch_bounds__(STFT_THREADS)
+stft_fused_bf16_kernel(const float* __restrict__ wav,    // (B, L)
+                       const uint2* __restrict__ bcos,   // mma_b_fragments(cos)
+                       const uint2* __restrict__ bsin,   // mma_b_fragments(sin)
+                       const int* __restrict__ mel_lo, const int* __restrict__ mel_off,
+                       const float* __restrict__ mel_w,
+                       float* __restrict__ mel_out,      // (B, T, M)
+                       float* __restrict__ lin_out,      // (B, T, NF)
+                       int L, int T, int hop, int n0, int n_live, int NF, int M,
+                       NormConsts nc, int normalize_linear) {
+  constexpr int TF = BF_TF;
+  constexpr int KSA = BF_KA / 16;  // k16 steps a resident chunk of taps
+  cg::cluster_group cluster = cg::this_cluster();
+  // cw (= BF_CW) read from the cluster, not folded from the constant: the
+  // folded form ran 7% slower on the H100 (same bits)
+  const int cw = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int windows = (NF + BF_WIN - 1) / BF_WIN;
+  const int wpc = (windows + cw - 1) / cw, fpr = (TF + cw - 1) / cw;
+  const int wbeg = min(windows, rank * wpc), wend = min(windows, wbeg + wpc);
+  const int nrow = windows * BF_WIN;  // a full magnitude row
+
+  extern __shared__ float4 smem4[];
+  uint2* rings = reinterpret_cast<uint2*>(smem4);  // 8 warps x BF_RING x BF_SLOT
+  __nv_bfloat16* As =
+      reinterpret_cast<__nv_bfloat16*>(rings + (STFT_THREADS / 32) * BF_RING * BF_SLOT);
+  float* mags = reinterpret_cast<float*>(As + TF * BF_KAS);  // wpc x TF x BF_MS
+  float* full = mags + wpc * TF * BF_MS;                      // fpr x nrow
+
+  const int b = blockIdx.y, t0 = (blockIdx.x / cw) * TF;
+  const int frames = min(TF, T - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int KS = (n_live + 15) / 16;  // k16 steps
+  const int achunks = (KS + KSA - 1) / KSA;
+  const float* w = wav + (size_t)b * L + (size_t)t0 * hop + n0;
+  const size_t row0 = (size_t)b * T + t0;
+  uint2* ring = rings + warp * BF_RING * BF_SLOT;
+
+  // chunk ac of the tile's taps, rounded to bf16 (zero past the live taps and
+  // the real frames); frame t < T lies inside the wav, so no bound on L
+  // (16 loads in flight a thread: one at a time, their latency would add up)
+  auto load_a = [&](int ac) {
+    constexpr int PER = TF * BF_KA / STFT_THREADS;
+    for (int i0 = 0; i0 < PER; i0 += 16) {
+      float v[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int e = threadIdx.x + (i0 + i) * STFT_THREADS;
+        const int r = e / BF_KA, kt = ac * BF_KA + e % BF_KA;
+        v[i] = r < frames && kt < n_live ? __ldg(w + (size_t)r * hop + kt) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int e = threadIdx.x + (i0 + i) * STFT_THREADS;
+        As[(e / BF_KA) * BF_KAS + e % BF_KA] = __float2bfloat16_rn(v[i]);
+      }
+    }
+  };
+  // The warp walks its (window, k16 step) pairs in order, window-major. Its
+  // B fragments for a pair, its two n8 tiles of cos and sin, go to ring slot
+  // (pair % BF_RING), 16 bytes a lane twice: fragment run f = nt*2 + cs
+  // (256 bytes, table[(nt * KS + k) * 32 + lane]) at slot[f * 32 + lane].
+  int iw = wbeg, ik = 0;  // the next pair to fetch
+  auto issue = [&](int slot) {
+    if (iw < wend) {
+      uint2* dst = ring + slot * BF_SLOT;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int p = lane + 32 * j;  // 16-byte piece of the slot
+        const int f = p >> 4, off = p & 15;
+        const uint2* table = (f & 1) ? bsin : bcos;
+        const size_t nt = (size_t)iw * 16 + 2 * warp + (f >> 1);
+        cp_async16(dst + f * 32 + 2 * off, table + (nt * KS + ik) * 32 + 2 * off);
+      }
+      if (++ik == KS) {
+        ik = 0;
+        ++iw;
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+  };
+#pragma unroll 1
+  for (int s = 0; s < BF_RING; ++s) issue(s);
+  if (achunks == 1) load_a(0);
+  __syncthreads();
+
+  const int g = lane >> 2, tq = lane & 3;
+  int slot = 0;
+  for (int win = wbeg; win < wend; ++win) {
+    float acc[2][2][4];  // [n8 tile][cos, sin][fragment]
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int cs = 0; cs < 2; ++cs)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][cs][i] = 0.0f;
+    for (int k = 0; k < KS; ++k) {
+      const int kr = k % KSA;
+      if (achunks > 1 && kr == 0) {
+        __syncthreads();  // every warp is done with the previous chunk
+        load_a(k / KSA);
+        __syncthreads();
+      }
+      cp_async_wait<BF_RING - 1>();  // this lane's pieces of the pair arrived
+      __syncwarp();                  // ... and every lane's
+      const uint2* sl = ring + slot * BF_SLOT;
+      uint2 q[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int cs = 0; cs < 2; ++cs) q[nt][cs] = sl[(nt * 2 + cs) * 32 + lane];
+      uint32_t a[4];
+      ldmatrix_x4(a, As + (lane & 15) * BF_KAS + kr * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int cs = 0; cs < 2; ++cs) mma_bf16(acc[nt][cs], a, q[nt][cs]);
+      __syncwarp();  // every lane has read the slot before it is refilled
+      issue(slot);
+      slot = slot + 1 == BF_RING ? 0 : slot + 1;
+    }
+    // magnitudes: fragment i of n8 tile nt is row g + 8*(i/2), bin
+    // warp*16 + nt*8 + 2*tq + i%2 of the window
+    float* mw = mags + (win - wbeg) * TF * BF_MS;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* re = acc[nt][0];
+        const float* im = acc[nt][1];
+        const float2 m2 = make_float2(
+            sqrtf(re[2 * h] * re[2 * h] + im[2 * h] * im[2 * h]),
+            sqrtf(re[2 * h + 1] * re[2 * h + 1] + im[2 * h + 1] * im[2 * h + 1]));
+        *reinterpret_cast<float2*>(mw + (g + 8 * h) * BF_MS + warp * 16 + nt * 8 + 2 * tq) = m2;
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the linear rows of this CTA's windows, 128 consecutive bins a run
+  for (int e = threadIdx.x; e < (wend - wbeg) * TF * BF_WIN; e += STFT_THREADS) {
+    const int wl = e / (TF * BF_WIN), r = (e / BF_WIN) % TF, k = e % BF_WIN;
+    const int bin = (wbeg + wl) * BF_WIN + k;
+    if (r < frames && bin < NF) {
+      const float m = mags[(wl * TF + r) * BF_MS + k];
+      lin_out[(row0 + r) * NF + bin] = normalize_linear ? db_normalize(m, nc) : m;
+    }
+  }
+  cluster.sync();  // every CTA's magnitudes are complete
+  // gather the full magnitude rows of this CTA's mel frames from the CTAs
+  // that own each window (distributed shared memory)
+  for (int e0 = threadIdx.x; e0 < fpr * nrow; e0 += 8 * STFT_THREADS) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // 8 remote loads in flight a thread
+      const int e = e0 + i * STFT_THREADS;
+      const int rl = e / nrow, bin = e % nrow, r = rank * fpr + rl;
+      const int wi = bin / BF_WIN, owner = wi / wpc;
+      v[i] = 0.0f;
+      if (e < fpr * nrow && r < TF)
+        v[i] = cluster.map_shared_rank(mags, owner)[((wi - owner * wpc) * TF + r) * BF_MS +
+                                                    bin % BF_WIN];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (e0 + i * STFT_THREADS < fpr * nrow) full[e0 + i * STFT_THREADS] = v[i];
+  }
+  cluster.sync();  // the peers are done reading this CTA's magnitudes
+  // each filter's nonzero bins in ascending order (K3's loop)
+  for (int e = threadIdx.x; e < fpr * M; e += STFT_THREADS) {
+    const int rl = e / M, m = e - rl * M, r = rank * fpr + rl;
+    if (r >= frames) continue;
+    const float* mg = full + (size_t)rl * nrow + mel_lo[m];
+    const int j0 = mel_off[m], j1 = mel_off[m + 1];
+    float acc = 0.0f;
+    for (int j = j0; j < j1; ++j) acc = fmaf(mg[j - j0], mel_w[j], acc);
+    mel_out[(row0 + r) * M + m] = db_normalize(acc, nc);
+  }
+}
+
+static cudaError_t launch_bf16(const float* wav, const int* bcos, const int* bsin,
+                               const int* mel_lo, const int* mel_off, const float* mel_w,
+                               float* mel_out, float* lin_out, int B, int L, int T, int hop,
+                               int n0, int n_live, int NF, int M, NormConsts nc,
+                               int normalize_linear, cudaStream_t stream) {
+  const size_t smem = bf16_smem((NF + BF_WIN - 1) / BF_WIN);
+  cudaError_t err = cudaFuncSetAttribute(stft_fused_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BF_TF - 1) / BF_TF * BF_CW, B);
+  stft_fused_bf16_kernel<<<grid, STFT_THREADS, smem, stream>>>(
+      wav, reinterpret_cast<const uint2*>(bcos), reinterpret_cast<const uint2*>(bsin), mel_lo,
+      mel_off, mel_w, mel_out, lin_out, L, T, hop, n0, n_live, NF, M, nc, normalize_linear);
+  return cudaGetLastError();
+}
+
+extern "C" int stft_fused_launch(const float* wav, const float* table, const float* window,
+                                 const int* mel_lo, const int* mel_off, const float* mel_w,
+                                 const int* bcos, const int* bsin, float* mel_out,
+                                 float* lin_out, int B, int L, int T, int hop, int n0,
+                                 int n_live, int n_fft, int M, int fr, const int* radix,
+                                 int stages, float ref_db, float min_db, float max_abs,
+                                 int symmetric, int normalize_linear, int bf16,
+                                 cudaStream_t stream) {
+  if (B < 1 || T < 1 || B > 65535 || n0 < 0 || n_live < 1 || n0 + n_live > n_fft)
     return (int)cudaErrorInvalidValue;
   NormConsts nc{ref_db, min_db, max_abs, symmetric};
-  const int seg_len = (STFT_TF - 1) * hop + n_live;
-  size_t smem = sizeof(float) * ((size_t)seg_len + 2 * STFT_KC * STFT_FT +
-                                 (size_t)STFT_TF * STFT_FT);
+  const int NF = n_fft / 2 + 1;
+  if (bf16) {
+    if (fr != BF_TF) return (int)cudaErrorInvalidValue;
+    return (int)launch_bf16(wav, bcos, bsin, mel_lo, mel_off, mel_w, mel_out, lin_out, B, L, T,
+                            hop, n0, n_live, NF, M, nc, normalize_linear, stream);
+  }
+  FftPlan plan;
+  const int n = n_fft % 2 == 0 ? n_fft / 2 : n_fft;
+  if (fr < 1 || !make_fft_plan(&plan, n, radix, stages)) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * sizeof(float2) * (size_t)fr * n;
   cudaError_t err = cudaFuncSetAttribute(
       stft_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = NFp / STFT_FT;
-  dim3 grid((T + STFT_TF - 1) / STFT_TF, tiles, B);
+  dim3 grid((T + fr - 1) / fr, B);
   stft_fused_kernel<<<grid, STFT_THREADS, smem, stream>>>(
-      wav, cosb, sinb, melT, partial, lin_out, L, T, hop, n0, n_live, NF, NFp, M,
-      nc, normalize_linear, bf16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)stft_mel_reduce(partial, mel_out, tiles, (long long)B * T * M, nc, stream);
+      wav, reinterpret_cast<const float2*>(table), window, mel_lo, mel_off, mel_w, mel_out,
+      lin_out, L, T, hop, n0, n_live, n_fft, M, fr, plan, nc, normalize_linear);
+  return (int)cudaGetLastError();
 }

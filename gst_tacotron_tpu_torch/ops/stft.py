@@ -1,17 +1,18 @@
 """The three mel-STFT kernels (counterparts of ``gst_tacotron_tpu/ops/stft_pallas.py``).
 
 All three compute normalized-dB mel and linear features of the window's
-live taps. K3 runs a shared-memory real FFT and a sparse mel; K3′ and K3″
-multiply by DFT cos/sin bases with the window baked in:
+live taps, through a shared-memory FFT (``csrc/fft.cuh``) and a sparse mel
+over each filter's nonzero bins, in one launch:
 
   K3   ``stft_features``        <- ``stft_features_pallas_resident``:
-       (B, L) wav, a block's frames through one FFT each, power-of-two
-       n_fft on the card (``csrc/stft_features.cu``, ``csrc/fft.cuh``);
+       (B, L) wav, power-of-two n_fft on the card (``csrc/stft_features.cu``);
   K3′  ``stft_features_fused``  <- ``stft_features_pallas_fused``: the same
-       function split over 128-bin frequency tiles, the mel summed over the
-       tiles by a second launch; ``bf16_bases`` opt-in (``csrc/stft_fused.cu``);
+       function for any hop | n_fft, on the mixed-radix FFT (``fft_plan``);
+       ``bf16_bases`` runs the window-baked DFT products on the tensor cores
+       instead (``csrc/stft_fused.cu``);
   K3″  ``stft_features_frames`` <- ``stft_features_pallas``: (F, n_fft) raw
-       frames -> (F, M), (F, NF) (``csrc/stft_frames.cu``).
+       frames -> (F, M), (F, NF), on the mixed-radix FFT
+       (``csrc/stft_frames.cu``).
 
 The wav input is preemphasized and reflect-padded at the centre per
 utterance, zero-padded to a bucket length; outputs are (mel (B, T, M),
@@ -41,11 +42,12 @@ from .build import F, I, P, CudaKernel, check_cuda, ptr, stream_ptr
 KERNEL = CudaKernel("stft_features.cu", "stft_features_launch",
                     [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, I, I, P])
 FUSED_KERNEL = CudaKernel("stft_fused.cu", "stft_fused_launch",
-                          [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, F, I, I,
-                           I, P])
+                          [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, I,
+                           F, F, F, I, I, I, P])
 FRAMES_KERNEL = CudaKernel("stft_frames.cu", "stft_frames_launch",
-                           [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, F, I, I, P])
-FREQ_TILE = 128  # the kernels' frequency tile; padded bins carry zero bases
+                           [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, I, F, F, F, I, I, P])
+# the bins of a bf16 window (8 warps x 16 bins) and the plain bases' padding
+FREQ_TILE = 128
 
 Features = Tuple[torch.Tensor, torch.Tensor]
 
@@ -108,6 +110,54 @@ def fft_twiddles(n_fft: int) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def fft_radices(n: int) -> Tuple[int, ...]:
+    """The stage radices of the mixed-radix FFT of length n, in the order the
+    kernels run them: 4 while it divides, one 2, then 3s, 5s, and the other
+    (odd prime) factors ascending, each a direct DFT (the generic stage)."""
+    if n < 1:
+        raise ValueError(f"fft_radices: length {n} < 1")
+    out = []
+    for r in (4, 2, 3, 5):
+        while n % r == 0:
+            out.append(r)
+            n //= r
+    f = 7
+    while n > 1:
+        if f * f > n:
+            out.append(n)
+            break
+        while n % f == 0:
+            out.append(f)
+            n //= f
+        f += 2
+    return tuple(out)
+
+
+def fft_plan(n_fft: int) -> Tuple[Tuple[int, ...], np.ndarray]:
+    """The mixed-radix FFT of K3′ and K3″ (``csrc/fft.cuh::fft_mixed``):
+    (radices, table). An even n_fft packs the real frame into an
+    n_fft/2-point complex transform and splits it; an odd one transforms the
+    real frame as n_fft complex points. The table (complex128) holds, stage
+    by stage, exp(-2 pi i k q / (R p)) for q = 1..R-1 (q-major), k < p
+    (n - 1 entries in all), then each generic stage's roots
+    exp(-2 pi i m / R), m < R, then, for an even n_fft, the split twiddles
+    exp(-2 pi i k / n_fft), k = 0..n_fft/2. For a power of two it is K3's
+    ``fft_twiddles`` bit for bit."""
+    n = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    radices = fft_radices(n)
+    parts, roots, p = [], [], 1
+    for r in radices:
+        k = np.arange(p)
+        parts += [np.exp(-2j * np.pi * k * q / (r * p)) for q in range(1, r)]
+        if r > 5:
+            roots.append(np.exp(-2j * np.pi * np.arange(r) / r))
+        p *= r
+    parts += roots
+    if n_fft % 2 == 0:
+        parts.append(np.exp(-2j * np.pi * np.arange(n + 1) / n_fft))
+    return radices, np.concatenate(parts) if parts else np.zeros(0, np.complex128)
+
+
 def sparse_mel(mel_t: np.ndarray, num_freq: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Each mel filter's nonzero bins, from the dense (>= num_freq, M) basis:
     (lo (M,) its first nonzero bin, off (M + 1,) offsets into w, w the
@@ -125,12 +175,43 @@ def sparse_mel(mel_t: np.ndarray, num_freq: int) -> Tuple[np.ndarray, np.ndarray
             np.concatenate(w).astype(np.float32))
 
 
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """The bfloat16 bits (uint16) of x rounded to nearest, ties to even: the
+    rounding of ``_bf16`` (torch's cast)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def mma_b_fragments(b: np.ndarray) -> np.ndarray:
+    """A (K, N) float32 matrix as the B operands of ``mma.sync.m16n8k16``
+    bf16 (K padded with zero rows to a multiple of 16, N a multiple of 8):
+    int32 (N/8, K/16, 32, 2), [n8 tile][k16 step][lane][register]; lane
+    g*4 + t holds, low half first, B[2t, g], B[2t+1, g] in register 0 and
+    B[2t+8, g], B[2t+9, g] in register 1 of the tile. A warp reads one tile's
+    fragments as 256 consecutive bytes."""
+    k, n = b.shape
+    if n % 8:
+        raise ValueError(f"mma_b_fragments: N {n} is not a multiple of 8")
+    kp = _round_up(max(k, 1), 16)
+    bits = np.zeros((kp, n), np.uint32)
+    bits[:k] = bf16_bits(b)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    ks = np.arange(kp // 16)[:, None]
+    nt = np.arange(n // 8)[:, None, None]
+    col = nt * 8 + g                                     # (NT, 1, 32)
+    row = ks * 16 + 2 * t                                # (KS, 32)
+    reg0 = bits[row, col] | (bits[row + 1, col] << 16)
+    reg1 = bits[row + 8, col] | (bits[row + 9, col] << 16)
+    return np.stack([reg0, reg1], -1).astype(np.uint32).view(np.int32)
+
+
 @functools.lru_cache(maxsize=4)
 def _fft_tables_np(cfg: AudioConfig):
-    """K3's tables: the float64 twiddles and live window taps as float32,
-    and the sparse mel of the float32 basis."""
+    """The FFT kernels' tables: the float64 twiddles of ``fft_plan`` and the
+    live window taps as float32, and the sparse mel of the float32 basis."""
     j0, j1, _ = live_tap_span(cfg)
-    tw = fft_twiddles(cfg.n_fft)
+    _, tw = fft_plan(cfg.n_fft)
     win = padded_window(cfg.win_length, cfg.n_fft)[j0 * cfg.hop_length: j1 * cfg.hop_length]
     lo, off, w = sparse_mel(_bases_np(cfg)[2], cfg.num_freq)
     return {"fft_twiddle": np.stack([tw.real, tw.imag], -1).astype(np.float32),
@@ -139,16 +220,25 @@ def _fft_tables_np(cfg: AudioConfig):
 
 
 def stft_bases(cfg: AudioConfig, device) -> Dict[str, torch.Tensor]:
-    """The kernels' device tables: ``cos``, ``sin``, ``mel_t`` (K3′, K3″ and
-    the plain versions) and K3's ``fft_twiddle``, ``fft_window``,
+    """The kernels' device tables: ``cos``, ``sin``, ``mel_t`` (the plain
+    versions), the FFT's ``fft_twiddle``, ``fft_window`` and the sparse mel
     ``mel_lo``, ``mel_off``, ``mel_w``."""
     cos_b, sin_b, mel_t = _bases_np(cfg)
     tables = {"cos": cos_b, "sin": sin_b, "mel_t": mel_t, **_fft_tables_np(cfg)}
     return {name: torch.from_numpy(a).to(device) for name, a in tables.items()}
 
 
+@functools.lru_cache(maxsize=4)
+def _bf16_fragments(cfg: AudioConfig, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3′'s bf16 B fragments of the window-baked cos/sin bases on
+    ``device``, built at the first ``bf16_bases`` call and kept."""
+    cos_b, sin_b, _ = _bases_np(cfg)
+    return (torch.from_numpy(mma_b_fragments(cos_b)).to(device),
+            torch.from_numpy(mma_b_fragments(sin_b)).to(device))
+
+
 # K3's frames a block (FFT_FRAMES of the kernel), a block's shared memory,
-# and K3's entries of stft_bases
+# and the FFT kernels' entries of stft_bases
 FFT_FRAMES = 4
 _MAX_SMEM = 232448
 _FFT_TABLES = ("fft_twiddle", "fft_window", "mel_lo", "mel_off", "mel_w")
@@ -171,6 +261,75 @@ def check_fft_size(cfg: AudioConfig) -> int:
         raise ValueError(f"stft_features: n_fft {n_fft} needs {smem} bytes of shared "
                          "memory, more than one block has; use the \"fused\" route")
     return smem
+
+
+def mixed_fft_smem(n_fft: int, frames: int) -> int:
+    """Shared memory of a K3′ / K3″ block of ``frames`` frames: two
+    ping-pong buffers of the complex transform (n_fft / 2 points for an even
+    n_fft, n_fft for an odd one); the second first holds the frames' taps."""
+    n = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    return 2 * 8 * frames * n
+
+
+# the largest n_fft one frame of the mixed-radix FFT fits: 29056 when even,
+# 14527 when odd (a transform of 14528 points would fit)
+MAX_FFT_SIZE = {"even": _MAX_SMEM // 8, "odd": _MAX_SMEM // 16 - 1}
+
+
+def fft_frames_per_block(n_fft: int, groups: int, frames: int, sms: int) -> int:
+    """Frames a K3′ / K3″ block owns: the most of 4, 2, 1 whose buffers fit
+    one block and whose grid (``groups`` x ceil(frames / fr) blocks) still
+    gives each of ``sms`` SMs two blocks; 1 when none does. ValueError when
+    even one frame does not fit, naming n_fft."""
+    if mixed_fft_smem(n_fft, 1) > _MAX_SMEM:
+        kind = "even" if n_fft % 2 == 0 else "odd"
+        raise ValueError(f"STFT FFT kernels: n_fft {n_fft} needs "
+                         f"{mixed_fft_smem(n_fft, 1)} bytes of shared memory for one "
+                         f"frame, more than one block has (the {kind} limit is n_fft "
+                         f"<= {MAX_FFT_SIZE[kind]})")
+    for fr in (4, 2):
+        if mixed_fft_smem(n_fft, fr) <= _MAX_SMEM and groups * -(-frames // fr) >= 2 * sms:
+            return fr
+    return 1
+
+
+BF16_TILE = 16     # frames a K3′ bf16 tile (one m16 row tile of mma.sync)
+BF16_CLUSTER = 2   # CTAs a tile's cluster, each half of its 128-bin windows
+
+
+def bf16_smem(n_fft: int) -> int:
+    """Shared memory of a K3′ bf16 CTA (mirrors ``csrc/stft_fused.cu::
+    bf16_smem``): 8 warps' rings of 4 k16 steps of B fragments (1 KB each),
+    the tile's 1024 resident taps in bf16 (rows of 1032), the magnitudes of
+    its half of the 128-bin windows (rows of 136) and the full magnitude rows
+    of its 8 mel frames."""
+    windows = -(-(n_fft // 2 + 1) // FREQ_TILE)
+    return (8 * 4 * 1024 + 2 * BF16_TILE * 1032
+            + 4 * -(-windows // BF16_CLUSTER) * BF16_TILE * 136
+            + 4 * (BF16_TILE // BF16_CLUSTER) * windows * FREQ_TILE)
+
+
+def check_bf16_size(n_fft: int) -> None:
+    """ValueError, naming n_fft, when the bf16 CTA does not fit one block
+    (past n_fft 4863: 19 windows)."""
+    if bf16_smem(n_fft) > _MAX_SMEM:
+        raise ValueError(f"stft_features_fused: bf16_bases at n_fft {n_fft} needs "
+                         f"{bf16_smem(n_fft)} bytes of shared memory, more than one block has")
+
+
+@functools.lru_cache(maxsize=4)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=16)
+def _radix_arg(n_fft: int):
+    """(the radices as a host C int array, their count) for a launcher."""
+    import ctypes
+
+    # n_fft 2 has nothing to transform: one radix-1 (copy) stage
+    r = fft_radices(n_fft // 2 if n_fft % 2 == 0 else n_fft) or (1,)
+    return (ctypes.c_int * len(r))(*r), len(r)
 
 
 def db_normalize(x: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
@@ -283,37 +442,46 @@ def stft_features(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
 def stft_features_fused(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
                         normalize_linear: bool = True, bf16_bases: bool = False
                         ) -> Features:
-    """K3′: K3's function split over 128-bin frequency tiles. ``bf16_bases``
-    rounds the frames and the cos/sin bases to bfloat16 and sums in float32.
-    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """K3′: K3's function for any hop | n_fft up to ``MAX_FFT_SIZE``, through
+    the mixed-radix FFT. ``bf16_bases`` rounds the frames and the
+    window-baked cos/sin bases to bfloat16 and sums their products in float32
+    on the tensor cores (the mel stays float32). The kernel for CUDA tensors,
+    the plain version for CPU tensors."""
     if wav.device.type == "cpu":
         return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear,
                                    bf16_bases=bf16_bases)
-    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features_fused",
-                                            ("cos", "sin", "mel_t"))
+    if bf16_bases:                                     # the size limits, before any table
+        check_bf16_size(cfg.n_fft)
+    else:
+        fft_frames_per_block(cfg.n_fft, 1, 1, 1)
+    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features_fused", _FFT_TABLES)
     b, total = wav.shape
     if b == 0:
         return mel, lin
     if b > 65535:
         raise ValueError(f"stft_features_fused: batch {b} > 65535")
     t = mel.shape[1]
-    nfp = bases["cos"].shape[1]
-    partial = torch.empty(nfp // FREQ_TILE, b * t, cfg.num_mels, device=wav.device,
-                          dtype=torch.float32)
+    if bf16_bases:
+        fr, (bcos, bsin) = BF16_TILE, _bf16_fragments(cfg, str(wav.device))
+        frags = (ptr(bcos), ptr(bsin))
+    else:
+        fr = fft_frames_per_block(cfg.n_fft, b, t, _sm_count(wav.device.index))
+        frags = (None, None)
+    radix, stages = _radix_arg(cfg.n_fft)
     j0, _, n_live = live_tap_span(cfg)
-    FUSED_KERNEL(ptr(wav), ptr(bases["cos"]), ptr(bases["sin"]), ptr(bases["mel_t"]),
-                 ptr(partial), ptr(mel), ptr(lin), b, total, t, cfg.hop_length,
-                 j0 * cfg.hop_length, n_live, cfg.num_freq, nfp, cfg.num_mels,
-                 *_norm_args(cfg, normalize_linear), int(bf16_bases),
-                 stream_ptr(wav.device))
+    FUSED_KERNEL(ptr(wav), ptr(bases["fft_twiddle"]), ptr(bases["fft_window"]),
+                 ptr(bases["mel_lo"]), ptr(bases["mel_off"]), ptr(bases["mel_w"]), *frags,
+                 ptr(mel), ptr(lin), b, total, t, cfg.hop_length, j0 * cfg.hop_length,
+                 n_live, cfg.n_fft, cfg.num_mels, fr, radix, stages,
+                 *_norm_args(cfg, normalize_linear), int(bf16_bases), stream_ptr(wav.device))
     return mel, lin
 
 
 def stft_features_frames(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
                          normalize_linear: bool = True) -> Features:
     """K3″: (F, n_fft) raw (un-windowed) frames -> (mel (F, M), linear
-    (F, NF)). The kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    (F, NF)), through the mixed-radix FFT (n_fft up to ``MAX_FFT_SIZE``).
+    The kernel for CUDA tensors, the plain version for CPU tensors."""
     if frames.dim() != 2 or frames.shape[1] != cfg.n_fft:
         raise ValueError(f"stft_features_frames: expected (F, {cfg.n_fft}) frames, "
                          f"got shape {tuple(frames.shape)}")
@@ -321,21 +489,22 @@ def stft_features_frames(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
         return stft_features_frames_plain(frames, cfg, bases,
                                           normalize_linear=normalize_linear)
     n = frames.shape[0]
+    fft_frames_per_block(cfg.n_fft, 1, 1, 1)          # the size limit, before any table
     bases = bases or stft_bases(cfg, frames.device)
     frames = frames.to(torch.float32).contiguous()
-    check_cuda("stft_features_frames", frames, bases["cos"], bases["sin"], bases["mel_t"])
+    check_cuda("stft_features_frames", frames, *(bases[k] for k in _FFT_TABLES))
     mel = torch.empty(n, cfg.num_mels, device=frames.device, dtype=torch.float32)
     lin = torch.empty(n, cfg.num_freq, device=frames.device, dtype=torch.float32)
     if n == 0:
         return mel, lin
-    nfp = bases["cos"].shape[1]
-    partial = torch.empty(nfp // FREQ_TILE, n, cfg.num_mels, device=frames.device,
-                          dtype=torch.float32)
+    fr = fft_frames_per_block(cfg.n_fft, 1, n, _sm_count(frames.device.index))
+    radix, stages = _radix_arg(cfg.n_fft)
     j0, _, n_live = live_tap_span(cfg)
-    FRAMES_KERNEL(ptr(frames), ptr(bases["cos"]), ptr(bases["sin"]), ptr(bases["mel_t"]),
-                  ptr(partial), ptr(mel), ptr(lin), n, cfg.n_fft, j0 * cfg.hop_length,
-                  n_live, cfg.num_freq, nfp, cfg.num_mels,
-                  *_norm_args(cfg, normalize_linear), stream_ptr(frames.device))
+    FRAMES_KERNEL(ptr(frames), ptr(bases["fft_twiddle"]), ptr(bases["fft_window"]),
+                  ptr(bases["mel_lo"]), ptr(bases["mel_off"]), ptr(bases["mel_w"]),
+                  ptr(mel), ptr(lin), n, cfg.n_fft, j0 * cfg.hop_length, n_live,
+                  cfg.num_mels, fr, radix, stages, *_norm_args(cfg, normalize_linear),
+                  stream_ptr(frames.device))
     return mel, lin
 
 

@@ -158,7 +158,7 @@ def test_stft_fused_kernel(dev, win, normalize_linear):
 
     cfg = AudioConfig(n_fft=512, hop_length=128, win_length=win)
     g = torch.Generator().manual_seed(win + 1)
-    frames = 21                           # not a multiple of the kernel's 16-frame tile
+    frames = 21                           # not a multiple of the kernel's frames a block
     wav = (torch.rand(3, 512 + 128 * (frames - 1) + 77, generator=g) - 0.5).to(dev)
     before = FUSED_KERNEL.launches
     got = stft_features_fused(wav, cfg, normalize_linear=normalize_linear)
@@ -168,7 +168,7 @@ def test_stft_fused_kernel(dev, win, normalize_linear):
     assert got[0].shape == (3, frames, 80) and got[1].shape == (3, frames, 257)
     for x, y in zip(got, ref):
         torch.testing.assert_close(x, y, atol=5e-4, rtol=1e-5)
-    # deterministic: the partial mels are summed in a fixed order
+    # deterministic: one launch, each mel filter summed in ascending bin order
     again = stft_features_fused(wav, cfg, normalize_linear=normalize_linear)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
@@ -190,6 +190,90 @@ def test_stft_fused_kernel_bf16(dev):
     f32 = stft_features_plain(wav, cfg)[0]
     loud = f32 > 0.5
     assert loud.any() and float((got[0] - f32).abs()[loud].max()) < 0.05
+
+
+# n_fft 1200 (600 = 4·2·3·5·5) and 1536 (768 = 4⁴·3) run the mixed-radix
+# stages, 1026 (513 = 3³·19) the generic one, odd 1575 (3²·5²·7) the
+# unpacked real transform; 512 and 2048 radix 4 and 2 only
+MIXED_STFT = [(512, 128, 512), (1200, 300, 1200), (1536, 256, 1024), (2048, 256, 1024),
+              (1026, 342, 1000), (1575, 525, 1500)]
+
+
+@pytest.mark.parametrize("n_fft,hop,win", MIXED_STFT)
+@pytest.mark.parametrize("form", ["frames", "fused", "fused_bf16"])
+def test_stft_mixed_radix_kernels(dev, n_fft, hop, win, form):
+    """K3″ and K3′ (both modes) at any n_fft: one launch a call, the plain
+    version's features (bf16: the plain version's bf16 rounding, and near
+    float32 on loud bins), the same bits on a second run."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+    from gst_tacotron_tpu_torch.ops import stft
+
+    cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+    g = torch.Generator().manual_seed(n_fft + len(form))
+    t = 37                                # not a multiple of any frames a block
+    wav = (torch.rand(3, n_fft + hop * (t - 1) + 77, generator=g) - 0.5).to(dev)
+    bf16 = form == "fused_bf16"
+    if form == "frames":
+        x = TorchDSP(cfg, dev).frame_precentered(wav).reshape(-1, n_fft).contiguous()
+        kernel, run = stft.FRAMES_KERNEL, lambda: stft.stft_features_frames(x, cfg)
+        ref = stft.stft_features_frames_plain(x, cfg)
+    else:
+        kernel = stft.FUSED_KERNEL
+        run = lambda: stft.stft_features_fused(wav, cfg, bf16_bases=bf16)
+        ref = stft.stft_features_plain(wav, cfg, bf16_bases=bf16)
+    before = kernel.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert got[1].shape[-1] == n_fft // 2 + 1 and got[0].shape[-1] == 80
+    for x, y, z in zip(got, ref, again):
+        torch.testing.assert_close(x, y, atol=5e-4, rtol=1e-5)
+        assert torch.equal(x, z)
+    if bf16:
+        f32 = stft.stft_features_plain(wav, cfg)[0]
+        loud = f32 > 0.5
+        assert loud.any() and float((got[0] - f32).abs()[loud].max()) < 0.05
+
+
+def test_stft_fft_kernels_give_k3s_features(dev):
+    """n_fft 2048: K3′ (float32) on the wav and K3″ on its frames run K3's
+    arithmetic, so they agree with K3 to 1e-6 (the same bits unless the
+    compiler contracted a product differently)."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+    from gst_tacotron_tpu_torch.ops import stft
+
+    cfg = AudioConfig(n_fft=2048, hop_length=256, win_length=1024)
+    g = torch.Generator().manual_seed(2048)
+    wav = ((torch.rand(4, 2048 + 256 * 127, generator=g) - 0.5) * 0.6).to(dev)
+    k3 = stft.stft_features(wav, cfg)
+    fused = stft.stft_features_fused(wav, cfg)
+    x = TorchDSP(cfg, dev).frame_precentered(wav).reshape(-1, 2048).contiguous()
+    frames = [y.reshape(k.shape) for y, k in zip(stft.stft_features_frames(x, cfg), k3)]
+    for got in (fused, frames):
+        for a, b in zip(got, k3):
+            assert float((a - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n_fft,route", [(29058, "frames"), (32768, "fused"), (14529, "frames"),
+                                         (8192, "fused_bf16")])
+def test_stft_fft_kernels_refuse_past_the_size_limit(dev, n_fft, route):
+    """Past one frame's shared memory the wrappers raise, naming the size,
+    before building a table or launching."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops import stft
+
+    hop = n_fft // 2 if n_fft % 2 == 0 else n_fft // 3
+    cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=n_fft)
+    before = stft.FRAMES_KERNEL.launches + stft.FUSED_KERNEL.launches
+    with pytest.raises(ValueError, match=f"n_fft {n_fft}"):
+        if route == "frames":
+            stft.stft_features_frames(torch.zeros(2, n_fft, device=dev), cfg)
+        else:
+            stft.stft_features_fused(torch.zeros(1, 2 * n_fft, device=dev), cfg,
+                                     bf16_bases=route == "fused_bf16")
+    assert stft.FRAMES_KERNEL.launches + stft.FUSED_KERNEL.launches == before
 
 
 @pytest.mark.parametrize("win", [512, 256])

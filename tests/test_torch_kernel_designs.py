@@ -1,5 +1,6 @@
-"""The CUDA designs of K3 (mel-STFT as a shared-memory FFT) and K1 (GRU scan
-on thread-block clusters), checked on the CPU without a card:
+"""The CUDA designs of K3, K3′ and K3″ (mel-STFT as a shared-memory FFT,
+K3′'s bf16 bases on tensor cores) and K1 (GRU scan on thread-block
+clusters), checked on the CPU without a card:
 
 - a numpy emulation of K3's FFT schedule (``csrc/fft.cuh``: the same
   twiddle table, Stockham index maps, first stage formed from the live taps,
@@ -9,7 +10,13 @@ on thread-block clusters), checked on the CPU without a card:
   and the sparse mel, which rebuilds the dense basis exactly and whose
   ascending sum gives the dense loop's bits;
 - K3's n_fft check and K1's launch plan for every GRU of every config and of
-  the golden fixtures, and the shapes each refuses.
+  the golden fixtures, and the shapes each refuses;
+- K3′'s and K3″'s mixed-radix FFT (``csrc/fft.cuh::fft_mixed``): a numpy
+  emulation of the plan, table, index maps, butterflies and split (or
+  unpacked) read against ``np.fft.rfft`` in float64, ``fft_plan`` against
+  K3's table, the frames a block and the size limit;
+- K3′'s bf16 tile: the ldmatrix and ``mma.sync.m16n8k16`` fragment index
+  maps over ``mma_b_fragments`` against a plain product.
 """
 
 from pathlib import Path
@@ -266,3 +273,270 @@ def test_gru_launch_plan_odd_shapes(b, h):
 def test_gru_launch_plan_refuses(b, h):
     with pytest.raises(ValueError, match="gru_scan"):
         tgru.launch_plan(b, h)
+
+
+# ---------------------------------------------------------------------------
+# K3′ and K3″: the mixed-radix FFT
+# ---------------------------------------------------------------------------
+
+# 1200: 600 = 4·2·3·5·5; 1536: 768 = 4⁴·3; 1026: 513 = 3³·19 (the generic
+# stage); 1575 (odd): 3²·5²·7, the unpacked real transform
+MIXED_CONFIGS = [dict(n_fft=512, hop_length=128, win_length=512),
+                 dict(n_fft=1024, hop_length=256, win_length=1024),
+                 dict(n_fft=1200, hop_length=300, win_length=1200),
+                 dict(n_fft=1536, hop_length=256, win_length=1024),
+                 dict(n_fft=1026, hop_length=342, win_length=1000),
+                 dict(n_fft=2048, hop_length=256, win_length=1024),
+                 dict(n_fft=1575, hop_length=525, win_length=1500)]
+
+
+def _dft_small(u):
+    """fft.cuh::dft_small's butterflies in complex64 (R = 2, 3, 4, 5)."""
+    r = len(u)
+    mi = lambda d: (d.imag - 1j * d.real).astype(np.complex64)      # -i d
+    f32 = np.float32
+    if r == 2:
+        return [u[0] + u[1], u[0] - u[1]]
+    if r == 3:
+        s, d = u[1] + u[2], u[1] - u[2]
+        t = (u[0] - f32(0.5) * s).astype(np.complex64)
+        rr = mi(f32(0.866025403784438647) * d)
+        return [u[0] + s, t + rr, t - rr]
+    if r == 4:
+        v0, v1, v2, d = u[0] + u[2], u[0] - u[2], u[1] + u[3], u[1] - u[3]
+        v3 = mi(d)
+        return [v0 + v2, v1 + v3, v0 - v2, v1 - v3]
+    c1, c2 = f32(0.309016994374947424), f32(-0.809016994374947424)
+    s1, s2 = f32(0.951056516295153572), f32(0.587785252292473129)
+    a1, b1, a2, b2 = u[1] + u[4], u[1] - u[4], u[2] + u[3], u[2] - u[3]
+    p1, p2 = u[0] + c1 * a1 + c2 * a2, u[0] + c2 * a1 + c1 * a2
+    r1, r2 = mi(s1 * b1 + s2 * b2), mi(s2 * b1 - s1 * b2)
+    return [u[0] + (a1 + a2), p1 + r1, p2 + r2, p2 - r2, p1 - r1]
+
+
+def emulate_mixed_fft(live: np.ndarray, window: np.ndarray, n_fft: int, radices,
+                      table: np.ndarray) -> np.ndarray:
+    """K3′/K3″'s bins of (F, n_live) live-tap frames, in float32 as the
+    kernel computes them: the windowed taps rotated to the frame's start,
+    packed z[m] = x[2m] + i x[2m+1] (even n_fft) or the real samples (odd),
+    the plan's Stockham stages over the table, then the split or a direct
+    read of bins 0..n_fft/2."""
+    packed = n_fft % 2 == 0
+    n = n_fft // 2 if packed else n_fft
+    x = np.zeros((live.shape[0], n_fft), np.float32)
+    x[:, :live.shape[1]] = live * window
+    z = (x[:, 0::2] + 1j * x[:, 1::2] if packed else x + 0j).astype(np.complex64)
+    tw, roots, p = table, table[n - 1:], 1
+    for r in radices:
+        m = n // r
+        i = np.arange(m)
+        k = i % p
+        u = [z[:, i + q * m] for q in range(r)]
+        if p > 1:
+            u = [u[0]] + [u[q] * tw[(q - 1) * p + k] for q in range(1, r)]
+        if r <= 5:
+            out = _dft_small(u)
+        else:                       # the generic stage: a direct DFT from the roots
+            out = []
+            for j in range(r):
+                acc = u[0]
+                for q in range(1, r):
+                    acc = acc + u[q] * roots[(j * q) % r]
+                out.append(acc)
+            roots = roots[r:]
+        y = np.empty_like(z)
+        for q in range(r):
+            y[:, (i - k) * r + k + q * p] = out[q]
+        z, tw, p = y, tw[(r - 1) * p:], p * r
+    if not packed:
+        return z[:, : n_fft // 2 + 1]
+    split = table[len(table) - (n + 1):]
+    k = np.arange(n + 1)
+    a, c = z[:, k % n], z[:, (n - k) % n]
+    ev = (0.5 * (a.real + c.real) + 0.5j * (a.imag - c.imag)).astype(np.complex64)
+    od = (0.5 * (a.imag + c.imag) - 0.5j * (a.real - c.real)).astype(np.complex64)
+    return ev + split[k] * od
+
+
+@pytest.mark.parametrize("kw", MIXED_CONFIGS, ids=lambda kw: f"{kw['n_fft']}-{kw['win_length']}")
+def test_mixed_fft_emulation_matches_rfft(kw):
+    cfg = AudioConfig(**kw)
+    j0, _, n_live = tstft.live_tap_span(cfg)
+    n0 = j0 * cfg.hop_length
+    tables = tstft.stft_bases(cfg, "cpu")
+    radices, _ = tstft.fft_plan(cfg.n_fft)
+    rng = np.random.default_rng(cfg.n_fft + cfg.win_length)
+    frames = rng.uniform(-1, 1, (6, cfg.n_fft)).astype(np.float32)
+    got = emulate_mixed_fft(frames[:, n0:n0 + n_live], tables["fft_window"].numpy(), cfg.n_fft,
+                            radices, _c64(tables["fft_twiddle"].numpy()))
+    ref = np.fft.rfft(frames.astype(np.float64) * padded_window(cfg.win_length, cfg.n_fft),
+                      axis=-1)
+    unrotated = got * np.exp(-2j * np.pi * n0 * np.arange(cfg.num_freq) / cfg.n_fft)
+    scale = np.abs(ref).max()
+    assert got.shape == ref.shape
+    assert np.abs(unrotated - ref).max() <= 1e-6 * scale
+    assert np.abs(np.abs(got) - np.abs(ref)).max() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("n,count,p,r", [(513, 2, 27, 19), (19, 4, 1, 19), (7, 3, 1, 7),
+                                         (1575, 1, 225, 7)])
+def test_generic_stage_threads_cover_each_output_once(n, count, p, r):
+    """fft.cuh::fft_stage_generic's thread map: e < count * n/R * R splits
+    into (j, f, i) with j outermost, each thread writes output
+    (i - k) * R + k + j * p of transform f (k = i mod p), and together the
+    threads write every output of every transform exactly once."""
+    m = n // r
+    cm = count * m
+    e = np.arange(cm * r)
+    j, fi = e // cm, e % cm
+    f, i = fi // m, fi % m
+    k = i % p
+    out = f * n + (i - k) * r + k + j * p
+    np.testing.assert_array_equal(np.sort(out), np.arange(count * n))
+    assert np.all(np.diff(i[:m]) == 1)            # neighbouring lanes, neighbouring inputs
+
+
+@pytest.mark.parametrize("n_fft", [2 ** e for e in range(2, 15)])
+def test_fft_plan_is_k3s_table_at_powers_of_two(n_fft):
+    radices, table = tstft.fft_plan(n_fft)
+    assert set(radices) <= {2, 4} and radices.count(2) <= 1
+    np.testing.assert_array_equal(table, tstft.fft_twiddles(n_fft))
+
+
+@pytest.mark.parametrize("n_fft,radices", [(1200, (4, 2, 3, 5, 5)), (1536, (4, 4, 4, 4, 3)),
+                                           (1026, (3, 3, 3, 19)), (1575, (3, 3, 5, 5, 7)),
+                                           (2 * 7 * 7 * 11, (7, 7, 11)), (3, (3,))])
+def test_fft_plan_tables(n_fft, radices):
+    """Stage twiddles, then each generic stage's roots, then (even n_fft) the
+    split twiddles: every entry its float64 value."""
+    got_r, table = tstft.fft_plan(n_fft)
+    assert got_r == radices
+    n = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    want, roots, p = [], [], 1
+    for r in radices:
+        want += [np.exp(-2j * np.pi * k * q / (r * p)) for q in range(1, r) for k in range(p)]
+        roots += [np.exp(-2j * np.pi * m / r) for m in range(r)] if r > 5 else []
+        p *= r
+    assert p == n and len(want) == n - 1
+    want += roots
+    if n_fft % 2 == 0:
+        want += [np.exp(-2j * np.pi * k / n_fft) for k in range(n + 1)]
+    np.testing.assert_allclose(table, np.array(want), rtol=0, atol=1e-15)
+
+
+def test_fft_frames_per_block_and_size_limit():
+    """2 frames a block at the main path's 1024 frames, 1 for a short
+    KernelDSP call, 4 for long inputs, so the grid gives each SM two blocks;
+    n_fft up to 29056 (even), 14527 (odd): beyond, ValueError naming the
+    size."""
+    fpb = tstft.fft_frames_per_block
+    assert fpb(2048, 1, 1024, 132) == 2
+    assert fpb(2048, 8, 128, 132) == 2
+    assert fpb(2048, 32, 800, 132) == 4
+    assert fpb(2048, 1, 600, 132) == 2
+    assert fpb(2048, 1, 300, 132) == 1
+    assert fpb(2048, 1, 100, 132) == 1
+    assert fpb(16384, 1, 1024, 132) == 1          # 131 KB a frame
+    for n_fft in (16384, 29056, 14527, 1575):
+        assert tstft.mixed_fft_smem(n_fft, fpb(n_fft, 1, 4096, 132)) <= 232448
+    for n_fft in (29058, 32768, 14529):
+        with pytest.raises(ValueError, match=f"n_fft {n_fft}"):
+            fpb(n_fft, 1, 1024, 132)
+    assert tstft.MAX_FFT_SIZE == {"even": 29056, "odd": 14527}
+
+
+# ---------------------------------------------------------------------------
+# K3′ bf16: the tensor-core tile's fragment maps
+# ---------------------------------------------------------------------------
+
+
+def _bf16_values(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16) \
+        .to(torch.float32).numpy()
+
+
+def _pair(reg):
+    """The two bf16 halves of int32 registers as float32 (low half first)."""
+    u = np.asarray(reg).astype(np.int64) & 0xFFFFFFFF
+    lo = ((u & 0xFFFF) << 16).astype(np.uint32).view(np.float32)
+    hi = (u & 0xFFFF0000).astype(np.uint32).view(np.float32)
+    return lo, hi
+
+
+@pytest.mark.parametrize("n_live,nfp", [(1024, 1152), (100, 256), (1500, 128)])
+def test_bf16_tile_fragment_maps(n_live, nfp):
+    """The kernel's tile, lane by lane: A from the staged taps through
+    ldmatrix.x4 (lane l addresses row l % 16, column block l / 16), B from
+    ``mma_b_fragments``, each m16n8k16 product per the PTX fragment layouts,
+    C scattered to (row g + 8*(i/2), bin nt*8 + 2*t + i%2). The
+    sum over the k16 steps equals the plain product of the bf16-rounded
+    operands (float64 sums here, so exactly)."""
+    rng = np.random.default_rng(n_live)
+    tf, mt = 16, 1                                   # BF_TF: one m16 row tile
+    a = rng.uniform(-1, 1, (tf, n_live)).astype(np.float32)
+    b = rng.uniform(-1, 1, (n_live, nfp)).astype(np.float32)
+    frag = tstft.mma_b_fragments(b)
+    ks_n = -(-n_live // 16)
+    assert frag.shape == (nfp // 8, ks_n, 32, 2) and frag.dtype == np.int32
+    ka, kas = 1024, 1024 + 8                         # BF_KA taps resident, row stride BF_KAS
+    staged = np.zeros((tf, ks_n * 16 + ka), np.float32)
+    staged[:, :n_live] = _bf16_values(a)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    out = np.zeros((tf, nfp))
+    for ks in range(ks_n):
+        c, kk = divmod(ks, ka // 16)                 # resident chunk, its k16 step
+        smem = np.zeros((tf, kas), np.float32)
+        smem[:, :ka] = staged[:, c * ka:(c + 1) * ka]
+        flat = smem.reshape(-1)
+        for m in range(mt):
+            # ldmatrix.x4: matrix j's row r is at the address lane 8j + r gives
+            addr = (m * 16 + (lane & 15)) * kas + kk * 16 + (lane >> 4) * 8
+            regs = [(flat[addr[8 * j + g] + 2 * t], flat[addr[8 * j + g] + 2 * t + 1])
+                    for j in range(4)]
+            # PTX A layout: reg0 (g, 2t..), reg1 (g+8, 2t..), reg2 (g, 2t+8..), reg3 (g+8, 2t+8..)
+            atile = np.zeros((16, 16))
+            for j, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
+                atile[g + dr, 2 * t + dc], atile[g + dr, 2 * t + dc + 1] = regs[j]
+            np.testing.assert_array_equal(atile, staged[m * 16:(m + 1) * 16, ks * 16:ks * 16 + 16])
+            for nt in range(nfp // 8):
+                b0 = _pair(frag[nt, ks, :, 0])
+                b1 = _pair(frag[nt, ks, :, 1])
+                btile = np.zeros((16, 8))
+                btile[2 * t, g], btile[2 * t + 1, g] = b0
+                btile[2 * t + 8, g], btile[2 * t + 9, g] = b1
+                ctile = atile @ btile
+                for i in range(4):              # C layout: (g + 8*(i//2), 2t + i%2)
+                    out[m * 16 + g + 8 * (i // 2), nt * 8 + 2 * t + i % 2] += \
+                        ctile[g + 8 * (i // 2), 2 * t + i % 2]
+    want = _bf16_values(a).astype(np.float64) @ _bf16_values(b).astype(np.float64)
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+
+
+def test_bf16_launch_plan():
+    """16-frame tiles over a fixed cluster of 2 CTAs, each half of the
+    128-bin windows: the CTA's shared memory fits up to n_fft 4863 (19
+    windows); past it, ValueError naming the size. The fragment tables are
+    not among ``stft_bases``: the first bf16 call builds them."""
+    assert (tstft.BF16_TILE, tstft.BF16_CLUSTER) == (16, 2)
+    for n_fft in (400, 1024, 1536, 1575, 2048, 4096, 4863):
+        tstft.check_bf16_size(n_fft)
+        assert tstft.bf16_smem(n_fft) <= 232448
+    assert tstft.bf16_smem(2048) == 146176             # 9 windows
+    for n_fft in (4864, 8192, 19711):
+        with pytest.raises(ValueError, match=f"n_fft {n_fft}"):
+            tstft.check_bf16_size(n_fft)
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=512)
+    assert not any(k.startswith("bf16") for k in tstft.stft_bases(cfg, "cpu"))
+    bcos, bsin = tstft._bf16_fragments(cfg, "cpu")
+    cos_b, sin_b, _ = tstft._bases_np(cfg)
+    np.testing.assert_array_equal(bcos.numpy(), tstft.mma_b_fragments(cos_b))
+    np.testing.assert_array_equal(bsin.numpy(), tstft.mma_b_fragments(sin_b))
+
+
+def test_bf16_fragments_use_torchs_rounding():
+    """The host rounds the bases as ``_bf16`` (torch's cast, ties to even)."""
+    x = np.array([1.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -2.5e-3, 3e38, 0.0], np.float32)
+    bits = tstft.bf16_bits(x)
+    back = (bits.astype(np.uint32) << 16).view(np.float32)
+    np.testing.assert_array_equal(back, tstft._bf16(torch.from_numpy(x)).numpy())
