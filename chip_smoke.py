@@ -9,13 +9,17 @@ Phases, each of which exits non-zero on failure:
    source, all at once) and the libraries are loaded;
 2. kernels: K1-K5, K3′, K3″ and K4's location-sensitive branch each run at
    the shapes their main path gives them and are held against their plain
-   PyTorch versions on the card, in float32 with TF32 off (K1, K3, K3′ in
-   both modes and K3″ also give the same bits on two runs; K3′ and K3″ also
-   run once at n_fft 1536, 1026 and odd 1575: the radix-3 and -5 stages,
-   the generic stage and the unpacked transform); each is timed beside its
+   PyTorch versions on the card, in float32 with TF32 off (K1, K2, K3, K3′
+   in both modes and K3″ also give the same bits on two runs; K1 also runs
+   at H = 256 and 512 (1e-5); K3 at n_fft 1200 and 1536 against the float64
+   oracle (5e-4); K3′ and K3″ at n_fft 1536, 1026 and odd 1575: the radix-3
+   and -5 stages, the generic stage and the unpacked transform; K3, K3′ and
+   K3″ at n_fft 32768 and odd 15625, past one block's shared memory; K3′'s
+   bf16 bases at n_fft 6144, on clusters of 4); each is timed beside its
    plain version, a PyTorch library yardstick where one exists, and its
-   least possible time on an H100 (K1's two phases and the STFT kernels'
-   device time from torch.profiler);
+   least possible time on an H100 (device time from torch.profiler for K1's
+   two phases, K2, the STFT kernels and K5; K5 also at width 8, where its
+   samples are its grid barriers alone);
 3. paths: three configurations synthesize through ``Synthesizer`` on the
    card with seeded random weights, B=32 texts of 64 tokens and 32
    reference wavs of 128 frames, stop threshold 1.0 (every step decodes):
@@ -27,7 +31,9 @@ Phases, each of which exits non-zero on failure:
    Before each path every launch counter is set to 0, and after it the
    counts must show that the path went through each of its kernels; outputs
    must be finite with the expected shapes, the wav within [-1, 1], and the
-   path must agree with the plain path on the card;
+   path must agree with the plain path on the card; Griffin-Lim runs under
+   both settings of ``audio.griffin_lim_bf16`` (gst_lj's default, True, is
+   the path's), finite and different from each other;
 4. corpus: the training-corpus path on gst_lj (192 synthetic utterances of
    varied length): patterns with device features (K3), every route of the
    feature extractor and ``KernelDSP`` (K3′, K3″), the bucketed loader in
@@ -224,8 +230,27 @@ def check_gru(torch, rng, dev):
             break
     phases.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
     b_ms, b_by = bound(flops, nbytes)
+    # past H = 128: 16 weights a lane (H = 256) and the streamed form (512),
+    # a BiGRU of the encoder's shape, ragged lengths, held at 1e-5 and twice
+    wide = {}
+    for hw in (256, 512):
+        lim = np.sqrt(6 / (4 * hw))
+        dirs = [(t32(rng.normal(0, 0.1, (B, hw))), t32(rng.uniform(-lim, lim, (128, 3 * hw))),
+                 t32(rng.normal(0, 0.1, 3 * hw)), t32(rng.uniform(-lim, lim, (hw, 3 * hw))),
+                 t32(rng.normal(0, 0.1, 3 * hw))) for _ in range(2)]
+        xs = t32(rng.normal(0, 1, (B, TEXT_TOKENS, 128)))
+        lens = torch.from_numpy(rng.integers(1, TEXT_TOKENS + 1, B)).to(dev)
+        got = kernel(xs, dirs, lens)
+        wide[f"max_err_h{hw}"] = max_err(got, plain(xs, dirs, lens))
+        if max_err(got, kernel(xs, dirs, lens)) != 0.0:
+            fail(f"gru_scan at H={hw}: two runs on the same input differ")
+        if not wide[f"max_err_h{hw}"] <= 1e-5:
+            fail(f"gru_scan at H={hw} differs from its plain version by "
+                 f"{wide[f'max_err_h{hw}']} > 1e-5")
+        wide[f"kernel_ms_h{hw}"] = time_ms(torch, lambda: kernel(xs, dirs, lens))
     return dict(name="gru_scan", route="cuda", source="gst_tacotron_tpu_torch/csrc/gru_scan.cu",
                 replaces="gst_tacotron_tpu/ops/gru_pallas.py:56", max_err=err, tol=1e-4,
+                **wide, wide_work="one BiGRU call, B=32, T=64, D=128, tol 1e-5",
                 tol_reason="float32 sums over D+H terms in another order, carried "
                            "through up to 400 recurrent steps",
                 kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
@@ -246,7 +271,7 @@ def check_gru(torch, rng, dev):
 def check_refenc(torch, rng, dev):
     import torch.nn.functional as F
 
-    from gst_tacotron_tpu_torch.ops.refenc import refenc_stack, refenc_stack_plain
+    from gst_tacotron_tpu_torch.ops.refenc import layer_plan, refenc_stack, refenc_stack_plain
 
     t, f = 128, 80
     channels = [32, 32, 64, 64, 128, 128]
@@ -269,6 +294,12 @@ def check_refenc(torch, rng, dev):
         got = refenc_stack(mel, kernels, scales, biases, lengths=lens)
         ref = refenc_stack_plain(mel, kernels, scales, biases, lengths=lens)
         err = max(err, max_err([got], [ref]))
+        same_bits("refenc_stack", [got], [refenc_stack(mel, kernels, scales, biases,
+                                                       lengths=lens)])
+    plan = layer_plan(B, t, f, channels, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if min(p["blocks"] for p in plan[:3]) < 132:
+        fail(f"refenc_stack: layers L0-L2 launch {[p['blocks'] for p in plan[:3]]} blocks, "
+             "fewer than the card's 132 SMs")
     # a T that is not a multiple of 64 (the per-element Pallas form's case)
     odd = mel[:, :101]
     err = max(err, max_err([refenc_stack(odd, kernels, scales, biases)],
@@ -286,9 +317,25 @@ def check_refenc(torch, rng, dev):
             x = torch.relu(F.conv2d(x, wt, stride=2) * sc[:, None, None] + bi[:, None, None])
         return x
 
-    ms = time_ms(torch, lambda: refenc_stack(mel, kernels, scales, biases, lengths=full), iters=20)
+    kernel = lambda: refenc_stack(mel, kernels, scales, biases, lengths=full)
+    ms = time_ms(torch, kernel, iters=20)
     plain = time_ms(torch, lambda: refenc_stack_plain(mel, kernels, scales, biases, lengths=full), iters=20)
     lib = time_ms(torch, library, iters=20)
+    device = {}
+    for _ in range(2):      # the profiler once lost every event of a call
+        device = kernel_device_ms(torch, kernel, {"kernel_device_ms": "refenc_layer_kernel"})
+        if device["kernel_device_ms"] > 0:
+            break
+    device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
+    # each layer's device time: the stacks of its first 1..6 layers, differenced
+    # (5 calls a profile)
+    layer_ms, prev = [], 0.0
+    for n in range(1, len(channels) + 1):
+        stack = lambda: [refenc_stack(mel, kernels[:n], scales[:n], biases[:n], lengths=full)
+                         for _ in range(5)]
+        d = kernel_device_ms(torch, stack, {"d": "refenc_layer_kernel"})["d"] / 5
+        layer_ms.append(d - prev)
+        prev = d
     nbytes = 4.0 * (mel.numel() + B + sum(k.numel() + 2 * k.shape[-1] for k in kernels)
                     + B * h * w * c_in)
     b_ms, b_by = bound(flops, nbytes)
@@ -298,8 +345,11 @@ def check_refenc(torch, rng, dev):
                 tol_reason="float32 sums over up to 9*128 terms in another order, "
                            "six layers deep",
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                **device, layer_device_ms=layer_ms, layer_blocks=[p["blocks"] for p in plan],
+                layer_splits=[[p["ks"], p["px"]] for p in plan],
                 library="F.pad + F.conv2d (cuDNN, TF32 off) + folded BN + ReLU, six layers",
-                work="one (32, 128, 80) stack")
+                work="one (32, 128, 80) stack: six launches, one a layer; device ms sums "
+                     "them (torch.profiler), kernel ms is CUDA events over the call")
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +419,63 @@ def same_bits(name: str, a, b) -> None:
         fail(f"{name}: two runs on the same input differ")
 
 
+# n_fft past one block's shared memory (the FFT on a device-memory scratch):
+# even 32768, odd 15625 = 5^6 (past 14527)
+BIG_SIZES = ((32768, 4096, 28672), (15625, 3125, 12500))
+# K3 off the powers of two, held to the float64 oracle
+ORACLE_SIZES = ((1200, 300, 1200), (1536, 256, 1024))
+
+
+def big_errs(torch, dev, cfg, fn, frames_input: bool):
+    """One call at each of BIG_SIZES on 2 wavs of 7 frames against torch.fft's
+    features of the same input (the dense plain version would build
+    n_live x n_fft/2 bases): {"max_err_n_fft_<n_fft>": error}."""
+    import dataclasses
+
+    from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+
+    out = {}
+    for n_fft, hop, win in BIG_SIZES:
+        a = dataclasses.replace(cfg.audio, n_fft=n_fft, hop_length=hop, win_length=win)
+        rng = np.random.default_rng(n_fft)
+        wav = torch.from_numpy((rng.uniform(-1, 1, (2, n_fft + 6 * hop + 5)) * 0.3)
+                               .astype(np.float32)).to(dev)
+        dsp = TorchDSP(a, dev)
+        ref = dsp.features_precentered(wav)
+        if frames_input:
+            x = dsp.frame_precentered(wav).reshape(-1, n_fft).contiguous()
+            got = [y.reshape(r.shape) for y, r in zip(fn(x, a), ref)]
+        else:
+            got = fn(wav, a)
+        out[f"max_err_n_fft_{n_fft}"] = max_err(got, ref)
+    return out
+
+
+def oracle_errs(torch, dev, cfg):
+    """K3 at ORACLE_SIZES on 2 wavs of about 128 frames, prepared as the
+    extractor prepares them (preemphasis, reflect pad), against the host
+    float64 oracle of the raw wavs: {"max_err_oracle_n_fft_<n_fft>": error}."""
+    import dataclasses
+
+    from gst_tacotron_tpu_torch.dsp import ref as dsp_ref
+    from gst_tacotron_tpu_torch.ops.stft import stft_features
+
+    out = {}
+    for n_fft, hop, win in ORACLE_SIZES:
+        a = dataclasses.replace(cfg.audio, n_fft=n_fft, hop_length=hop, win_length=win)
+        rng = np.random.default_rng(n_fft + 1)
+        raw = rng.uniform(-1, 1, (2, hop * 127)) * 0.3
+        pre = [np.pad(dsp_ref.preemphasis(w, a.preemphasis), n_fft // 2, mode="reflect")
+               for w in raw]
+        got = stft_features(torch.from_numpy(np.stack(pre).astype(np.float32)).to(dev), a)
+        err = 0.0
+        for i, w in enumerate(raw):
+            for x, y in zip(got, (dsp_ref.melspectrogram(w, a), dsp_ref.spectrogram(w, a))):
+                err = max(err, float(np.abs(x[i].cpu().numpy() - y).max()))
+        out[f"max_err_oracle_n_fft_{n_fft}"] = err
+    return out
+
+
 def check_stft(torch, rng, dev, cfg):
     from gst_tacotron_tpu_torch.ops.stft import stft_bases, stft_features, stft_features_plain
 
@@ -388,14 +495,19 @@ def check_stft(torch, rng, dev, cfg):
     # device time alone: at microseconds a launch, the timed loop may wait on
     # the host's calls rather than on the card
     device = kernel_device_ms(torch, lambda: [stft_features(g, a, bases) for g in groups],
-                              {"kernel_device_ms": "stft_features_kernel"})
+                              {"kernel_device_ms": "stft_wav_kernel"})
     device.update(kernel_device_ms(torch, torch_stft_yardstick(torch, a, groups, bases),
                                    {"library_device_ms": ""}))
     b_ms, b_by = stft_bound(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups))
+    oracle = oracle_errs(torch, dev, cfg)
+    if not max(oracle.values()) <= CORPUS_TOL:
+        fail(f"stft_features off the powers of two: {oracle} > {CORPUS_TOL} from the oracle")
+    big = big_errs(torch, dev, cfg, lambda x, c: stft_features(x, c), False)
     return dict(name="stft_features", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_features.cu",
-                replaces="gst_tacotron_tpu/ops/stft_pallas.py:417", max_err=err, tol=STFT_TOL,
-                tol_reason=STFT_TOL_REASON,
+                replaces="gst_tacotron_tpu/ops/stft_pallas.py:417",
+                max_err=max(err, *big.values()), max_err_n_fft_2048=err, **big, **oracle,
+                oracle_tol=CORPUS_TOL, tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 **device,
                 library="torch.stft (cuFFT) + abs + mel product + dB normalization",
@@ -432,7 +544,8 @@ def check_stft_fused(torch, dev, cfg):
     too, which runs the same arithmetic) and with bf16 bases on the tensor
     cores (held against the plain version's bf16 rounding); both give the
     same bits twice; one float32 and one bf16 call at each of MIXED_SIZES."""
-    from gst_tacotron_tpu_torch.ops.stft import (live_tap_span, stft_bases, stft_features,
+    from gst_tacotron_tpu_torch.ops.stft import (bf16_cluster, db_normalize, dft_bases,
+                                                 live_tap_span, stft_bases, stft_features,
                                                  stft_features_fused, stft_features_plain)
 
     a = cfg.audio
@@ -459,17 +572,46 @@ def check_stft_fused(torch, dev, cfg):
     mixed.update(mixed_radix_errs(
         torch, dev, cfg, lambda x, c: stft_features_fused(x, c, bf16_bases=True),
         lambda x, c: stft_features_plain(x, c, bf16_bases=True), False, "_bf16"))
+    mixed.update(big_errs(torch, dev, cfg, lambda x, c: stft_features_fused(x, c), False))
+    # bf16 bases past the 2-CTA cluster's shared memory: clusters of 4
+    import dataclasses
+
+    a6 = dataclasses.replace(a, n_fft=6144, hop_length=1536, win_length=4608)
+    w6 = torch.from_numpy((np.random.default_rng(6144).uniform(-1, 1, (2, 6144 + 1536 * 30))
+                           * 0.3).astype(np.float32)).to(dev)
+    mixed["max_err_n_fft_6144_bf16"] = max_err(
+        stft_features_fused(w6, a6, bf16_bases=True),
+        stft_features_plain(w6, a6, bf16_bases=True))
 
     f32 = lambda: [stft_features_fused(g, a, bases) for g in groups]
     bf16 = lambda: [stft_features_fused(g, a, bases, bf16_bases=True) for g in groups]
     library = torch_stft_yardstick(torch, a, groups, bases)
+    # the bf16 mode's library call: the plain version's two products on
+    # bf16 operands, as bf16 GEMMs with float32 outputs, then the magnitude,
+    # the mel product and the dB maps (framing included, as the plain does)
+    j0, _, n_live = live_tap_span(a)
+    cos16, sin16 = (x.to(torch.bfloat16) for x in dft_bases(a, str(dev)))
+    mel_t = bases["mel_t"][: a.num_freq]
+    n0 = j0 * a.hop_length
+
+    def library_bf16():
+        for g in groups:
+            fr = g[:, n0:].unfold(-1, n_live, a.hop_length)[:, :STFT_FRAMES]
+            fr = fr.to(torch.bfloat16).reshape(-1, n_live)
+            re = torch.mm(fr, cos16, out_dtype=torch.float32)
+            im = torch.mm(fr, sin16, out_dtype=torch.float32)
+            mag = torch.sqrt(re * re + im * im)
+            db_normalize(mag @ mel_t, a), db_normalize(mag, a)
+
     ms = time_ms(torch, f32, iters=10)
     ms_bf16 = time_ms(torch, bf16, iters=10)
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
     lib = time_ms(torch, library, iters=10)
-    device = kernel_device_ms(torch, f32, {"kernel_device_ms": "stft_fused_kernel"})
+    lib_bf16 = time_ms(torch, library_bf16, iters=10)
+    device = kernel_device_ms(torch, f32, {"kernel_device_ms": "stft_wav_kernel"})
     device.update(kernel_device_ms(torch, bf16, {"kernel_device_ms_bf16": "stft_fused_bf16"}))
     device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
+    device.update(kernel_device_ms(torch, library_bf16, {"library_device_ms_bf16": ""}))
     n_frames = B * STFT_FRAMES
     b_ms, b_by = stft_bound(a, n_frames, 4.0 * sum(g.numel() for g in groups))
     # the dense products over the live taps and the num_freq real bins (the
@@ -483,12 +625,15 @@ def check_stft_fused(torch, dev, cfg):
                 source="gst_tacotron_tpu_torch/csrc/stft_fused.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:265",
                 max_err=max(err, err_bf16, *mixed.values()), max_err_f32=err,
-                max_err_bf16=err_bf16, **mixed, max_err_vs_k3=err_k3,
+                max_err_bf16=err_bf16, **mixed, bf16_cluster_n_fft_6144=bf16_cluster(6144),
+                max_err_vs_k3=err_k3,
                 bits_equal_k3=k3_bits, tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, kernel_ms_bf16=ms_bf16, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, bound_ms_bf16_products=b_bf16, bound_by_bf16=b_bf16_by,
-                library_ms=lib, **device,
-                library="torch.stft (cuFFT) + abs + mel product + dB normalization",
+                library_ms=lib, library_ms_bf16=lib_bf16, **device,
+                library="torch.stft (cuFFT) + abs + mel product + dB normalization; bf16: "
+                        "torch.mm of the bf16 frames and bases with float32 outputs + abs "
+                        "+ mel product + dB normalization",
                 work="K3's 4 launches (32 wavs of 128 frames), float32 (mixed-radix FFT) "
                      "and bf16 bases (tensor cores); bound_ms_bf16_products: the dense "
                      "bf16 products at 989 TFLOP/s")
@@ -515,6 +660,7 @@ def check_stft_frames(torch, dev, cfg):
               stft_features_frames(frames[0], a, bases))
     mixed = mixed_radix_errs(torch, dev, cfg, lambda x, c: stft_features_frames(x, c),
                              lambda x, c: stft_features_frames_plain(x, c), True)
+    mixed.update(big_errs(torch, dev, cfg, lambda x, c: stft_features_frames(x, c), True))
 
     window = dsp.window
     mel_t = bases["mel_t"][: a.num_freq]
@@ -679,10 +825,29 @@ def check_wavernn(torch, rng, dev, cfg, frames=128):
         gaps = score_gaps(packed, cond, c1, hop=hop, seed=1)
     plain = time_ms(torch, lambda: wavernn_sample_plain(packed, cond, hop=hop, seed=1),
                     iters=1, warmup=0)
+    device = {}
+    for _ in range(2):      # the profiler once lost every event of a call
+        device = kernel_device_ms(torch, lambda: wavernn_sample(packed, cond, hop=hop, seed=1),
+                                  {"kernel_device_ms": "wavernn_sample_kernel"})
+        if device["kernel_device_ms"] > 0:
+            break
+    # the latency floor: the same launch on a model of width 8 (8 classes),
+    # whose samples are three grid barriers and next to no work
+    w8 = lambda *shape: torch.full(shape, 0.01 if len(shape) == 2 else 0.0, device=dev)
+    tiny = dict(embed=w8(8, 8), wi=w8(8, 24), bi=w8(24), wh=w8(8, 24), bh=w8(24),
+                fc1=w8(8, 8), fb1=w8(8), fc2=w8(8, 8), fb2=w8(8))
+    tiny_cond = torch.zeros(B, frames, 8, device=dev)
+    tiny_ms = time_ms(torch, lambda: wavernn_sample(tiny, tiny_cond, hop=hop, seed=1),
+                      iters=1)
     c, h, f = cond.shape[-1], v.wavernn_gru_dim, v.wavernn_fc_dim
+    nw = sum(x.numel() for x in packed.values())
     flops = 2.0 * (c * 3 * h + h * 3 * h + h * f + f * k) * B * n
-    nbytes = 4.0 * (sum(x.numel() for x in packed.values()) + cond.numel() + B * n)
+    nbytes = 4.0 * (nw + cond.numel() + B * n)
     b_ms, b_by = bound(flops, nbytes)
+    # the least work once the input product is hoisted: the two tables
+    # (embed and cond against wi) once, then 3H*H + H*F + F*K a row and sample
+    hoisted = 2.0 * ((k + B * frames) * c * 3 * h + (h * 3 * h + h * f + f * k) * B * n)
+    b_hoisted, b_hoisted_by = bound(hoisted, nbytes)
     return dict(name="wavernn_sample", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/wavernn_sample.cu",
                 replaces="gst_tacotron_tpu/ops/wavernn_pallas.py:119",
@@ -695,8 +860,13 @@ def check_wavernn(torch, rng, dev, cfg, frames=128):
                 tol_reason="float32 GEMV sums over 512 terms in another order than the "
                            "plain version's products, through 32,768 recurrent steps",
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **device, bound_ms_hoisted=b_hoisted, bound_by_hoisted=b_hoisted_by,
+                width8_ms=tiny_ms, barrier_us_per_sample_width8=1e3 * tiny_ms / n,
                 library="none: no single PyTorch call runs autoregressive sampling",
-                work=f"32 rows of {frames} frames ({n} samples), Gumbel-max at temperature 1")
+                work=f"32 rows of {frames} frames ({n} samples), Gumbel-max at temperature 1, "
+                     "one launch; bound_ms counts the input product every sample (the TPU "
+                     "kernel's work), bound_ms_hoisted the tables once; width8_ms: the "
+                     "same launch at width 8, three grid barriers a sample")
 
 
 # ---------------------------------------------------------------------------
@@ -824,6 +994,8 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
     """Where one synthesis spends its time: host-clock stage times (each
     stage ends in a synchronize) and the device time of each kernel from
     torch.profiler, with the device's idle share of the profiled call."""
+    import dataclasses
+
     from torch.profiler import ProfilerActivity, profile
 
     from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
@@ -852,9 +1024,23 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
             tok, tok_len, ref, ref_len, generator=gen))
         dec_out, stages["decode"] = timed(lambda: model.decoder.decode(memory, tok_len, seed=1))
         linear, stages["postnet"] = timed(lambda: model.postnet(dec_out[0], dec_out[3]))
+        gl = {}
         if vocoder is None:
-            dsp = TorchDSP(cfg.audio, dev)
-            _, stages["griffin_lim"] = timed(lambda: dsp.inv_linear_spectrogram(linear))
+            # the config's own setting (gst_lj's default: the iterations'
+            # DFTs on bf16 operands), then the other one
+            wavs_gl = {}
+            for flag in (cfg.audio.griffin_lim_bf16, not cfg.audio.griffin_lim_bf16):
+                dsp = TorchDSP(dataclasses.replace(cfg.audio, griffin_lim_bf16=flag), dev)
+                label = "griffin_lim" if flag == cfg.audio.griffin_lim_bf16 else \
+                    f"griffin_lim_bf16_{flag}"
+                dsp.inv_linear_spectrogram(linear)      # bases, plans: set-up, not the stage
+                wavs_gl[flag], stages[label] = timed(lambda: dsp.inv_linear_spectrogram(linear))
+            diff = float((wavs_gl[True] - wavs_gl[False]).abs().max())
+            if not all(bool(torch.isfinite(w).all()) for w in wavs_gl.values()) or diff == 0.0:
+                fail(f"{name}: Griffin-Lim with griffin_lim_bf16 True and False: finite "
+                     f"outputs that differ expected, max difference {diff}")
+            gl = {"griffin_lim_bf16": cfg.audio.griffin_lim_bf16,
+                  "griffin_lim_bf16_vs_f32_max_abs": diff}
         else:
             _, stages["wavernn"] = timed(lambda: vocoder({"mel": dec_out[0]}, seed=2))
 
@@ -882,7 +1068,7 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
         log(f"{name}: profiled device busy {busy:.1f} ms < the longest stage "
             f"{longest:.1f} ms; profiling once more")
         rows, wall, busy = profiled()
-    return {"profile": {"name": name, "stage_ms": stages, "profiled_wall_ms": wall,
+    return {"profile": {"name": name, "stage_ms": stages, **gl, "profiled_wall_ms": wall,
                         "device_busy_ms": busy,
                         "device_idle_share": max(0.0, 1.0 - busy / wall),
                         "reprofiled": reprofiled, "suspect": busy < longest,

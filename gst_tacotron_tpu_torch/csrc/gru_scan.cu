@@ -27,9 +27,9 @@
 // 2. gru_recur_kernel on thread-block clusters, one set of clusters a
 //    direction, all in one launch: a cluster of C CTAs serves GRU_ROWS batch
 //    rows. CTA c owns hidden units [c*Hc, (c+1)*Hc) and keeps their z, r, n
-//    columns of wh in registers: thread (unit, slice) holds the GRU_KS
+//    columns of wh in registers: thread (unit, slice) holds the KS
 //    recurrent weights of its slice of the length-H dot product for each
-//    gate, so no FMA chain is longer than GRU_KS, and the S slices of a unit (consecutive
+//    gate, so no FMA chain is longer than KS, and the S slices of a unit (consecutive
 //    lanes of one warp) finish the sums with a reduce-scatter of shuffles
 //    that leaves each lane one row. Every CTA holds the whole state h
 //    (GRU_ROWS x H) in shared memory, double-buffered. After the gate update
@@ -41,6 +41,16 @@
 //    bits every run (and each direction the bits of its own one-direction
 //    call). The input term of the next step is prefetched into registers
 //    while the current step computes.
+//    KS = 8 weights a lane a gate serve H <= 128 (16 lanes a unit, 256
+//    threads); KS = 16 serve H <= 256 (512 threads), with the same exchange.
+// 3. Past H = 256 the registers cannot hold a CTA's share of wh, so
+//    gru_stream_kernel reads its columns from L2 every step: the same
+//    clusters and st.async exchange of the state, which each CTA keeps whole
+//    in shared memory for `rows` (4, 2 or 1) batch rows; a CTA's units go to
+//    lanes in groups of 32 (coalesced weight rows, the state a broadcast),
+//    the length-H sums are split into k parts over the warps and their
+//    partial sums added in a fixed order. ops/gru.py::launch_plan picks the
+//    form.
 
 #include <cooperative_groups.h>
 
@@ -51,9 +61,8 @@ namespace cg = cooperative_groups;
 #define GEMM_BM 128
 #define GEMM_BN 64
 #define GEMM_BK 16
-#define GRU_ROWS 4    // batch rows a cluster
-#define GRU_KS 8      // recurrent weights a lane holds for each gate
-#define GRU_MAX_THREADS 256   // 16 units x 16 lanes at H = 128
+#define GRU_ROWS 4    // batch rows a cluster of the register form
+#define GRU_STREAM_THREADS 256
 
 // C (M, N) = A (M, K) @ W (K, N) + bias (N,), row-major, any M, N, K, for
 // the direction blockIdx.z (W0, bias0, C0 or W1, bias1, C1). A
@@ -194,7 +203,7 @@ struct GruDirs {
 // Grid (C, ndir * clusters) in clusters of (C, 1, 1), blockIdx.y / clusters
 // the direction (dirs.d[0] or dirs.d[1]); blockDim.x threads,
 // thread tid = unit_local * S + slice (S a power of two, 4 <= S <= 16),
-// holding GRU_KS recurrent weights a gate. hp = S * GRU_KS >= H is the padded row
+// holding KS recurrent weights a gate. hp = S * KS >= H is the padded row
 // length of the shared state. Lane slice sl owns row sl % 4 of the cluster's
 // four after the reduction; the S / 4 lanes of a row push its new value to
 // C / (S / 4) CTAs each. State buffer b = s & 1 holds h before step s;
@@ -203,7 +212,8 @@ struct GruDirs {
 // parity ((s - 1) / 2) & 1. A CTA pushes step s into buffer (s + 1) & 1 of
 // another only after it has every push of step s - 1, each sent after its
 // sender's reads of that buffer: no CTA overwrites state another still reads.
-__global__ void __launch_bounds__(GRU_MAX_THREADS)
+template <int KS>
+__global__ void __launch_bounds__(32 * KS)
 gru_recur_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
                  int B, int T, int H, int hc, int S, int ys_stride, int clusters) {
   static_assert(GRU_ROWS == 4, "the reduce-scatter splits rows on two lane bits");
@@ -218,7 +228,7 @@ gru_recur_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
   float* __restrict__ final_h = d1 ? dirs.d[1].final_h : dirs.d[0].final_h;
   const int reverse = d1 ? dirs.d[1].reverse : dirs.d[0].reverse;
   extern __shared__ float4 smem4[];
-  const int hp = S * GRU_KS;
+  const int hp = S * KS;
   float* hbuf = reinterpret_cast<float*>(smem4);                          // [2][GRU_ROWS][hp]
   uint64_t* mbar = reinterpret_cast<uint64_t*>(hbuf + 2 * GRU_ROWS * hp);  // [2]
   cg::cluster_group cluster = cg::this_cluster();
@@ -236,13 +246,13 @@ gru_recur_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
   const uint32_t hb = smem_addr(hbuf), mb = smem_addr(mbar);
   const uint32_t tx_bytes = 4u * H * min(GRU_ROWS, B - row0);
 
-  // this thread's recurrent weights: rows sl*GRU_KS + i of columns u, H+u, 2H+u
-  float w[3][GRU_KS];
+  // this thread's recurrent weights: rows sl*KS + i of columns u, H+u, 2H+u
+  float w[3][KS];
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
-    for (int i = 0; i < GRU_KS; ++i) {
-      const int k = sl * GRU_KS + i;
+    for (int i = 0; i < KS; ++i) {
+      const int k = sl * KS + i;
       w[g][i] = (unit_ok && k < H) ? wh[(size_t)k * G + g * H + u] : 0.0f;
     }
   float bz = 0.0f, br = 0.0f, bn = 0.0f;
@@ -294,10 +304,10 @@ gru_recur_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
     float acc[GRU_ROWS][3];
 #pragma unroll
     for (int q = 0; q < GRU_ROWS; ++q) {
-      const float4* hv = reinterpret_cast<const float4*>(hcur + q * hp + sl * GRU_KS);
+      const float4* hv = reinterpret_cast<const float4*>(hcur + q * hp + sl * KS);
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
 #pragma unroll
-      for (int i4 = 0; i4 < GRU_KS / 4; ++i4) {
+      for (int i4 = 0; i4 < KS / 4; ++i4) {
         const float4 x = hv[i4];
         const float xv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -353,24 +363,155 @@ gru_recur_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
   cluster.sync();
 }
 
+// The recurrence past H = 256: grid (C, ndir * clusters) in clusters of
+// (C, 1, 1) as above, GRU_STREAM_THREADS threads, `rows` (<= 4) batch rows
+// a cluster. CTA c owns units [c*hc, (c+1)*hc). Shared memory: the state
+// hbuf[2][rows][H] (double-buffered, filled by st.async pushes counted on
+// mbarrier nxt as in gru_recur_kernel), the partial sums
+// part[kp][rows][3][hc] and the two mbarriers. Each step the warps take
+// work items (unit group of 32 lanes, k part of kl = ceil(H / kp) rows of
+// wh): lane l sums, for every row, its unit's three gate columns over the
+// part's k in ascending order, reading wh from L2 (a warp's loads of one k
+// row are 128 consecutive bytes) and the state as a broadcast; then thread
+// (row, unit) adds the kp partial sums in order, updates the state and
+// pushes it into every CTA of the cluster.
+// Floats of gru_stream_kernel's state and partial sums, rounded up to an
+// even count so that the two mbarriers after them are 8-byte aligned
+// (ops/gru.py::launch_plan adds their 16 bytes).
+__host__ __device__ inline int gru_stream_floats(int H, int hc, int kp, int rows) {
+  return (2 * rows * H + kp * rows * 3 * hc + 1) & ~1;
+}
+
+__global__ void __launch_bounds__(GRU_STREAM_THREADS)
+gru_stream_kernel(GruDirs dirs, const int* __restrict__ lengths,  // (B,) or null
+                  int B, int T, int H, int hc, int kp, int rows, int ys_stride,
+                  int clusters) {
+  const bool d1 = blockIdx.y >= clusters;
+  const float* __restrict__ gx = d1 ? dirs.d[1].gx : dirs.d[0].gx;
+  const float* __restrict__ h0 = d1 ? dirs.d[1].h0 : dirs.d[0].h0;
+  const float* __restrict__ wh = d1 ? dirs.d[1].wh : dirs.d[0].wh;
+  const float* __restrict__ bh = d1 ? dirs.d[1].bh : dirs.d[0].bh;
+  float* __restrict__ ys = d1 ? dirs.d[1].ys : dirs.d[0].ys;
+  float* __restrict__ final_h = d1 ? dirs.d[1].final_h : dirs.d[0].final_h;
+  const int reverse = d1 ? dirs.d[1].reverse : dirs.d[0].reverse;
+  extern __shared__ float4 smem4[];
+  float* hbuf = reinterpret_cast<float*>(smem4);                        // [2][rows][H]
+  float* part = hbuf + 2 * rows * H;                                    // [kp][rows][3][hc]
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(hbuf + gru_stream_floats(H, hc, kp, rows));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = GRU_STREAM_THREADS / 32;
+  const int row0 = (blockIdx.y % clusters) * rows;
+  const int nrows = min(rows, B - row0);
+  const int G = 3 * H;
+  const int ng = (hc + 31) / 32, kl = (H + kp - 1) / kp;
+  const uint32_t hb = smem_addr(hbuf), mb = smem_addr(mbar);
+  const uint32_t tx_bytes = 4u * H * nrows;
+
+  if (tid == 0) {
+    mbar_init(mb, 1);
+    mbar_init(mb + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < 2 * rows * H; i += blockDim.x) hbuf[i] = 0.0f;
+  __syncthreads();
+  for (int i = tid; i < nrows * H; i += blockDim.x)
+    hbuf[i] = h0[(size_t)row0 * H + i];
+  cluster.sync();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const int cur = s & 1, nxt = cur ^ 1;
+    if (s > 0) mbar_wait(mb + 8 * cur, ((s - 1) >> 1) & 1);
+    if (tid == 0) mbar_expect(mb + 8 * nxt, tx_bytes);
+    const float* hcur = hbuf + cur * rows * H;
+    for (int item = warp; item < ng * kp; item += nwarps) {
+      const int g = item % ng, p = item / ng;
+      const int ul = g * 32 + lane, u = c * hc + ul;
+      const bool ok = ul < hc && u < H;
+      const int k0 = p * kl, k1 = min(H, k0 + kl);
+      float acc[4][3];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = 0.0f;
+      if (ok) {
+        const float* w = wh + u;
+        for (int k = k0; k < k1; ++k) {
+          const float wz = __ldg(w + (size_t)k * G), wr = __ldg(w + (size_t)k * G + H),
+                      wn = __ldg(w + (size_t)k * G + 2 * H);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q < rows) {
+              const float x = hcur[q * H + k];
+              acc[q][0] = fmaf(x, wz, acc[q][0]);
+              acc[q][1] = fmaf(x, wr, acc[q][1]);
+              acc[q][2] = fmaf(x, wn, acc[q][2]);
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < rows)
+#pragma unroll
+            for (int gg = 0; gg < 3; ++gg) part[((p * rows + q) * 3 + gg) * hc + ul] = acc[q][gg];
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < nrows * hc; e += blockDim.x) {
+      const int q = e / hc, ul = e - q * hc, u = c * hc + ul;
+      if (u >= H) continue;
+      float v[3];
+#pragma unroll
+      for (int gg = 0; gg < 3; ++gg) {
+        float a = 0.0f;
+        for (int p = 0; p < kp; ++p) a += part[((p * rows + q) * 3 + gg) * hc + ul];
+        v[gg] = a + bh[gg * H + u];
+      }
+      const int row = row0 + q;
+      const float* gxr = gx + ((size_t)row * T + t) * G + u;
+      const float h = hcur[q * H + u];
+      const int len = lengths ? lengths[row] : T;
+      float hn = gru_update(gxr[0], gxr[H], gxr[2 * H], v[0], v[1], v[2], h);
+      hn = t < len ? hn : h;
+      ys[((size_t)row * T + t) * ys_stride + u] = hn;
+      const uint32_t a = hb + 4u * (nxt * rows * H + q * H + u);
+      for (int r = 0; r < C; ++r) push(cluster_addr(a, r), hn, cluster_addr(mb + 8 * nxt, r));
+    }
+  }
+
+  if (T > 0) mbar_wait(mb + 8 * (T & 1), ((T - 1) >> 1) & 1);
+  for (int e = tid; e < nrows * hc; e += blockDim.x) {
+    const int q = e / hc, u = c * hc + e % hc;
+    if (u < H) final_h[(size_t)(row0 + q) * H + u] = hbuf[(T & 1) * rows * H + q * H + u];
+  }
+  cluster.sync();
+}
+
 // One call: the input GEMM of every direction, then the clustered
 // recurrence of every direction in one launch. ndir 1: the scan of
 // direction 0 (reverse as given), ys (B, T, H). ndir 2: a BiGRU, direction 0
 // forward and 1 reverse, ys (B, T, 2H) with the backward states in columns
-// H..2H. C CTAs a cluster (C <= 8), hc units a CTA, S slices of GRU_KS
-// weights a unit (4 <= S <= 16), `threads` = hc * S rounded up to a warp;
-// the wrapper's launch plan (ops/gru.py::launch_plan) picks them.
-// gx_scratch holds ndir * B * T * 3H floats.
+// H..2H. C CTAs a cluster (C <= 8), hc units a CTA. ks = 8 or 16: the
+// register form, S slices of ks weights a unit (4 <= S <= 16), `threads` =
+// hc * S rounded up to a warp, GRU_ROWS rows a cluster; ks = 0: the
+// streamed form, kp k parts, `rows` rows a cluster, GRU_STREAM_THREADS
+// threads. The wrapper's launch plan (ops/gru.py::launch_plan) picks them
+// and the shared memory `smem`. gx_scratch holds ndir * B * T * 3H floats.
 extern "C" int gru_scan_launch(const float* xs, const int* lengths, int ndir,
                                const float* h0a, const float* h0b, const float* wia,
                                const float* wib, const float* bia, const float* bib,
                                const float* wha, const float* whb, const float* bha,
                                const float* bhb, float* ys, float* fina, float* finb,
                                float* gx_scratch, int B, int T, int D, int H, int reverse,
-                               int C, int hc, int S, int threads, cudaStream_t stream) {
-  if (ndir < 1 || ndir > 2 || C < 1 || C > 8 || S < 4 || S > 16 || (S & (S - 1)) != 0 ||
-      threads % 32 != 0 || threads > GRU_MAX_THREADS || threads < hc * S || C * hc < H ||
-      S * GRU_KS < H)
+                               int C, int hc, int ks, int S, int threads, int kp, int rows,
+                               int smem, cudaStream_t stream) {
+  const bool reg = ks == 8 || ks == 16;
+  if (ndir < 1 || ndir > 2 || C < 1 || C > 8 || C * hc < H || rows < 1 || rows > GRU_ROWS ||
+      (reg && (S < 4 || S > 16 || (S & (S - 1)) != 0 || threads % 32 != 0 ||
+               threads > 32 * ks || threads < hc * S || S * ks < H || rows != GRU_ROWS)) ||
+      (!reg && (ks != 0 || kp < 1 || threads != GRU_STREAM_THREADS ||
+                smem != 4 * gru_stream_floats(H, hc, kp, rows) + 16)))
     return (int)cudaErrorInvalidValue;
   const int G = 3 * H;
   const long long M = (long long)B * T;
@@ -382,14 +523,14 @@ extern "C" int gru_scan_launch(const float* xs, const int* lengths, int ndir,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int clusters = (B + GRU_ROWS - 1) / GRU_ROWS;
+  const int clusters = (B + rows - 1) / rows;
   GruDirs dirs;
   dirs.d[0] = GruDir{gxa, h0a, wha, bha, ys, fina, ndir == 2 ? 0 : reverse};
   dirs.d[1] = GruDir{gxb, h0b, whb, bhb, ys + H, finb, 1};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, ndir * clusters, 1);
   cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(float) * 2 * GRU_ROWS * S * GRU_KS + 2 * sizeof(uint64_t);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -398,8 +539,20 @@ extern "C" int gru_scan_launch(const float* xs, const int* lengths, int ndir,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gru_recur_kernel, dirs, lengths, B, T, H, hc, S,
-                                       ndir * H, clusters);
+  cudaError_t err;
+  if (ks == 8) {
+    err = cudaLaunchKernelEx(&cfg, gru_recur_kernel<8>, dirs, lengths, B, T, H, hc, S,
+                             ndir * H, clusters);
+  } else if (ks == 16) {
+    err = cudaLaunchKernelEx(&cfg, gru_recur_kernel<16>, dirs, lengths, B, T, H, hc, S,
+                             ndir * H, clusters);
+  } else {
+    err = cudaFuncSetAttribute(gru_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchKernelEx(&cfg, gru_stream_kernel, dirs, lengths, B, T, H, hc, kp, rows,
+                             ndir * H, clusters);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

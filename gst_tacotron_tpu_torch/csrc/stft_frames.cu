@@ -7,8 +7,10 @@
 //
 // Only the window's live taps [n0, n0 + n_live) of each frame are read: the
 // padded window is zero outside them. Any F (the kernel masks the ragged
-// last block) and any n_fft whose transform fits one block
-// (ops/stft.py::fft_frames_per_block).
+// last block) and any n_fft: a frame whose transform does not fit one
+// block's shared memory (ops/stft.py::fft_frames_per_block gives 0) runs the
+// same stages on two buffers of a device-memory scratch, one frame a block
+// at a time (block x walks frames x, x + gridDim.x, ...).
 //
 // Bound on the H100 at the main-path shape (1024 frames a launch, the frames
 // of 8 wavs of 128 frames; n_fft 2048, n_live 1024, 1025 bins, 80 mels): a
@@ -18,7 +20,7 @@
 // is the intermediate that K3 and K3' avoid: its writer (the framing
 // outside this kernel) moves n_fft / hop times the wav's bytes.
 //
-// Design: K3's (stft_features.cu) on the mixed-radix FFT, one launch. A
+// Design: K3's (stft_wav.cuh) on pre-framed input, one launch. A
 // block of 256 threads owns `fr` consecutive frames (4, 2 or 1: the most
 // whose buffers fit and whose grid still gives every SM two blocks, so the
 // KernelDSP calls of 100-1200 frames spread over the card). It loads the
@@ -26,8 +28,8 @@
 // it), into the FFT's second buffer; the first FFT stage forms its inputs
 // from them and the window (stft.cuh::stft_fft_block). The split step, the
 // magnitudes in the free buffer, the linear rows out coalesced, and the mel
-// over each filter's nonzero bins in ascending order follow. No scratch, no
-// atomics: the same bits every run, and at a power-of-two n_fft K3's bits.
+// over each filter's nonzero bins in ascending order follow. No atomics:
+// the same bits every run, and K3's bits.
 
 #include "stft.cuh"
 
@@ -40,7 +42,23 @@ stft_frames_kernel(const float* __restrict__ raw,      // (F, n_fft)
                    float* __restrict__ mel_out,        // (F, M)
                    float* __restrict__ lin_out,        // (F, NF)
                    int F, int n_fft, int n0, int n_live, int M, int fr, FftPlan plan,
-                   NormConsts nc, int normalize_linear, int vec4) {
+                   NormConsts nc, int normalize_linear, int vec4,
+                   float2* scratch) {                  // (gridDim.x, 2, n) when fr = 0
+  const int NF = n_fft / 2 + 1;
+  if (fr == 0) {
+    float2* bufa = scratch + (size_t)blockIdx.x * 2 * plan.n;
+    float2* bufb = bufa + plan.n;
+    for (int t = blockIdx.x; t < F; t += gridDim.x) {
+      const float* x = raw + (size_t)t * n_fft + n0;
+      auto tap = [x, window, n_live](int f, int j) {
+        return j < n_live ? __ldg(x + j) * __ldg(window + j) : 0.0f;
+      };
+      stft_fft_block(tap, bufa, bufb, n_fft, plan, 1, 1, table, mel_lo, mel_off, mel_w, M,
+                     mel_out + (size_t)t * M, lin_out + (size_t)t * NF, nc, normalize_linear);
+      __syncthreads();  // the next frame reuses the buffers
+    }
+    return;
+  }
   extern __shared__ float4 smem4[];
   float2* bufa = reinterpret_cast<float2*>(smem4);  // fr * n
   float2* bufb = bufa + fr * plan.n;                // fr * n; first the live taps
@@ -68,7 +86,6 @@ stft_frames_kernel(const float* __restrict__ raw,      // (F, n_fft)
   auto tap = [A, window, n_live](int f, int j) {
     return j < n_live ? A[f * n_live + j] * __ldg(window + j) : 0.0f;
   };
-  const int NF = n_fft / 2 + 1;
   stft_fft_block(tap, bufa, bufb, n_fft, plan, fr, frames, table, mel_lo, mel_off, mel_w, M,
                  mel_out + (size_t)t0 * M, lin_out + (size_t)t0 * NF, nc, normalize_linear);
 }
@@ -76,14 +93,14 @@ stft_frames_kernel(const float* __restrict__ raw,      // (F, n_fft)
 extern "C" int stft_frames_launch(const float* frames, const float* table,
                                   const float* window, const int* mel_lo, const int* mel_off,
                                   const float* mel_w, float* mel_out, float* lin_out, int F,
-                                  int n_fft, int n0, int n_live, int M, int fr,
+                                  int n_fft, int n0, int n_live, int M, int fr, int slots,
                                   const int* radix, int stages, float ref_db, float min_db,
                                   float max_abs, int symmetric, int normalize_linear,
-                                  cudaStream_t stream) {
+                                  float* scratch, cudaStream_t stream) {
   FftPlan plan;
   const int n = n_fft % 2 == 0 ? n_fft / 2 : n_fft;
-  if (F < 1 || fr < 1 || n0 < 0 || n_live < 1 || n0 + n_live > n_fft ||
-      !make_fft_plan(&plan, n, radix, stages))
+  if (F < 1 || fr < 0 || n0 < 0 || n_live < 1 || n0 + n_live > n_fft ||
+      (fr == 0 && (slots < 1 || scratch == nullptr)) || !make_fft_plan(&plan, n, radix, stages))
     return (int)cudaErrorInvalidValue;
   NormConsts nc{ref_db, min_db, max_abs, symmetric};
   const size_t smem = 2 * sizeof(float2) * (size_t)fr * n;
@@ -93,8 +110,9 @@ extern "C" int stft_frames_launch(const float* frames, const float* table,
   // float4 rows: 16-byte aligned in device memory and in shared memory
   const int vec4 = ((uintptr_t)frames % 16 == 0) && n_fft % 4 == 0 && n0 % 4 == 0 &&
                    n_live % 4 == 0 && ((size_t)fr * n) % 2 == 0;
-  stft_frames_kernel<<<(F + fr - 1) / fr, STFT_THREADS, smem, stream>>>(
+  stft_frames_kernel<<<fr ? (F + fr - 1) / fr : slots, STFT_THREADS, smem, stream>>>(
       frames, reinterpret_cast<const float2*>(table), window, mel_lo, mel_off, mel_w, mel_out,
-      lin_out, F, n_fft, n0, n_live, M, fr, plan, nc, normalize_linear, vec4);
+      lin_out, F, n_fft, n0, n_live, M, fr, plan, nc, normalize_linear, vec4,
+      reinterpret_cast<float2*>(scratch));
   return (int)cudaGetLastError();
 }

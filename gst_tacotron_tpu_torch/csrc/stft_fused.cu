@@ -1,6 +1,6 @@
-// K3' — mel-STFT features of a wav for any hop | n_fft: K3's function
-// (stft_features.cu), which takes only power-of-two n_fft, on the
-// mixed-radix FFT; and the JAX kernel's bf16_bases mode on the tensor cores.
+// K3' — mel-STFT features of a wav for any hop | n_fft, K3's function
+// (stft_features.cu), and the JAX kernel's bf16_bases mode on the tensor
+// cores.
 //
 // Replaces: gst_tacotron_tpu/ops/stft_pallas.py::stft_features_pallas_fused
 //           (kernel _stft_fused_kernel).
@@ -12,17 +12,15 @@
 // normalized dB, linear (B, T, NF) normalized dB or (normalize_linear = 0)
 // the magnitude.
 //
-// float32 (stft_fused_kernel). Bound on the H100 at the main-path shape (8
-// wavs of 128 frames a launch; n_fft 2048, n_live 1024, 1025 bins, 80 mels):
-// a real FFT, about 56 kFLOP a frame, against 1.1 MB of wav read and 4.5 MB
-// of outputs written: the bytes bound it (about 1.7 us at 3.35 TB/s).
-// Design: K3's. A block of 256 threads owns `fr` consecutive frames of one
-// utterance (ops/stft.py::fft_frames_per_block), loads their
-// (fr-1)*hop + n_live samples once into the FFT's second buffer (framing in
-// shared memory), and runs stft.cuh::stft_fft_block: the mixed-radix FFT of
-// each windowed frame, split step, magnitudes, linear rows, sparse mel. One
-// launch, no scratch, the same bits every run; at a power-of-two n_fft,
-// K3's bits.
+// Bound on the H100 at the main-path shape (8 wavs of 128 frames a launch;
+// n_fft 2048, n_live 1024, 1025 bins, 80 mels), float32: a real FFT, about
+// 56 kFLOP a frame, against 1.1 MB of wav read and 4.5 MB of outputs
+// written: the bytes bound it (about 1.7 us at 3.35 TB/s).
+//
+// Design: float32 is K3's function, so K3 and K3' launch the one kernel of
+// stft_wav.cuh (the mixed-radix FFT in shared memory, or on a device-memory
+// scratch past one block's); this source has K3' own launcher and
+// launch counter.
 //
 // bf16 bases (stft_fused_bf16_kernel): the frames and the window-baked
 // cos/sin bases rounded to bfloat16, their products summed in float32 (the
@@ -31,10 +29,11 @@
 // about 4.4 us at the 989 TFLOP/s of the bf16 tensor cores (the bytes,
 // about 1.7 us, do not bound it). Every frame tile needs all 4.7 MB of bf16
 // bases, so the design is about streaming them from L2:
-// - a cluster of BF_CW = 2 CTAs (128 CTAs at the main shape) owns a tile of
-//   16 frames (one m16 row tile) of one utterance; each CTA takes half of
-//   the 128-bin windows (8 warps x 16 bins), so it streams only half of the
-//   bases;
+// - a cluster of cw CTAs owns a tile of 16 frames (one m16 row tile) of one
+//   utterance; each CTA takes 1/cw of the 128-bin windows (8 warps x 16
+//   bins), so it streams only its share of the bases. cw is 2 (128 CTAs at
+//   the main shape) while the CTA's shared memory fits, else 4 or 8
+//   (ops/stft.py::bf16_cluster): the windows a CTA holds shrink with it;
 // - the tile's taps stay resident in shared memory as bf16 (1024 at a
 //   time, rounded with __float2bfloat16_rn) and reach the tensor cores
 //   through ldmatrix; each warp keeps 4 k16 steps of its B fragments in
@@ -42,10 +41,10 @@
 //   laid out by ops/stft.py::mma_b_fragments so a warp's fragments are 256
 //   consecutive bytes; mma.sync m16n8k16 bf16 x bf16 -> f32;
 // - magnitudes stay in each CTA's shared memory; after a cluster barrier
-//   each CTA gathers the full magnitude rows of its 8 frames from its peer
-//   (distributed shared memory) and sums each mel filter's nonzero bins in
+//   each CTA gathers the full magnitude rows of its 16 / cw frames from its
+//   peers (distributed shared memory) and sums each mel filter's nonzero bins in
 //   ascending order. One launch, no scratch, the same bits every run.
-// Shared memory holds 19 windows, so this mode takes n_fft <= 4863.
+// At cw = 8 a CTA fits 77 windows: n_fft up to 19711.
 // Measured on the H100: 16-frame tiles over 2 CTAs beat 32 over 4, the
 // ring's depth (3, 4 or 8) did not matter, and the K loop (a warp's 4 mma a
 // k16 step, two warps a scheduler) holds it, not the L2. wgmma and TMA are
@@ -54,44 +53,9 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
-#include "stft.cuh"
+#include "stft_wav.cuh"
 
 namespace cg = cooperative_groups;
-
-__global__ void __launch_bounds__(STFT_THREADS)
-stft_fused_kernel(const float* __restrict__ wav,      // (B, L)
-                  const float2* __restrict__ table,   // fft_plan's table
-                  const float* __restrict__ window,   // (n_live,) live taps
-                  const int* __restrict__ mel_lo, const int* __restrict__ mel_off,
-                  const float* __restrict__ mel_w,
-                  float* __restrict__ mel_out,        // (B, T, M)
-                  float* __restrict__ lin_out,        // (B, T, NF)
-                  int L, int T, int hop, int n0, int n_live, int n_fft, int M, int fr,
-                  FftPlan plan, NormConsts nc, int normalize_linear) {
-  extern __shared__ float4 smem4[];
-  float2* bufa = reinterpret_cast<float2*>(smem4);  // fr * n
-  float2* bufb = bufa + fr * plan.n;                // fr * n; first the samples
-  float* seg = reinterpret_cast<float*>(bufb);      // (fr - 1) * hop + n_live
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * fr;
-  const int frames = min(fr, T - t0);
-  const int seg_len = (fr - 1) * hop + n_live;
-  const float* w = wav + (size_t)b * L;
-  const int base = t0 * hop + n0;
-  for (int i = threadIdx.x; i < seg_len; i += STFT_THREADS) {
-    const int s = base + i;
-    seg[i] = s < L ? w[s] : 0.0f;
-  }
-  __syncthreads();
-
-  auto tap = [seg, window, hop, n_live](int f, int j) {
-    return j < n_live ? seg[f * hop + j] * __ldg(window + j) : 0.0f;
-  };
-  const size_t row0 = (size_t)b * T + t0;
-  stft_fft_block(tap, bufa, bufb, n_fft, plan, fr, frames, table, mel_lo, mel_off, mel_w, M,
-                 mel_out + row0 * M, lin_out + row0 * (n_fft / 2 + 1), nc, normalize_linear);
-}
 
 #define BF_TF 16              // frames a tile: one m16 row tile
 #define BF_KA 1024            // taps of the frame tile resident in shared memory at once
@@ -100,7 +64,7 @@ stft_fused_kernel(const float* __restrict__ wav,      // (B, L)
 #define BF_MS (BF_WIN + 8)    // a window's magnitude row stride in floats
 #define BF_RING 4             // k16 steps of B fragments in flight a warp
 #define BF_SLOT 128           // uint2 a ring slot: 2 n8 tiles x (cos, sin) x 32 lanes
-#define BF_CW 2               // CTAs a tile's cluster, each half of the windows
+#define BF_MAX_CW 8           // the most CTAs a tile's cluster (a portable cluster)
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
@@ -131,22 +95,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Shared memory of a bf16 CTA (`windows` bin windows in all): the warps'
-// rings, the tile's resident taps, the magnitudes of its half of the
-// windows, and the full magnitude rows of the BF_TF / BF_CW frames whose mel
-// it sums. ops/stft.py::bf16_smem mirrors it.
-__host__ __device__ constexpr size_t bf16_smem(int windows) {
+// Shared memory of a bf16 CTA (`windows` bin windows in all, clusters of
+// cw CTAs): the warps' rings, the tile's resident taps, the magnitudes of
+// its 1/cw of the windows, and the full magnitude rows of the BF_TF / cw
+// frames whose mel it sums. ops/stft.py::bf16_smem mirrors it.
+__host__ __device__ constexpr size_t bf16_smem(int windows, int cw) {
   return sizeof(uint2) * (STFT_THREADS / 32) * BF_RING * BF_SLOT +
          sizeof(__nv_bfloat16) * BF_TF * BF_KAS +
-         sizeof(float) * ((windows + BF_CW - 1) / BF_CW) * BF_TF * BF_MS +
-         sizeof(float) * (BF_TF / BF_CW) * windows * BF_WIN;
+         sizeof(float) * ((windows + cw - 1) / cw) * BF_TF * BF_MS +
+         sizeof(float) * ((BF_TF + cw - 1) / cw) * windows * BF_WIN;
 }
 
-// Grid (tiles * BF_CW, B) in clusters of (BF_CW, 1, 1): the cluster owns
+// Grid (tiles * cw, B) in clusters of (cw, 1, 1): the cluster owns
 // BF_TF frames of utterance blockIdx.y, and CTA `rank` of it the bin windows
 // [rank * wpc, (rank + 1) * wpc) of them and the mel of frames
 // [rank * fpr, (rank + 1) * fpr).
-__global__ void __cluster_dims__(BF_CW, 1, 1) __launch_bounds__(STFT_THREADS)
+__global__ void __launch_bounds__(STFT_THREADS)
 stft_fused_bf16_kernel(const float* __restrict__ wav,    // (B, L)
                        const uint2* __restrict__ bcos,   // mma_b_fragments(cos)
                        const uint2* __restrict__ bsin,   // mma_b_fragments(sin)
@@ -159,8 +123,8 @@ stft_fused_bf16_kernel(const float* __restrict__ wav,    // (B, L)
   constexpr int TF = BF_TF;
   constexpr int KSA = BF_KA / 16;  // k16 steps a resident chunk of taps
   cg::cluster_group cluster = cg::this_cluster();
-  // cw (= BF_CW) read from the cluster, not folded from the constant: the
-  // folded form ran 7% slower on the H100 (same bits)
+  // cw read from the cluster (a constant folded in its place ran 7% slower
+  // on the H100, with the same bits)
   const int cw = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int windows = (NF + BF_WIN - 1) / BF_WIN;
   const int wpc = (windows + cw - 1) / cw, fpr = (TF + cw - 1) / cw;
@@ -328,46 +292,53 @@ stft_fused_bf16_kernel(const float* __restrict__ wav,    // (B, L)
 static cudaError_t launch_bf16(const float* wav, const int* bcos, const int* bsin,
                                const int* mel_lo, const int* mel_off, const float* mel_w,
                                float* mel_out, float* lin_out, int B, int L, int T, int hop,
-                               int n0, int n_live, int NF, int M, NormConsts nc,
+                               int n0, int n_live, int NF, int M, int cw, NormConsts nc,
                                int normalize_linear, cudaStream_t stream) {
-  const size_t smem = bf16_smem((NF + BF_WIN - 1) / BF_WIN);
+  if (cw < 1 || cw > BF_MAX_CW) return cudaErrorInvalidValue;
+  const size_t smem = bf16_smem((NF + BF_WIN - 1) / BF_WIN, cw);
   cudaError_t err = cudaFuncSetAttribute(stft_fused_bf16_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BF_TF - 1) / BF_TF * BF_CW, B);
-  stft_fused_bf16_kernel<<<grid, STFT_THREADS, smem, stream>>>(
-      wav, reinterpret_cast<const uint2*>(bcos), reinterpret_cast<const uint2*>(bsin), mel_lo,
-      mel_off, mel_w, mel_out, lin_out, L, T, hop, n0, n_live, NF, M, nc, normalize_linear);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((T + BF_TF - 1) / BF_TF * cw, B, 1);
+  cfg.blockDim = dim3(STFT_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cw;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, stft_fused_bf16_kernel, wav,
+                           reinterpret_cast<const uint2*>(bcos),
+                           reinterpret_cast<const uint2*>(bsin), mel_lo, mel_off, mel_w, mel_out,
+                           lin_out, L, T, hop, n0, n_live, NF, M, nc, normalize_linear);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// float32 (bf16 = 0): `fr` frames a block, or fr = 0 and `slots` blocks an
+// utterance on `scratch` (stft_wav.cuh); bf16 bases: clusters of `cw` CTAs.
 extern "C" int stft_fused_launch(const float* wav, const float* table, const float* window,
                                  const int* mel_lo, const int* mel_off, const float* mel_w,
                                  const int* bcos, const int* bsin, float* mel_out,
                                  float* lin_out, int B, int L, int T, int hop, int n0,
-                                 int n_live, int n_fft, int M, int fr, const int* radix,
-                                 int stages, float ref_db, float min_db, float max_abs,
-                                 int symmetric, int normalize_linear, int bf16,
-                                 cudaStream_t stream) {
+                                 int n_live, int n_fft, int M, int fr, int slots,
+                                 const int* radix, int stages, float ref_db, float min_db,
+                                 float max_abs, int symmetric, int normalize_linear, int bf16,
+                                 int cw, float* scratch, cudaStream_t stream) {
   if (B < 1 || T < 1 || B > 65535 || n0 < 0 || n_live < 1 || n0 + n_live > n_fft)
     return (int)cudaErrorInvalidValue;
   NormConsts nc{ref_db, min_db, max_abs, symmetric};
-  const int NF = n_fft / 2 + 1;
   if (bf16) {
     if (fr != BF_TF) return (int)cudaErrorInvalidValue;
     return (int)launch_bf16(wav, bcos, bsin, mel_lo, mel_off, mel_w, mel_out, lin_out, B, L, T,
-                            hop, n0, n_live, NF, M, nc, normalize_linear, stream);
+                            hop, n0, n_live, n_fft / 2 + 1, M, cw, nc, normalize_linear,
+                            stream);
   }
-  FftPlan plan;
-  const int n = n_fft % 2 == 0 ? n_fft / 2 : n_fft;
-  if (fr < 1 || !make_fft_plan(&plan, n, radix, stages)) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(float2) * (size_t)fr * n;
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + fr - 1) / fr, B);
-  stft_fused_kernel<<<grid, STFT_THREADS, smem, stream>>>(
-      wav, reinterpret_cast<const float2*>(table), window, mel_lo, mel_off, mel_w, mel_out,
-      lin_out, L, T, hop, n0, n_live, n_fft, M, fr, plan, nc, normalize_linear);
-  return (int)cudaGetLastError();
+  return (int)launch_stft_wav(wav, table, window, mel_lo, mel_off, mel_w, mel_out, lin_out, B,
+                              L, T, hop, n0, n_live, n_fft, M, fr, slots, radix, stages, nc,
+                              normalize_linear, scratch, stream);
 }

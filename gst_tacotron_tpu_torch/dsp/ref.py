@@ -9,6 +9,9 @@ numpy oracle computes them. Numpy only (no scipy).
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import numpy as np
 
 from ..config import AudioConfig
@@ -29,6 +32,18 @@ def padded_window(win_length: int, n_fft: int) -> np.ndarray:
     pad = n_fft - win_length
     left = pad // 2
     return np.pad(win, (left, pad - left))
+
+
+@functools.lru_cache(maxsize=16)
+def live_tap_span(cfg: AudioConfig) -> Tuple[int, int, int]:
+    """(j0, j1, n_live): the hop-chunk span [j0, j1) of the padded window
+    with a nonzero tap, and its sample count n_live = (j1 - j0) * hop."""
+    hop, n_fft = cfg.hop_length, cfg.n_fft
+    k = n_fft // hop
+    win = padded_window(cfg.win_length, n_fft)
+    live = [j for j in range(k) if np.any(win[j * hop:(j + 1) * hop] != 0.0)]
+    j0, j1 = (live[0], live[-1] + 1) if live else (0, k)
+    return j0, j1, (j1 - j0) * hop
 
 
 def frame_signal(wav: np.ndarray, n_fft: int, hop_length: int,

@@ -2,16 +2,20 @@
 
 Batch-first: wav (B, S) -> spectra (B, T, bins). Everything here is plain
 PyTorch, as the JAX module is plain jnp: the forward and inverse STFTs use
-``torch.fft`` on hop-chunk frames, Griffin-Lim iterates in float32 (the port
-ignores ``AudioConfig.griffin_lim_bf16``), and ``features_precentered`` is
-the plain feature path of the wav-transport step and of the extractor's
-plain route (the STFT kernels live in ``ops/stft.py``). The inverse
-preemphasis IIR runs blockwise: a lower-triangular product inside each
-block, then the carries across blocks as a second triangular product.
+``torch.fft`` on hop-chunk frames, and ``features_precentered`` is the plain
+feature path of the wav-transport step and of the extractor's plain route
+(the STFT kernels live in ``ops/stft.py``). Griffin-Lim's iterations follow
+``AudioConfig.griffin_lim_bf16`` as ``JaxDSP`` does: with it set, both
+transforms are the real-pair DFT products over the window's live taps, on
+operands rounded to bfloat16 with float32 sums (``low_precision``); the last
+inverse is float32 either way. The inverse preemphasis IIR runs blockwise: a
+lower-triangular product inside each block, then the carries across blocks
+as a second triangular product.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 
 from ..config import AudioConfig
 from .mel import mel_filterbank
-from .ref import padded_window
+from .ref import live_tap_span, padded_window
 
 IIR_BLOCK = 256
 
@@ -50,6 +54,31 @@ def denormalize_db(s: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     return unit * (-cfg.min_level_db) + cfg.min_level_db
 
 
+@functools.lru_cache(maxsize=4)
+def _dft_bases_np(cfg: AudioConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """``JaxDSP``'s windowed real-pair DFT bases over the live taps, float32,
+    built as JAX builds them (float64 angles, float32 cos/sin and window
+    products; each is then rounded once to bfloat16): forward (n_live, 2F),
+    inverse (2F, n_live)."""
+    n_fft, nf = cfg.n_fft, cfg.num_freq
+    j0, _, n_live = live_tap_span(cfg)
+    n0 = j0 * cfg.hop_length
+    win = padded_window(cfg.win_length, n_fft).astype(np.float32)
+    ang = (2.0 * np.pi * np.arange(n_fft)[:, None].astype(np.float64)
+           * np.arange(nf)[None, :].astype(np.float64) / n_fft)
+    fwd = np.concatenate([np.cos(ang).astype(np.float32),
+                          (-np.sin(ang)).astype(np.float32)], axis=1) * win[:, None]
+    w = np.full((nf,), 2.0)
+    w[0] = 1.0
+    if n_fft % 2 == 0:
+        w[-1] = 1.0
+    inv = np.concatenate([((w[:, None] * np.cos(ang.T)) / n_fft).astype(np.float32),
+                          ((-w[:, None] * np.sin(ang.T)) / n_fft).astype(np.float32)],
+                         axis=0) * win[None, :]
+    sl = slice(n0, n0 + n_live)
+    return np.ascontiguousarray(fwd[sl]), np.ascontiguousarray(inv[:, sl])
+
+
 class TorchDSP:
     """DSP ops for one AudioConfig on one device."""
 
@@ -64,6 +93,39 @@ class TorchDSP:
             cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.mel_fmin,
             cfg.mel_fmax)).to(self.device)                     # (M, F)
         self._winsq = win * win
+        self._bf16_bases = None
+
+    # -- bf16 DFT products (griffin_lim_bf16) --------------------------------
+
+    def _live_span(self) -> Tuple[int, int]:
+        """(n0, n_live): the first sample and the count of the padded
+        window's live hop-chunks (JaxDSP's tap_j0 * hop and its span)."""
+        j0, _, n_live = live_tap_span(self.cfg)
+        return j0 * self.cfg.hop_length, n_live
+
+    def bf16_bases(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The windowed real-pair DFT bases of ``JaxDSP``'s two conv kernels
+        over the live taps, in bfloat16 on this DSP's device: forward
+        (n_live, 2F) and inverse (2F, n_live)."""
+        if self._bf16_bases is None:
+            self._bf16_bases = tuple(torch.from_numpy(b).to(self.device).to(torch.bfloat16)
+                                     for b in _dft_bases_np(self.cfg))
+        return self._bf16_bases
+
+    @staticmethod
+    def _bf16_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(..., K) @ (K, N) on ``x`` rounded to bfloat16 and the bfloat16
+        ``w``, summed in float32. On the CPU the rounded operands are
+        multiplied in float32 (a product of two bfloat16 values is exact
+        there); on the card one GEMM takes bfloat16 operands and returns
+        float32."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        if x.device.type == "cuda":
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            out = x2.float() @ w.float()
+        return out.reshape(*lead, w.shape[-1])
 
     # -- framing ------------------------------------------------------------
 
@@ -88,11 +150,21 @@ class TorchDSP:
         spec = torch.fft.rfft(frames, n=self.cfg.n_fft, dim=-1)
         return spec.real, spec.imag
 
-    def stft_ri(self, wav: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, S) -> real/imag pair with reflect centre padding."""
+    def stft_ri(self, wav: torch.Tensor, low_precision: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, S) -> real/imag pair with reflect centre padding.
+        ``low_precision``: the DFT products of the live taps on bfloat16
+        operands with float32 sums (JaxDSP's Griffin-Lim iterations)."""
         pad = self.cfg.n_fft // 2
         wav = F.pad(wav[:, None, :], (pad, pad), mode="reflect")[:, 0]
-        return self.stft_ri_precentered(wav)
+        if not low_precision:
+            return self.stft_ri_precentered(wav)
+        cfg = self.cfg
+        n0, n_live = self._live_span()
+        t = 1 + (wav.shape[-1] - cfg.n_fft) // cfg.hop_length
+        frames = wav[:, n0:].unfold(-1, n_live, cfg.hop_length)[:, :t]
+        out = self._bf16_product(frames, self.bf16_bases()[0])
+        return out[..., :cfg.num_freq], out[..., cfg.num_freq:]
 
     def stft(self, wav: torch.Tensor) -> torch.Tensor:
         """(B, S) -> complex (B, T, num_freq)."""
@@ -142,18 +214,27 @@ class TorchDSP:
             norm[t * cfg.hop_length: t * cfg.hop_length + cfg.n_fft] += self._winsq
         return torch.from_numpy(np.maximum(norm, 1e-10).astype(np.float32)).to(self.device)
 
-    def istft_ri(self, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    def istft_ri(self, re: torch.Tensor, im: torch.Tensor,
+                 low_precision: bool = False) -> torch.Tensor:
         """Real/imag (B, T, F) -> (B, hop * (T - 1)): inverse FFT, window,
-        overlap-add as k shifted adds of hop-sized chunks, window-square
-        normalization, centre crop."""
+        overlap-add as shifted adds of hop-sized chunks, window-square
+        normalization, centre crop. ``low_precision``: the windowed inverse
+        DFT products of the live taps on bfloat16 operands with float32 sums
+        (JaxDSP's Griffin-Lim iterations)."""
         cfg = self.cfg
         b, t, _ = re.shape
         hop, k = cfg.hop_length, cfg.n_fft // cfg.hop_length
-        frames = torch.fft.irfft(torch.complex(re, im), n=cfg.n_fft, dim=-1) * self.window
-        chunks = frames.reshape(b, t, k, hop)
+        if low_precision:
+            n0, n_live = self._live_span()
+            frames = self._bf16_product(torch.cat([re, im], -1), self.bf16_bases()[1])
+            j0, nk = n0 // hop, n_live // hop
+        else:
+            frames = torch.fft.irfft(torch.complex(re, im), n=cfg.n_fft, dim=-1) * self.window
+            j0, nk = 0, k
+        chunks = frames.reshape(b, t, nk, hop)
         out = frames.new_zeros(b, t + k - 1, hop)
-        for j in range(k):
-            out[:, j: j + t] += chunks[:, :, j]
+        for j in range(nk):
+            out[:, j0 + j: j0 + j + t] += chunks[:, :, j]
         total = cfg.n_fft + hop * (t - 1)
         out = out.reshape(b, total) / self._win_norm(t)
         return out[:, cfg.n_fft // 2: total - cfg.n_fft // 2]
@@ -162,7 +243,8 @@ class TorchDSP:
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, F) magnitude -> (B, S) waveform. Zero start phase unless a
         generator is given; fast Griffin-Lim momentum
-        ``griffin_lim_momentum`` (0 is the plain iteration)."""
+        ``griffin_lim_momentum`` (0 is the plain iteration); the iterations'
+        transforms on bfloat16 operands when ``griffin_lim_bf16`` is set."""
         cfg = self.cfg
         if generator is None:
             re, im = magnitude, torch.zeros_like(magnitude)
@@ -170,12 +252,12 @@ class TorchDSP:
             ang = torch.rand(magnitude.shape, generator=generator,
                              device=magnitude.device) * (2.0 * np.pi)
             re, im = magnitude * torch.cos(ang), magnitude * torch.sin(ang)
-        alpha = cfg.griffin_lim_momentum
+        alpha, lp = cfg.griffin_lim_momentum, bool(cfg.griffin_lim_bf16)
         pre, pim = re, im
         for _ in range(cfg.griffin_lim_iters):
             cre = re + alpha * (re - pre)
             cim = im + alpha * (im - pim)
-            re2, im2 = self.stft_ri(self.istft_ri(cre, cim))
+            re2, im2 = self.stft_ri(self.istft_ri(cre, cim, lp), lp)
             scale = magnitude / torch.clamp(torch.sqrt(re2 * re2 + im2 * im2), min=1e-16)
             re, im, pre, pim = re2 * scale, im2 * scale, re, im
         return self.istft_ri(re, im)

@@ -13,6 +13,7 @@ Nothing here runs at import time: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -133,6 +134,15 @@ def build_all(kernels: Sequence[CudaKernel]) -> None:
     finish_builds([k.start_build() for k in kernels])
     for k in kernels:
         k.load()
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels size
+    their grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

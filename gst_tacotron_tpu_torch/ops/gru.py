@@ -20,38 +20,64 @@ from .build import I, P, CudaKernel, check_cuda, ptr, stream_ptr
 
 KERNEL = CudaKernel("gru_scan.cu", "gru_scan_launch",
                     [P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                     I, I, P])
-# the kernel's GRU_ROWS and GRU_KS (recurrent weights a lane holds for each
-# gate; 8 was faster than 4 and 16 at H = 128 on an H100, PERF.md), the most
-# lanes a unit (16, so H <= 128), and 8 CTAs, the portable cluster size
-ROWS, SLICE_LEN, MAX_SLICES, MAX_CLUSTER = 4, 8, 16, 8
+                     I, I, I, I, I, I, P])
+# the register form's batch rows a cluster and most lanes a unit; the
+# recurrent weights a lane holds for each gate (8 was faster than 4 and 16
+# at H = 128 on an H100, PERF.md): 8 up to H = 128, 16 up to H = 256; 8
+# CTAs, the portable cluster size; the streamed form's threads
+ROWS, MAX_SLICES, MAX_CLUSTER, STREAM_THREADS = 4, 16, 8, 256
+SLICE_LENS = (8, 16)
 _MAX_GRID_Y = 65535
+_MAX_SMEM = 232448
+
+
+def _stream_smem(hidden: int, units: int, kp: int, rows: int) -> int:
+    """Shared memory of the streamed form (``csrc/gru_scan.cu::
+    gru_stream_floats``): the double-buffered state of ``rows`` rows, the
+    ``kp`` partial sums of every gate of the CTA's units, two mbarriers."""
+    return 4 * ((2 * rows * hidden + kp * rows * 3 * units + 1) & ~1) + 16
 
 
 def launch_plan(batch: int, hidden: int) -> Dict[str, int]:
     """K1's recurrence launch for B = ``batch`` rows of H = ``hidden`` units:
-    ``cluster`` C CTAs a cluster (min(8, H)), ``units`` ceil(H / C) a CTA,
-    ``slices`` S lanes a unit, each holding 8 recurrent weights a gate
-    (ceil(H / 8) rounded up to a power of two, at least 4: after the
-    reduction each lane owns one of the 4 rows), ``threads`` units * S
-    rounded up to a warp, ``rows`` 4 batch rows a cluster, ``clusters``
-    ceil(B / 4) a direction, ``smem`` the double-buffered state and its two
-    mbarriers in bytes. Raises ValueError on a shape the kernel cannot take
-    (H > 128, or too many rows)."""
-    if not 1 <= hidden <= SLICE_LEN * MAX_SLICES or batch < 0:
-        raise ValueError(f"gru_scan: no launch for B={batch}, H={hidden}: the kernel "
-                         f"takes 1 <= H <= {SLICE_LEN * MAX_SLICES}")
+    ``cluster`` C CTAs a cluster (min(8, H)), ``units`` ceil(H / C) a CTA.
+    Up to H = 256 the register form: ``ks`` recurrent weights a lane a gate
+    (8 up to H = 128, else 16), ``slices`` S lanes a unit (ceil(H / ks)
+    rounded up to a power of two, at least 4: after the reduction each lane
+    owns one of the 4 rows), ``threads`` units * S rounded up to a warp,
+    ``rows`` 4 batch rows a cluster. Past it the streamed form (``ks`` 0):
+    256 threads, ``kp`` k parts of the sums (8 warps over the CTA's groups of
+    32 units), ``rows`` 4, 2 or 1, the most whose state fits shared memory.
+    ``clusters`` ceil(B / rows) a direction, ``smem`` the bytes of shared
+    memory. Raises ValueError on a shape no form takes (H < 1, too many
+    rows, or one row's state past shared memory: H > 24465; its weights
+    alone would then be 7.2 GB)."""
+    if hidden < 1 or batch < 0:
+        raise ValueError(f"gru_scan: no launch for B={batch}, H={hidden}")
     cluster = min(MAX_CLUSTER, hidden)
     units = -(-hidden // cluster)
-    slices = max(ROWS, 1 << max(0, -(-hidden // SLICE_LEN) - 1).bit_length())
-    clusters = -(-batch // ROWS)
+    if hidden <= SLICE_LENS[-1] * MAX_SLICES:
+        ks = SLICE_LENS[0] if hidden <= SLICE_LENS[0] * MAX_SLICES else SLICE_LENS[1]
+        slices = max(ROWS, 1 << max(0, -(-hidden // ks) - 1).bit_length())
+        threads, kp, rows = -(-units * slices // 32) * 32, 0, ROWS
+        smem = 4 * 2 * ROWS * slices * ks + 16
+    else:
+        ks, slices, threads = 0, 0, STREAM_THREADS
+        kp = max(1, (STREAM_THREADS // 32) // -(-units // 32))
+        rows = next((r for r in (ROWS, 2, 1)
+                     if _stream_smem(hidden, units, kp, r) <= _MAX_SMEM), 0)
+        if not rows:
+            raise ValueError(f"gru_scan: no launch for B={batch}, H={hidden}: one row's "
+                             f"state needs {_stream_smem(hidden, units, kp, 1)} bytes of "
+                             "shared memory")
+        smem = _stream_smem(hidden, units, kp, rows)
+    clusters = -(-batch // rows)
     # a BiGRU's two directions stack their clusters on the grid's y axis
     if 2 * clusters > _MAX_GRID_Y:
         raise ValueError(f"gru_scan: B={batch} needs {clusters} clusters a direction, "
                          f"more than {_MAX_GRID_Y // 2}")
-    return {"cluster": cluster, "units": units, "slices": slices,
-            "threads": -(-units * slices // 32) * 32, "rows": ROWS, "clusters": clusters,
-            "smem": 4 * 2 * ROWS * slices * SLICE_LEN + 16}
+    return {"cluster": cluster, "units": units, "ks": ks, "slices": slices,
+            "threads": threads, "kp": kp, "rows": rows, "clusters": clusters, "smem": smem}
 
 
 def gru_update(gx: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -115,7 +141,8 @@ def _launch(xs: torch.Tensor, dirs: Sequence[Direction], lengths: Optional[torch
     KERNEL(ptr(xs), ptr(lens), n, ptr(h0a), ptr(h0b), ptr(wia), ptr(wib), ptr(bia), ptr(bib),
            ptr(wha), ptr(whb), ptr(bha), ptr(bhb), ptr(ys), ptr(finals[0]), ptr(finals[-1]),
            ptr(gx_scratch), b, t, d, hdim, int(reverse), plan["cluster"], plan["units"],
-           plan["slices"], plan["threads"], stream_ptr(xs.device))
+           plan["ks"], plan["slices"], plan["threads"], plan["kp"], plan["rows"], plan["smem"],
+           stream_ptr(xs.device))
     return ys, finals
 
 

@@ -15,18 +15,49 @@ style-token attention.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.modules import BN_EPS, conv2d_stride2_same, mask_sequence
-from .build import I, P, CudaKernel, check_cuda, ptr, stream_ptr
+from .build import I, P, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
 from .gru import gru_scan, gru_scan_plain
 
 KERNEL = CudaKernel("refenc_stack.cu", "refenc_stack_launch",
-                    [P, P, P, P, I, P, P, I, I, I, P])
+                    [P, P, P, P, P, P, I, P, P, I, I, I, P])
 MAX_LAYERS = 8
+# a layer block's warps and output channels (csrc/refenc_stack.cu), and its
+# (k parts, pixels a thread) candidates in order of preference: fewer split
+# sums first, then more pixels a thread
+GROUPS, CHANNEL_TILE = 8, 32
+_SPLITS = ((1, 4), (1, 2), (2, 2), (1, 1), (2, 1), (4, 1), (8, 1))
+
+
+def layer_plan(batch: int, t: int, f: int, channels: Sequence[int],
+               sms: int) -> List[Dict[str, int]]:
+    """K2's launch of each layer of a (batch, t, f) stack: ``ks`` k parts of
+    the input-channel sum and ``px`` pixels a thread, the first of
+    ``_SPLITS`` (with ks no more than C_in) whose grid gives each of ``sms``
+    SMs two blocks, else the one with the most blocks; ``blocks`` its grid
+    and ``shape`` (h_out, w_out, c_out)."""
+    plans, h, w, c_in = [], t, f, 1
+    for c in channels:
+        h, w = (h + 1) // 2, (w + 1) // 2
+        ctiles = -(-c // CHANNEL_TILE)
+        best = None
+        for ks, px in _SPLITS:
+            if ks > c_in:
+                continue
+            blocks = batch * ctiles * -(-(h * w) // ((GROUPS // ks) * px))
+            if best is None or blocks > best["blocks"]:
+                best = {"ks": ks, "px": px, "blocks": blocks, "shape": (h, w, c)}
+            if blocks >= 2 * sms:
+                best = {"ks": ks, "px": px, "blocks": blocks, "shape": (h, w, c)}
+                break
+        plans.append(best)
+        c_in = c
+    return plans
 
 
 def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -73,18 +104,22 @@ def refenc_stack(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tensor],
     mel = ref_mel.to(torch.float32).contiguous()
     lens = None if lengths is None else lengths.to(mel.device, torch.int32).contiguous()
     check_cuda("refenc_stack", mel, params, lens)
-    max_act, h, w = 1, t, f          # the largest activation sizes the scratch
-    for c in channels:
-        h, w = (h + 1) // 2, (w + 1) // 2
-        max_act = max(max_act, h * w * c)
+    plan = layer_plan(b, t, f, channels, sm_count(mel.device.index))
+    h, w, _ = plan[-1]["shape"]
     out = torch.empty(b, h, w * channels[-1], device=mel.device, dtype=torch.float32)
-    scratch = torch.empty(b, 2, max_act, device=mel.device, dtype=torch.float32)
     if b == 0:
         return out
-    chans = (ctypes.c_int * len(channels))(*channels)   # read on the host
-    KERNEL(ptr(mel), ptr(lens), ptr(params), chans, len(channels), ptr(out),
-           ptr(scratch), b, t, f, stream_ptr(mel.device))
+    if b > 65535:
+        raise ValueError(f"refenc_stack: batch {b} > 65535")
+    # the ping-pong scratch of every activation but the last
+    max_act = max([1] + [int(np.prod(p["shape"])) for p in plan[:-1]])
+    scratch = torch.empty(2, b, max_act, device=mel.device, dtype=torch.float32)
+    host = lambda xs: (ctypes.c_int * len(xs))(*xs)      # read on the host
+    KERNEL(ptr(mel), ptr(lens), ptr(params), host(channels), host([p["ks"] for p in plan]),
+           host([p["px"] for p in plan]), len(channels), ptr(out), ptr(scratch), b, t, f,
+           stream_ptr(mel.device))
     return out
+
 
 
 def ref_encoder(enc, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor],

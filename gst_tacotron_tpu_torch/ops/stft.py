@@ -1,18 +1,19 @@
 """The three mel-STFT kernels (counterparts of ``gst_tacotron_tpu/ops/stft_pallas.py``).
 
 All three compute normalized-dB mel and linear features of the window's
-live taps, through a shared-memory FFT (``csrc/fft.cuh``) and a sparse mel
-over each filter's nonzero bins, in one launch:
+live taps, through the mixed-radix FFT of ``csrc/fft.cuh`` (plan and table
+from ``fft_plan``; any hop | n_fft, each transform in shared memory or, past
+``MAX_FFT_SIZE``, in a device-memory scratch) and a sparse mel over each
+filter's nonzero bins, in one launch:
 
   K3   ``stft_features``        <- ``stft_features_pallas_resident``:
-       (B, L) wav, power-of-two n_fft on the card (``csrc/stft_features.cu``);
+       (B, L) wav (``csrc/stft_features.cu``);
   K3′  ``stft_features_fused``  <- ``stft_features_pallas_fused``: the same
-       function for any hop | n_fft, on the mixed-radix FFT (``fft_plan``);
-       ``bf16_bases`` runs the window-baked DFT products on the tensor cores
-       instead (``csrc/stft_fused.cu``);
+       function through the same kernel (``csrc/stft_wav.cuh``), with its own
+       launcher and counter; ``bf16_bases`` runs the window-baked DFT
+       products on the tensor cores instead (``csrc/stft_fused.cu``);
   K3″  ``stft_features_frames`` <- ``stft_features_pallas``: (F, n_fft) raw
-       frames -> (F, M), (F, NF), on the mixed-radix FFT
-       (``csrc/stft_frames.cu``).
+       frames -> (F, M), (F, NF) (``csrc/stft_frames.cu``).
 
 The wav input is preemphasized and reflect-padded at the centre per
 utterance, zero-padded to a bucket length; outputs are (mel (B, T, M),
@@ -35,17 +36,19 @@ import torch
 from ..config import AudioConfig
 from ..device import resolve_device
 from ..dsp.mel import mel_filterbank
-from ..dsp.ref import padded_window
+from ..dsp.ref import live_tap_span, padded_window
 from ..dsp.torch_dsp import TorchDSP
-from .build import F, I, P, CudaKernel, check_cuda, ptr, stream_ptr
+from .build import F, I, P, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
 
 KERNEL = CudaKernel("stft_features.cu", "stft_features_launch",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, I, I, P])
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
+                     F, F, F, I, I, P, P])
 FUSED_KERNEL = CudaKernel("stft_fused.cu", "stft_fused_launch",
-                          [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, I,
-                           F, F, F, I, I, I, P])
+                          [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
+                           F, F, F, I, I, I, I, P, P])
 FRAMES_KERNEL = CudaKernel("stft_frames.cu", "stft_frames_launch",
-                           [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, I, F, F, F, I, I, P])
+                           [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, I, F, F, F, I, I,
+                            P, P])
 # the bins of a bf16 window (8 warps x 16 bins) and the plain bases' padding
 FREQ_TILE = 128
 
@@ -56,22 +59,22 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-@functools.lru_cache(maxsize=16)
-def live_tap_span(cfg: AudioConfig) -> Tuple[int, int, int]:
-    """(j0, j1, n_live): the hop-chunk span [j0, j1) of the padded window
-    with a nonzero tap, and its sample count n_live = (j1 - j0) * hop."""
-    hop, n_fft = cfg.hop_length, cfg.n_fft
-    k = n_fft // hop
-    win = padded_window(cfg.win_length, n_fft)
-    live = [j for j in range(k) if np.any(win[j * hop:(j + 1) * hop] != 0.0)]
-    j0, j1 = (live[0], live[-1] + 1) if live else (0, k)
-    return j0, j1, (j1 - j0) * hop
+@functools.lru_cache(maxsize=4)
+def _mel_t_np(cfg: AudioConfig) -> np.ndarray:
+    """The transposed mel basis (NFp, M); bins past num_freq are zero."""
+    mel = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.mel_fmin,
+                         cfg.mel_fmax)
+    mel_t = np.zeros((_round_up(cfg.num_freq, FREQ_TILE), cfg.num_mels), np.float32)
+    mel_t[:cfg.num_freq] = mel.T
+    return mel_t
 
 
 @functools.lru_cache(maxsize=4)
 def _bases_np(cfg: AudioConfig):
     """Window-baked DFT cos/sin bases over the live taps (n_live, NFp) and the
-    transposed mel basis (NFp, M); bins past num_freq are zero."""
+    transposed mel basis (NFp, M); bins past num_freq are zero. The dense
+    bases are the plain versions' and the bf16 mode's (n_live * NFp floats
+    each): the FFT kernels never build them."""
     n_fft, n_freq = cfg.n_fft, cfg.num_freq
     n_freq_pad = _round_up(n_freq, FREQ_TILE)
     j0, j1, _ = live_tap_span(cfg)
@@ -84,30 +87,8 @@ def _bases_np(cfg: AudioConfig):
     cos_b[:, n_freq:] = 0.0
     sin_b[:, n_freq:] = 0.0
     sl = slice(j0 * cfg.hop_length, j1 * cfg.hop_length)
-    mel = mel_filterbank(cfg.sample_rate, n_fft, cfg.num_mels, cfg.mel_fmin,
-                         cfg.mel_fmax)
-    mel_t = np.zeros((n_freq_pad, cfg.num_mels), np.float32)
-    mel_t[:n_freq] = mel.T
     return (np.ascontiguousarray(cos_b[sl]), np.ascontiguousarray(sin_b[sl]),
-            mel_t)
-
-
-def fft_twiddles(n_fft: int) -> np.ndarray:
-    """K3's twiddle table (complex128, n_fft entries; see ``csrc/fft.cuh``)
-    for the n_fft/2-point Stockham FFT and its real split step: per stage
-    (radix 4 while it fits, then one radix 2), p sub-transforms long so far,
-    the entries exp(-2*pi*i*k*q / (R*p)) for q = 1..R-1 (q-major), k < p;
-    n_fft/2 - 1 entries in all. Then exp(-2*pi*i*k / n_fft) for k = 0..n_fft/2."""
-    n = n_fft // 2
-    parts, p = [], 1
-    while 4 * p <= n:
-        k = np.arange(p)
-        parts += [np.exp(-2j * np.pi * k * q / (4 * p)) for q in (1, 2, 3)]
-        p *= 4
-    if p < n:
-        parts.append(np.exp(-2j * np.pi * np.arange(p) / (2 * p)))
-    parts.append(np.exp(-2j * np.pi * np.arange(n + 1) / n_fft))
-    return np.concatenate(parts)
+            _mel_t_np(cfg))
 
 
 def fft_radices(n: int) -> Tuple[int, ...]:
@@ -134,15 +115,14 @@ def fft_radices(n: int) -> Tuple[int, ...]:
 
 
 def fft_plan(n_fft: int) -> Tuple[Tuple[int, ...], np.ndarray]:
-    """The mixed-radix FFT of K3′ and K3″ (``csrc/fft.cuh::fft_mixed``):
+    """The mixed-radix FFT of K3, K3′ and K3″ (``csrc/fft.cuh::fft_mixed``):
     (radices, table). An even n_fft packs the real frame into an
     n_fft/2-point complex transform and splits it; an odd one transforms the
     real frame as n_fft complex points. The table (complex128) holds, stage
     by stage, exp(-2 pi i k q / (R p)) for q = 1..R-1 (q-major), k < p
     (n - 1 entries in all), then each generic stage's roots
     exp(-2 pi i m / R), m < R, then, for an even n_fft, the split twiddles
-    exp(-2 pi i k / n_fft), k = 0..n_fft/2. For a power of two it is K3's
-    ``fft_twiddles`` bit for bit."""
+    exp(-2 pi i k / n_fft), k = 0..n_fft/2."""
     n = n_fft // 2 if n_fft % 2 == 0 else n_fft
     radices = fft_radices(n)
     parts, roots, p = [], [], 1
@@ -213,19 +193,28 @@ def _fft_tables_np(cfg: AudioConfig):
     j0, j1, _ = live_tap_span(cfg)
     _, tw = fft_plan(cfg.n_fft)
     win = padded_window(cfg.win_length, cfg.n_fft)[j0 * cfg.hop_length: j1 * cfg.hop_length]
-    lo, off, w = sparse_mel(_bases_np(cfg)[2], cfg.num_freq)
+    lo, off, w = sparse_mel(_mel_t_np(cfg), cfg.num_freq)
     return {"fft_twiddle": np.stack([tw.real, tw.imag], -1).astype(np.float32),
             "fft_window": win.astype(np.float32),
             "mel_lo": lo, "mel_off": off, "mel_w": w}
 
 
 def stft_bases(cfg: AudioConfig, device) -> Dict[str, torch.Tensor]:
-    """The kernels' device tables: ``cos``, ``sin``, ``mel_t`` (the plain
-    versions), the FFT's ``fft_twiddle``, ``fft_window`` and the sparse mel
-    ``mel_lo``, ``mel_off``, ``mel_w``."""
-    cos_b, sin_b, mel_t = _bases_np(cfg)
-    tables = {"cos": cos_b, "sin": sin_b, "mel_t": mel_t, **_fft_tables_np(cfg)}
+    """The kernels' device tables: ``mel_t`` (the plain versions' mel), the
+    FFT's ``fft_twiddle``, ``fft_window`` and the sparse mel ``mel_lo``,
+    ``mel_off``, ``mel_w``."""
+    tables = {"mel_t": _mel_t_np(cfg), **_fft_tables_np(cfg)}
     return {name: torch.from_numpy(a).to(device) for name, a in tables.items()}
+
+
+@functools.lru_cache(maxsize=4)
+def dft_bases(cfg: AudioConfig, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain versions' window-baked cos/sin bases (n_live, num_freq) on
+    ``device``, built at their first call and kept."""
+    cos_b, sin_b, _ = _bases_np(cfg)
+    nf = cfg.num_freq
+    return (torch.from_numpy(np.ascontiguousarray(cos_b[:, :nf])).to(device),
+            torch.from_numpy(np.ascontiguousarray(sin_b[:, :nf])).to(device))
 
 
 @functools.lru_cache(maxsize=4)
@@ -237,89 +226,97 @@ def _bf16_fragments(cfg: AudioConfig, device: str) -> Tuple[torch.Tensor, torch.
             torch.from_numpy(mma_b_fragments(sin_b)).to(device))
 
 
-# K3's frames a block (FFT_FRAMES of the kernel), a block's shared memory,
-# and the FFT kernels' entries of stft_bases
-FFT_FRAMES = 4
+# a block's shared memory, and the FFT kernels' entries of stft_bases
 _MAX_SMEM = 232448
 _FFT_TABLES = ("fft_twiddle", "fft_window", "mel_lo", "mel_off", "mel_w")
 
 
-@functools.lru_cache(maxsize=16)
-def check_fft_size(cfg: AudioConfig) -> int:
-    """K3's shared memory on the card for ``cfg``, or ValueError: its FFT
-    takes power-of-two n_fft >= 8 whose buffers fit one block (the float2
-    twiddles, two ping-pong buffers of FFT_FRAMES transforms, the live window
-    taps and the frames' samples)."""
-    n_fft = cfg.n_fft
-    if n_fft < 8 or n_fft & (n_fft - 1):
-        raise ValueError(f"stft_features: the kernel's FFT takes a power-of-two n_fft, "
-                         f"got {n_fft}; the \"fused\" route (stft_features_fused) takes "
-                         "any hop | n_fft")
-    _, _, n_live = live_tap_span(cfg)
-    smem = 8 * (1 + FFT_FRAMES) * n_fft + 4 * (2 * n_live + (FFT_FRAMES - 1) * cfg.hop_length)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"stft_features: n_fft {n_fft} needs {smem} bytes of shared "
-                         "memory, more than one block has; use the \"fused\" route")
-    return smem
-
-
 def mixed_fft_smem(n_fft: int, frames: int) -> int:
-    """Shared memory of a K3′ / K3″ block of ``frames`` frames: two
+    """Shared memory of a K3 / K3′ / K3″ block of ``frames`` frames: two
     ping-pong buffers of the complex transform (n_fft / 2 points for an even
     n_fft, n_fft for an odd one); the second first holds the frames' taps."""
     n = n_fft // 2 if n_fft % 2 == 0 else n_fft
     return 2 * 8 * frames * n
 
 
-# the largest n_fft one frame of the mixed-radix FFT fits: 29056 when even,
-# 14527 when odd (a transform of 14528 points would fit)
+# the largest n_fft one frame of the FFT fits in shared memory: 29056 when
+# even, 14527 when odd (a transform of 14528 points would fit); a larger one
+# runs on a device-memory scratch
 MAX_FFT_SIZE = {"even": _MAX_SMEM // 8, "odd": _MAX_SMEM // 16 - 1}
 
 
 def fft_frames_per_block(n_fft: int, groups: int, frames: int, sms: int) -> int:
-    """Frames a K3′ / K3″ block owns: the most of 4, 2, 1 whose buffers fit
-    one block and whose grid (``groups`` x ceil(frames / fr) blocks) still
-    gives each of ``sms`` SMs two blocks; 1 when none does. ValueError when
-    even one frame does not fit, naming n_fft."""
+    """Frames a K3 / K3′ / K3″ block owns in shared memory: the most of 4,
+    2, 1 whose buffers fit one block and whose grid (``groups`` x
+    ceil(frames / fr) blocks) still gives each of ``sms`` SMs two blocks; 1
+    when none does; 0 when even one frame does not fit (past
+    ``MAX_FFT_SIZE``): the kernel then runs each frame's stages on a
+    device-memory scratch, ``scratch_slots`` blocks a group."""
     if mixed_fft_smem(n_fft, 1) > _MAX_SMEM:
-        kind = "even" if n_fft % 2 == 0 else "odd"
-        raise ValueError(f"STFT FFT kernels: n_fft {n_fft} needs "
-                         f"{mixed_fft_smem(n_fft, 1)} bytes of shared memory for one "
-                         f"frame, more than one block has (the {kind} limit is n_fft "
-                         f"<= {MAX_FFT_SIZE[kind]})")
+        return 0
     for fr in (4, 2):
         if mixed_fft_smem(n_fft, fr) <= _MAX_SMEM and groups * -(-frames // fr) >= 2 * sms:
             return fr
     return 1
 
 
-BF16_TILE = 16     # frames a K3′ bf16 tile (one m16 row tile of mma.sync)
-BF16_CLUSTER = 2   # CTAs a tile's cluster, each half of its 128-bin windows
+def scratch_slots(groups: int, frames: int, sms: int) -> int:
+    """Blocks a group (an utterance, or all the frames of K3″) when frames
+    run on the device-memory scratch: two an SM over the grid, at most one a
+    frame."""
+    return max(1, min(frames, -(-2 * sms // max(groups, 1))))
 
 
-def bf16_smem(n_fft: int) -> int:
-    """Shared memory of a K3′ bf16 CTA (mirrors ``csrc/stft_fused.cu::
-    bf16_smem``): 8 warps' rings of 4 k16 steps of B fragments (1 KB each),
-    the tile's 1024 resident taps in bf16 (rows of 1032), the magnitudes of
-    its half of the 128-bin windows (rows of 136) and the full magnitude rows
-    of its 8 mel frames."""
+def _fft_scratch(n_fft: int, groups: int, frames: int, fr: int, device):
+    """(slots, scratch) of a launch: the device-memory buffers of the scratch
+    mode (fr = 0, two transforms a block), else (0, None)."""
+    if fr:
+        return 0, None
+    n = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    slots = scratch_slots(groups, frames, sm_count(device.index))
+    return slots, torch.empty(groups * slots * 2 * n * 2, device=device, dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def check_fft_size(cfg: AudioConfig) -> int:
+    """Shared memory of a one-frame block of the FFT kernels (K3, K3′ float32,
+    K3″) for ``cfg``, or 0 when the transform runs on a device-memory
+    scratch instead (past ``MAX_FFT_SIZE``). Raises ValueError only on a
+    config no STFT takes (hop must divide n_fft)."""
+    if cfg.n_fft < 2 or cfg.hop_length < 1 or cfg.n_fft % cfg.hop_length:
+        raise ValueError(f"STFT kernels: hop_length {cfg.hop_length} must divide "
+                         f"n_fft {cfg.n_fft}")
+    smem = mixed_fft_smem(cfg.n_fft, 1)
+    return smem if smem <= _MAX_SMEM else 0
+
+
+BF16_TILE = 16                # frames a K3′ bf16 tile (one m16 row tile of mma.sync)
+BF16_CLUSTERS = (2, 4, 8)     # CTAs a tile's cluster, each 1/cw of its 128-bin windows
+
+
+def bf16_smem(n_fft: int, cw: int = 2) -> int:
+    """Shared memory of a K3′ bf16 CTA in clusters of ``cw`` (mirrors
+    ``csrc/stft_fused.cu::bf16_smem``): 8 warps' rings of 4 k16 steps of B
+    fragments (1 KB each), the tile's 1024 resident taps in bf16 (rows of
+    1032), the magnitudes of its 1/cw of the 128-bin windows (rows of 136)
+    and the full magnitude rows of its 16 / cw mel frames."""
     windows = -(-(n_fft // 2 + 1) // FREQ_TILE)
     return (8 * 4 * 1024 + 2 * BF16_TILE * 1032
-            + 4 * -(-windows // BF16_CLUSTER) * BF16_TILE * 136
-            + 4 * (BF16_TILE // BF16_CLUSTER) * windows * FREQ_TILE)
+            + 4 * -(-windows // cw) * BF16_TILE * 136
+            + 4 * -(-BF16_TILE // cw) * windows * FREQ_TILE)
 
 
-def check_bf16_size(n_fft: int) -> None:
-    """ValueError, naming n_fft, when the bf16 CTA does not fit one block
-    (past n_fft 4863: 19 windows)."""
-    if bf16_smem(n_fft) > _MAX_SMEM:
-        raise ValueError(f"stft_features_fused: bf16_bases at n_fft {n_fft} needs "
-                         f"{bf16_smem(n_fft)} bytes of shared memory, more than one block has")
+def bf16_cluster(n_fft: int) -> int:
+    """The bf16 cluster width for ``n_fft``: the narrowest of
+    ``BF16_CLUSTERS`` whose CTA fits one block (2 up to n_fft 4863, 4 up to
+    9727, 8 up to 19711); ValueError naming n_fft past that."""
+    for cw in BF16_CLUSTERS:
+        if bf16_smem(n_fft, cw) <= _MAX_SMEM:
+            return cw
+    raise ValueError(f"stft_features_fused: bf16_bases at n_fft {n_fft} needs "
+                     f"{bf16_smem(n_fft, BF16_CLUSTERS[-1])} bytes of shared memory at "
+                     f"clusters of {BF16_CLUSTERS[-1]}, more than one block has")
 
-
-@functools.lru_cache(maxsize=4)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=16)
@@ -360,7 +357,7 @@ def _live_features(frames: torch.Tensor, cfg: AudioConfig, bases, normalize_line
     """(..., n_live) frames' live taps -> (mel, linear): two products against
     the window-baked bases, the magnitude, the mel product, dB."""
     nf = cfg.num_freq
-    cos_b, sin_b = bases["cos"][:, :nf], bases["sin"][:, :nf]
+    cos_b, sin_b = dft_bases(cfg, str(frames.device))
     if bf16_bases:
         frames, cos_b, sin_b = _bf16(frames), _bf16(cos_b), _bf16(sin_b)
     re = frames @ cos_b
@@ -415,73 +412,72 @@ def _wav_launch_args(wav: torch.Tensor, cfg: AudioConfig, bases, name: str, tabl
     return wav, bases, mel, lin
 
 
-def stft_features(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
-                  normalize_linear: bool = True) -> Features:
-    """K3: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. On the card n_fft must be a power of two (``check_fft_size``
-    raises otherwise and names the ``"fused"`` route, K3′). ``bases`` (from
-    ``stft_bases``) may be passed to reuse the device copies."""
-    if wav.device.type == "cpu":
-        return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear)
-    check_fft_size(cfg)
-    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features", _FFT_TABLES)
+def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConfig, bases,
+                normalize_linear: bool, bf16_bases: bool = False) -> Features:
+    """One launch of K3 or K3′ (``kernel``) on a CUDA wav: float32 through
+    the FFT (in shared memory, or on a device-memory scratch past
+    ``MAX_FFT_SIZE``), or K3′'s bf16 bases on clusters of
+    ``bf16_cluster(n_fft)`` CTAs."""
+    cw = bf16_cluster(cfg.n_fft) if bf16_bases else 0    # the size limit, before any table
+    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, name, _FFT_TABLES)
     b, total = wav.shape
     if b == 0:
         return mel, lin
     if b > 65535:
-        raise ValueError(f"stft_features: batch {b} > 65535")
+        raise ValueError(f"{name}: batch {b} > 65535")
+    t = mel.shape[1]
+    slots, scratch, frags = 0, None, (None, None)
+    if bf16_bases:
+        fr, (bcos, bsin) = BF16_TILE, _bf16_fragments(cfg, str(wav.device))
+        frags = (ptr(bcos), ptr(bsin))
+    else:
+        fr = fft_frames_per_block(cfg.n_fft, b, t, sm_count(wav.device.index))
+        slots, scratch = _fft_scratch(cfg.n_fft, b, t, fr, wav.device)
+    radix, stages = _radix_arg(cfg.n_fft)
     j0, _, n_live = live_tap_span(cfg)
-    KERNEL(ptr(wav), ptr(bases["fft_twiddle"]), ptr(bases["fft_window"]),
-           ptr(bases["mel_lo"]), ptr(bases["mel_off"]), ptr(bases["mel_w"]),
-           ptr(mel), ptr(lin), b, total, mel.shape[1], cfg.hop_length,
-           j0 * cfg.hop_length, n_live, cfg.n_fft, cfg.num_mels,
-           *_norm_args(cfg, normalize_linear), stream_ptr(wav.device))
+    tables = [ptr(bases[k]) for k in _FFT_TABLES]
+    sizes = [ptr(mel), ptr(lin), b, total, t, cfg.hop_length, j0 * cfg.hop_length, n_live,
+             cfg.n_fft, cfg.num_mels, fr, slots, radix, stages,
+             *_norm_args(cfg, normalize_linear)]
+    if kernel is FUSED_KERNEL:
+        kernel(ptr(wav), *tables, *frags, *sizes, int(bf16_bases), cw, ptr(scratch),
+               stream_ptr(wav.device))
+    else:
+        kernel(ptr(wav), *tables, *sizes, ptr(scratch), stream_ptr(wav.device))
     return mel, lin
+
+
+def stft_features(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
+                  normalize_linear: bool = True) -> Features:
+    """K3: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors, for any hop | n_fft. ``bases`` (from ``stft_bases``) may be
+    passed to reuse the device copies."""
+    if wav.device.type == "cpu":
+        return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear)
+    return _launch_wav(KERNEL, "stft_features", wav, cfg, bases, normalize_linear)
 
 
 def stft_features_fused(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
                         normalize_linear: bool = True, bf16_bases: bool = False
                         ) -> Features:
-    """K3′: K3's function for any hop | n_fft up to ``MAX_FFT_SIZE``, through
-    the mixed-radix FFT. ``bf16_bases`` rounds the frames and the
+    """K3′: K3's function for any hop | n_fft through K3's kernel, with its
+    own launcher and counter. ``bf16_bases`` rounds the frames and the
     window-baked cos/sin bases to bfloat16 and sums their products in float32
-    on the tensor cores (the mel stays float32). The kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    on the tensor cores (the mel stays float32; n_fft up to 19711). The
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     if wav.device.type == "cpu":
         return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear,
                                    bf16_bases=bf16_bases)
-    if bf16_bases:                                     # the size limits, before any table
-        check_bf16_size(cfg.n_fft)
-    else:
-        fft_frames_per_block(cfg.n_fft, 1, 1, 1)
-    wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, "stft_features_fused", _FFT_TABLES)
-    b, total = wav.shape
-    if b == 0:
-        return mel, lin
-    if b > 65535:
-        raise ValueError(f"stft_features_fused: batch {b} > 65535")
-    t = mel.shape[1]
-    if bf16_bases:
-        fr, (bcos, bsin) = BF16_TILE, _bf16_fragments(cfg, str(wav.device))
-        frags = (ptr(bcos), ptr(bsin))
-    else:
-        fr = fft_frames_per_block(cfg.n_fft, b, t, _sm_count(wav.device.index))
-        frags = (None, None)
-    radix, stages = _radix_arg(cfg.n_fft)
-    j0, _, n_live = live_tap_span(cfg)
-    FUSED_KERNEL(ptr(wav), ptr(bases["fft_twiddle"]), ptr(bases["fft_window"]),
-                 ptr(bases["mel_lo"]), ptr(bases["mel_off"]), ptr(bases["mel_w"]), *frags,
-                 ptr(mel), ptr(lin), b, total, t, cfg.hop_length, j0 * cfg.hop_length,
-                 n_live, cfg.n_fft, cfg.num_mels, fr, radix, stages,
-                 *_norm_args(cfg, normalize_linear), int(bf16_bases), stream_ptr(wav.device))
-    return mel, lin
+    return _launch_wav(FUSED_KERNEL, "stft_features_fused", wav, cfg, bases,
+                       normalize_linear, bf16_bases)
 
 
 def stft_features_frames(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
                          normalize_linear: bool = True) -> Features:
     """K3″: (F, n_fft) raw (un-windowed) frames -> (mel (F, M), linear
-    (F, NF)), through the mixed-radix FFT (n_fft up to ``MAX_FFT_SIZE``).
-    The kernel for CUDA tensors, the plain version for CPU tensors."""
+    (F, NF)), through the mixed-radix FFT (in shared memory, or on a
+    device-memory scratch past ``MAX_FFT_SIZE``). The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if frames.dim() != 2 or frames.shape[1] != cfg.n_fft:
         raise ValueError(f"stft_features_frames: expected (F, {cfg.n_fft}) frames, "
                          f"got shape {tuple(frames.shape)}")
@@ -489,7 +485,7 @@ def stft_features_frames(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
         return stft_features_frames_plain(frames, cfg, bases,
                                           normalize_linear=normalize_linear)
     n = frames.shape[0]
-    fft_frames_per_block(cfg.n_fft, 1, 1, 1)          # the size limit, before any table
+    check_fft_size(cfg)
     bases = bases or stft_bases(cfg, frames.device)
     frames = frames.to(torch.float32).contiguous()
     check_cuda("stft_features_frames", frames, *(bases[k] for k in _FFT_TABLES))
@@ -497,14 +493,15 @@ def stft_features_frames(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
     lin = torch.empty(n, cfg.num_freq, device=frames.device, dtype=torch.float32)
     if n == 0:
         return mel, lin
-    fr = fft_frames_per_block(cfg.n_fft, 1, n, _sm_count(frames.device.index))
+    fr = fft_frames_per_block(cfg.n_fft, 1, n, sm_count(frames.device.index))
+    slots, scratch = _fft_scratch(cfg.n_fft, 1, n, fr, frames.device)
     radix, stages = _radix_arg(cfg.n_fft)
     j0, _, n_live = live_tap_span(cfg)
     FRAMES_KERNEL(ptr(frames), ptr(bases["fft_twiddle"]), ptr(bases["fft_window"]),
                   ptr(bases["mel_lo"]), ptr(bases["mel_off"]), ptr(bases["mel_w"]),
                   ptr(mel), ptr(lin), n, cfg.n_fft, j0 * cfg.hop_length, n_live,
-                  cfg.num_mels, fr, radix, stages, *_norm_args(cfg, normalize_linear),
-                  stream_ptr(frames.device))
+                  cfg.num_mels, fr, slots, radix, stages, *_norm_args(cfg, normalize_linear),
+                  ptr(scratch), stream_ptr(frames.device))
     return mel, lin
 
 

@@ -10,21 +10,29 @@ int32. ``greedy`` takes the argmax; otherwise Gumbel-max over
 ``logits / temperature`` with noise from the Philox stream
 ``gumbel_uniforms``, which the kernel draws too. That stream is not
 jax.random's: sampled classes match the JAX package in distribution only.
+
+The kernel hoists the input product out of its loop (``input_tables``:
+embed @ wi + bi and cond @ wi once a call, a row of each a sample); the
+plain version keeps the JAX kernel's un-hoisted step and is the oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-from .build import F, I, P, U64, CudaKernel, check_cuda, ptr, stream_ptr
+from .build import F, I, P, U64, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
 from .gru import gru_scan_plain, gru_update
 from .philox import STREAM_GUMBEL, stream_uniforms
 
 KERNEL = CudaKernel("wavernn_sample.cu", "wavernn_sample_launch",
-                    [P, P, P, P, I, U64, F, I, P])
+                    [P, P, P, P, P, P, P, P, P, I, I, I, I, U64, F, I, P])
+# rows a launch and the prologue GEMM's tile (the kernel's WR_ROWS and
+# WR_GEMM_TILE)
+LAUNCH_ROWS, GEMM_TILE = 32, 64
+_MAX_SMEM = 232448
 
 # order of the kernel's WaveWeights struct
 _WEIGHT_ORDER = ("embed", "wi", "bi", "wh", "bh", "fc1", "fb1", "fc2", "fb2")
@@ -45,6 +53,35 @@ def pack_wavernn_weights(model) -> Dict[str, torch.Tensor]:
                       fc1=model.fc1.kernel, fb1=model.fc1.bias,
                       fc2=model.fc2.kernel, fb2=model.fc2.bias)
         return {k: v.detach().to(torch.float32).contiguous() for k, v in packed.items()}
+
+
+def input_tables(packed: Dict[str, torch.Tensor], cond: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's hoisted input product, in plain PyTorch: (embed @ wi + bi
+    (K, 3H), cond @ wi (B, T, 3H)). Sample s of row b then takes
+    ``table[prev] + cond_table[b, s // hop]`` where the un-hoisted step takes
+    ``(embed[prev] + cond[b, s // hop]) @ wi + bi``: the same sum, rounded
+    in another order."""
+    w = packed
+    return w["embed"] @ w["wi"] + w["bi"], cond @ w["wi"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def sample_smem(c: int, h: int, f: int, k: int, grid: int) -> int:
+    """Shared memory of a K5 CTA on ``grid`` CTAs (mirrors
+    ``csrc/wavernn_sample.cu::wave_smem_floats``): the state and ReLU(fc1) of
+    32 rows (rows of H and F rounded up to 128, plus 4), the CTA's slices of
+    wh, fc1 and fc2, of embed @ wi + bi, of this frame's cond @ wi and of
+    the recurrent gates, the scores, the biases and the classes, in bytes."""
+    nu, nf, nk = -(-h // grid), -(-f // grid), 4 * -(-k // (4 * grid))
+    hs, fs = _round_up(h, 128) + 4, _round_up(f, 128) + 4
+    na, nf4 = _round_up(3 * nu, 4), _round_up(nf, 4)
+    floats = (LAUNCH_ROWS * (hs + fs) + na * hs + nf4 * hs + nk * fs + k * na
+              + 2 * LAUNCH_ROWS * na + LAUNCH_ROWS * nk + na + nf4 + nk + LAUNCH_ROWS)
+    return 4 * max(floats, 16 * (2 * GEMM_TILE + 4))
 
 
 def gumbel_uniforms(seed: int, steps, batch: int, num_classes: int):
@@ -145,15 +182,26 @@ def wavernn_sample(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
     cond = cond.contiguous()
     ws = [w[name] for name in _WEIGHT_ORDER]
     check_cuda("wavernn_sample", cond, *ws)
-    if any(x.data_ptr() % 16 for x in ws):
-        raise ValueError("wavernn_sample: weights must start on 16-byte boundaries "
-                         "(the kernel reads float4 columns)")
     classes = torch.empty(b, t * hop, dtype=torch.int32, device=cond.device)
     if b == 0 or t == 0:
         return classes
-    dims = [t, hop, c, hdim, f, k]
+    grid = sm_count(cond.device.index)
+    smem = sample_smem(c, hdim, f, k, grid)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"wavernn_sample: C={c}, H={hdim}, F={f}, K={k} need {smem} bytes "
+                         "of shared memory a CTA, more than one block has")
+    dev = cond.device
+    dims = (ctypes.c_int * 6)(t, hop, c, hdim, f, k)
     wptrs = (ctypes.c_void_p * len(ws))(*[x.data_ptr() for x in ws])
-    dptrs = (ctypes.c_int * len(dims))(*dims)
-    KERNEL(ptr(cond), wptrs, dptrs, ptr(classes), b, seed & 0xFFFFFFFFFFFFFFFF,
-           float(temperature), int(greedy), stream_ptr(cond.device))
+    for b0 in range(0, b, LAUNCH_ROWS):
+        rows = min(LAUNCH_ROWS, b - b0)
+        table = torch.empty(k + rows * t, 3 * hdim, device=dev, dtype=torch.float32)
+        hg = torch.zeros(rows, _round_up(hdim, 4), device=dev, dtype=torch.float32)
+        fg = torch.zeros(rows, _round_up(f, 4), device=dev, dtype=torch.float32)
+        keys = torch.zeros(3, LAUNCH_ROWS, device=dev, dtype=torch.int64)
+        count = torch.zeros(1, device=dev, dtype=torch.int32)
+        KERNEL(ptr(cond[b0:]), wptrs, dims, ptr(table), ptr(hg), ptr(fg), ptr(keys), ptr(count),
+               ptr(classes[b0:]), rows, b0, t * hop, grid, seed & 0xFFFFFFFFFFFFFFFF,
+               float(temperature), int(greedy), stream_ptr(dev))
     return classes
+

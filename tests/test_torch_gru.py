@@ -59,6 +59,27 @@ def test_plain_matches_flax_scan_and_pallas(reverse, with_lengths):
         np.testing.assert_allclose(fin.numpy(), np.asarray(ref[1]), atol=1e-5)
 
 
+@pytest.mark.parametrize("h,reverse", [(256, False), (256, True), (300, False)])
+def test_plain_matches_pallas_past_h_128(h, reverse):
+    """H = 256 (K1's 16-weights-a-lane form on the card) and 300 (its
+    streamed form): the port's scan against ``gru_scan_pallas`` in interpret
+    mode, which takes any H, at test_gru_pallas.py's 1e-5."""
+    p, xs, lengths = make(b=2, t=5, d=6, h=h, seed=h)
+    p = {k: v * np.float32(0.5) for k, v in p.items()}   # keep the gates off saturation
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    ys_k, fin_k = gru_scan_pallas(
+        jnp.asarray(xs), jnp.zeros((xs.shape[0], h)), jp["kernel"], jp["bias"],
+        jp["recurrent_kernel"], jp["recurrent_bias"], lengths=jnp.asarray(lengths),
+        reverse=reverse, interpret=True)
+    ys, fin = tgru.gru_scan(
+        t32(xs), torch.zeros(xs.shape[0], h), t32(p["kernel"]), t32(p["bias"]),
+        t32(p["recurrent_kernel"]), t32(p["recurrent_bias"]),
+        lengths=torch.from_numpy(lengths), reverse=reverse)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_k), atol=1e-5)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(fin_k), atol=1e-5)
+    assert tgru.launch_plan(2, h)["ks"] == (16 if h <= 256 else 0)
+
+
 @pytest.mark.parametrize("with_lengths", [True, False])
 def test_bigru_scan_matches_two_pallas_scans(with_lengths):
     """``bigru_scan`` (both directions, one kernel launch on the card) on the

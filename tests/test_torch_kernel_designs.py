@@ -2,21 +2,24 @@
 K3′'s bf16 bases on tensor cores) and K1 (GRU scan on thread-block
 clusters), checked on the CPU without a card:
 
-- a numpy emulation of K3's FFT schedule (``csrc/fft.cuh``: the same
-  twiddle table, Stockham index maps, first stage formed from the live taps,
-  real split step) against ``np.fft.rfft`` of the windowed frame in float64,
+- the STFT kernels' host tables: float64 twiddles rounded once, the live
+  window taps, and the sparse mel, which rebuilds the dense basis exactly
+  and whose ascending sum gives the dense loop's bits;
+- the FFT kernels' n_fft check (every hop | n_fft) and K1's launch plan for
+  every GRU of every config and of the golden fixtures, for any H, and the
+  shapes it refuses;
+- the mixed-radix FFT of K3, K3′ and K3″ (``csrc/fft.cuh::fft_mixed``): a
+  numpy emulation of the plan, table, index maps, butterflies and split (or
+  unpacked) read against ``np.fft.rfft`` of the windowed frame in float64,
   to 1e-6 of the frame's largest bin (float32 arithmetic, as on the card);
-- K3's host tables: float64 twiddles rounded once, the live window taps,
-  and the sparse mel, which rebuilds the dense basis exactly and whose
-  ascending sum gives the dense loop's bits;
-- K3's n_fft check and K1's launch plan for every GRU of every config and of
-  the golden fixtures, and the shapes each refuses;
-- K3′'s and K3″'s mixed-radix FFT (``csrc/fft.cuh::fft_mixed``): a numpy
-  emulation of the plan, table, index maps, butterflies and split (or
-  unpacked) read against ``np.fft.rfft`` in float64, ``fft_plan`` against
-  K3's table, the frames a block and the size limit;
+  ``fft_plan``'s table, the frames a block and the scratch mode past the
+  shared-memory size;
 - K3′'s bf16 tile: the ldmatrix and ``mma.sync.m16n8k16`` fragment index
-  maps over ``mma_b_fragments`` against a plain product.
+  maps over ``mma_b_fragments`` against a plain product, and its cluster
+  width by n_fft;
+- K2's layer kernels: ``layer_plan``'s grids at the main shape, and a numpy
+  emulation of a layer's tiles (pixel slots, k parts, SAME padding, the
+  length mask) against the plain stack.
 """
 
 from pathlib import Path
@@ -31,6 +34,7 @@ from gst_tacotron_tpu_torch.dsp.ref import padded_window
 from gst_tacotron_tpu_torch.models.rnn import GRU
 from gst_tacotron_tpu_torch.models.tacotron import GSTTacotron
 from gst_tacotron_tpu_torch.ops import gru as tgru
+from gst_tacotron_tpu_torch.ops import refenc as trefenc
 from gst_tacotron_tpu_torch.ops import stft as tstft
 from gst_tacotron_tpu_torch.text.symbols import NUM_SYMBOLS
 
@@ -47,66 +51,35 @@ def _c64(table):
     return (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
 
 
-def emulate_k3_fft(live: np.ndarray, window: np.ndarray, n_fft: int,
-                   twiddle: np.ndarray) -> np.ndarray:
-    """K3's bins of (F, n_live) live-tap frames, in float32 as the kernel
-    computes them: z[m] = x[2m] + i x[2m+1] of the windowed, rotated taps,
-    radix-4 Stockham stages (one radix-2 last when log2 n is odd), split."""
+def pow2_table(n_fft: int) -> np.ndarray:
+    """The FFT table at a power-of-two n_fft, written out: radix 4 while it
+    fits, then one radix 2, each stage's exp(-2 pi i k q / (R p)) q-major,
+    then the split twiddles exp(-2 pi i k / n_fft), k = 0..n_fft/2."""
     n = n_fft // 2
-    x = np.zeros((live.shape[0], n_fft), np.float32)
-    x[:, :live.shape[1]] = live * window
-    z = (x[:, 0::2] + 1j * x[:, 1::2]).astype(np.complex64)
-
-    def stage4(x, p, tw):
-        q = n >> 2
-        i = np.arange(q)
-        k = i & (p - 1)
-        u0, u1, u2, u3 = (x[:, i + j * q] for j in range(4))
-        if p > 1:
-            u1, u2, u3 = u1 * tw[k], u2 * tw[p + k], u3 * tw[2 * p + k]
-        v0, v1, v2, d = u0 + u2, u0 - u2, u1 + u3, u1 - u3
-        v3 = (d.imag - 1j * d.real).astype(np.complex64)          # -i (u1 - u3)
-        j = ((i - k) << 2) + k
-        y = np.empty_like(x)
-        y[:, j], y[:, j + p], y[:, j + 2 * p], y[:, j + 3 * p] = (
-            v0 + v2, v1 + v3, v0 - v2, v1 - v3)
-        return y
-
-    def stage2(x, p, tw):
-        q = n >> 1
-        i = np.arange(q)
-        k = i & (p - 1)
-        u0, u1 = x[:, i], x[:, i + q] * tw[k]
-        j = ((i - k) << 1) + k
-        y = np.empty_like(x)
-        y[:, j], y[:, j + p] = u0 + u1, u0 - u1
-        return y
-
-    z = stage4(z, 1, twiddle)
-    tw, p = twiddle[3:], 4
+    want, p = [], 1
     while 4 * p <= n:
-        z = stage4(z, p, tw)
-        tw, p = tw[3 * p:], p * 4
+        want += [np.exp(-2j * np.pi * k * q / (4 * p)) for q in (1, 2, 3) for k in range(p)]
+        p *= 4
     if p < n:
-        z = stage2(z, p, tw)
-    split = twiddle[n - 1:]
-    k = np.arange(n + 1)
-    a, c = z[:, k & (n - 1)], z[:, (n - k) & (n - 1)]
-    ev = (0.5 * (a.real + c.real) + 0.5j * (a.imag - c.imag)).astype(np.complex64)
-    od = (0.5 * (a.imag + c.imag) - 0.5j * (a.real - c.real)).astype(np.complex64)
-    return ev + split[k] * od
+        want += [np.exp(-1j * np.pi * k / p) for k in range(p)]
+    assert len(want) == n - 1
+    return np.array(want + [np.exp(-2j * np.pi * k / n_fft) for k in range(n + 1)])
 
 
 @pytest.mark.parametrize("kw", FFT_CONFIGS, ids=lambda kw: f"{kw['n_fft']}-{kw['win_length']}")
 def test_fft_schedule_emulation_matches_rfft(kw):
+    """K3's power-of-two configs through the mixed-radix emulation (radix 4,
+    one radix 2 last when log2 n is odd)."""
     cfg = AudioConfig(**kw)
     j0, _, n_live = tstft.live_tap_span(cfg)
     n0 = j0 * cfg.hop_length
     tables = tstft.stft_bases(cfg, "cpu")
+    radices, _ = tstft.fft_plan(cfg.n_fft)
+    assert set(radices) <= {2, 4}
     rng = np.random.default_rng(kw["n_fft"] + kw["win_length"])
     frames = rng.uniform(-1, 1, (8, cfg.n_fft)).astype(np.float32)
-    got = emulate_k3_fft(frames[:, n0:n0 + n_live], tables["fft_window"].numpy(), cfg.n_fft,
-                         _c64(tables["fft_twiddle"].numpy()))
+    got = emulate_mixed_fft(frames[:, n0:n0 + n_live], tables["fft_window"].numpy(),
+                            cfg.n_fft, radices, _c64(tables["fft_twiddle"].numpy()))
     ref = np.fft.rfft(frames.astype(np.float64) * padded_window(cfg.win_length, cfg.n_fft),
                       axis=-1)
     # the taps were rotated by n0 to the start of the frame: a phase per bin
@@ -118,20 +91,12 @@ def test_fft_schedule_emulation_matches_rfft(kw):
 
 @pytest.mark.parametrize("n_fft", [8, 16, 512, 1024, 2048, 4096])
 def test_fft_twiddle_table(n_fft):
-    """n_fft entries: the stages' exp(-2 pi i k q / (R p)), q-major, then the
-    split twiddles; each is its float64 value rounded once to float32."""
-    n = n_fft // 2
-    want, p = [], 1
-    while 4 * p <= n:
-        want += [np.exp(-2j * np.pi * k * q / (4 * p)) for q in (1, 2, 3) for k in range(p)]
-        p *= 4
-    if p < n:
-        want += [np.exp(-1j * np.pi * k / p) for k in range(p)]
-    assert len(want) == n - 1
-    want += [np.exp(-2j * np.pi * k / n_fft) for k in range(n + 1)]
-    tw = tstft.fft_twiddles(n_fft)
+    """n_fft entries at a power of two: the stages' exp(-2 pi i k q / (R p)),
+    q-major, then the split twiddles; each is its float64 value rounded once
+    to float32."""
+    _, tw = tstft.fft_plan(n_fft)
     assert tw.shape == (n_fft,)
-    np.testing.assert_allclose(tw, np.array(want), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(tw, pow2_table(n_fft), rtol=0, atol=1e-15)
     cfg = AudioConfig(n_fft=n_fft, hop_length=n_fft // 4, win_length=n_fft)
     table = tstft.stft_bases(cfg, "cpu")["fft_twiddle"].numpy()
     assert table.dtype == np.float32
@@ -207,14 +172,22 @@ def test_sparse_mel_sum_is_the_dense_sum(kw):
 def test_fft_size_check_takes_powers_of_two(n_fft):
     cfg = AudioConfig(n_fft=n_fft, hop_length=max(1, n_fft // 4), win_length=n_fft)
     smem = tstft.check_fft_size(cfg)
-    assert 0 < smem <= 232448
+    assert smem == tstft.mixed_fft_smem(n_fft, 1) and 0 < smem <= 232448
 
 
 @pytest.mark.parametrize("n_fft,hop,win", [(1536, 256, 1024), (1000, 250, 1000),
                                            (4, 1, 4), (8192, 256, 8192)])
 def test_fft_size_check_names_the_fused_route(n_fft, hop, win):
-    with pytest.raises(ValueError, match='"fused"'):
-        tstft.check_fft_size(AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win))
+    """K3 once refused these (not powers of two, or too large for its
+    buffers) and named the "fused" route; on the mixed-radix FFT it takes
+    every hop | n_fft: a one-frame block of shared memory, or 0 (the
+    device-memory scratch) past MAX_FFT_SIZE."""
+    cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+    assert tstft.check_fft_size(cfg) == tstft.mixed_fft_smem(n_fft, 1)
+    big = AudioConfig(n_fft=32768, hop_length=256, win_length=2048)
+    assert tstft.check_fft_size(big) == 0
+    with pytest.raises(ValueError, match="must divide"):
+        tstft.check_fft_size(AudioConfig(n_fft=n_fft, hop_length=n_fft - 1, win_length=win))
 
 
 def _gru_shapes(cfg):
@@ -234,14 +207,26 @@ CONFIG_FILES = sorted(str(p.relative_to(REPO)) for p in
 
 
 def _check_plan(plan, b, h):
+    """The register form up to H = 256 (8 weights a lane a gate up to H =
+    128, 16 past it), the streamed form past it; both fit shared memory."""
     assert 1 <= plan["cluster"] <= 8 and plan["cluster"] * plan["units"] >= h
     assert plan["units"] == -(-h // plan["cluster"])
-    s = plan["slices"]
-    assert s & (s - 1) == 0 and 4 <= s <= 16 and s * tgru.SLICE_LEN >= h
-    assert plan["threads"] % 32 == 0 and plan["units"] * s <= plan["threads"] <= 256
-    assert plan["rows"] == tgru.ROWS and plan["clusters"] * plan["rows"] >= b
-    assert plan["clusters"] == -(-b // plan["rows"])
-    assert plan["smem"] == 4 * 2 * plan["rows"] * s * tgru.SLICE_LEN + 16
+    assert plan["clusters"] * plan["rows"] >= b and plan["clusters"] == -(-b // plan["rows"])
+    assert 0 < plan["smem"] <= 232448
+    if h <= 256:
+        ks, s = plan["ks"], plan["slices"]
+        assert ks == (8 if h <= 128 else 16) and plan["kp"] == 0
+        assert s & (s - 1) == 0 and 4 <= s <= 16 and s * ks >= h
+        assert plan["threads"] % 32 == 0 and plan["units"] * s <= plan["threads"] <= 32 * ks
+        assert plan["rows"] == tgru.ROWS
+        assert plan["smem"] == 4 * 2 * plan["rows"] * s * ks + 16
+    else:
+        assert plan["ks"] == 0 and plan["threads"] == tgru.STREAM_THREADS
+        groups = -(-plan["units"] // 32)
+        assert plan["kp"] == max(1, 8 // groups) and plan["kp"] * min(groups, 8) <= 8
+        assert plan["rows"] in (4, 2, 1)
+        floats = 2 * plan["rows"] * h + plan["kp"] * plan["rows"] * 3 * plan["units"]
+        assert plan["smem"] == 4 * (floats + floats % 2) + 16
 
 
 @pytest.mark.parametrize("path", CONFIG_FILES)
@@ -271,8 +256,25 @@ def test_gru_launch_plan_odd_shapes(b, h):
 
 @pytest.mark.parametrize("b,h", [(1, 129), (4, 512), (1, 0), (2 * 65536, 128)])
 def test_gru_launch_plan_refuses(b, h):
+    """H = 129 and 512, once refused (H > 128), now launch; H = 0 and a batch
+    past the grid still raise."""
+    if h > 0 and b < 65536:
+        _check_plan(tgru.launch_plan(b, h), b, h)
+        return
     with pytest.raises(ValueError, match="gru_scan"):
         tgru.launch_plan(b, h)
+
+
+@pytest.mark.parametrize("b,h", [(32, 256), (3, 200), (32, 257), (5, 1000), (2, 4096),
+                                 (1, 24465), (7, 9000)])
+def test_gru_launch_plan_takes_any_h(b, h):
+    """The register form at H = 200 and 256 (16 weights a lane), the streamed
+    form past 256, with fewer rows a cluster once four rows' state fills
+    shared memory; past H = 24465 even one row's does not."""
+    _check_plan(tgru.launch_plan(b, h), b, h)
+    if h == 24465:
+        with pytest.raises(ValueError, match="shared memory"):
+            tgru.launch_plan(b, h + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -398,9 +400,11 @@ def test_generic_stage_threads_cover_each_output_once(n, count, p, r):
 
 @pytest.mark.parametrize("n_fft", [2 ** e for e in range(2, 15)])
 def test_fft_plan_is_k3s_table_at_powers_of_two(n_fft):
+    """At a power of two the plan is radix 4 with at most one radix 2, and its
+    table the power-of-two FFT's (so K3 keeps its bits at n_fft 2048)."""
     radices, table = tstft.fft_plan(n_fft)
     assert set(radices) <= {2, 4} and radices.count(2) <= 1
-    np.testing.assert_array_equal(table, tstft.fft_twiddles(n_fft))
+    np.testing.assert_allclose(table, pow2_table(n_fft), rtol=0, atol=1e-15)
 
 
 @pytest.mark.parametrize("n_fft,radices", [(1200, (4, 2, 3, 5, 5)), (1536, (4, 4, 4, 4, 3)),
@@ -427,8 +431,8 @@ def test_fft_plan_tables(n_fft, radices):
 def test_fft_frames_per_block_and_size_limit():
     """2 frames a block at the main path's 1024 frames, 1 for a short
     KernelDSP call, 4 for long inputs, so the grid gives each SM two blocks;
-    n_fft up to 29056 (even), 14527 (odd): beyond, ValueError naming the
-    size."""
+    n_fft up to 29056 (even), 14527 (odd) in shared memory: beyond, 0 frames
+    (the device-memory scratch, two blocks an SM, at most one a frame)."""
     fpb = tstft.fft_frames_per_block
     assert fpb(2048, 1, 1024, 132) == 2
     assert fpb(2048, 8, 128, 132) == 2
@@ -440,9 +444,11 @@ def test_fft_frames_per_block_and_size_limit():
     for n_fft in (16384, 29056, 14527, 1575):
         assert tstft.mixed_fft_smem(n_fft, fpb(n_fft, 1, 4096, 132)) <= 232448
     for n_fft in (29058, 32768, 14529):
-        with pytest.raises(ValueError, match=f"n_fft {n_fft}"):
-            fpb(n_fft, 1, 1024, 132)
+        assert fpb(n_fft, 1, 1024, 132) == 0
     assert tstft.MAX_FFT_SIZE == {"even": 29056, "odd": 14527}
+    assert tstft.scratch_slots(8, 128, 132) == 33
+    assert tstft.scratch_slots(1, 1024, 132) == 264
+    assert tstft.scratch_slots(64, 3, 132) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -514,18 +520,22 @@ def test_bf16_tile_fragment_maps(n_live, nfp):
 
 
 def test_bf16_launch_plan():
-    """16-frame tiles over a fixed cluster of 2 CTAs, each half of the
-    128-bin windows: the CTA's shared memory fits up to n_fft 4863 (19
-    windows); past it, ValueError naming the size. The fragment tables are
-    not among ``stft_bases``: the first bf16 call builds them."""
-    assert (tstft.BF16_TILE, tstft.BF16_CLUSTER) == (16, 2)
+    """16-frame tiles over clusters of 2 CTAs, each half of the 128-bin
+    windows, while the CTA's shared memory fits (up to n_fft 4863, 19
+    windows); then 4 and 8 CTAs, each holding fewer windows (n_fft 4864,
+    8192 and 19711, which a cluster of 2 once refused, now run); past 19711,
+    ValueError naming the size. The fragment tables are not among
+    ``stft_bases``: the first bf16 call builds them."""
+    assert (tstft.BF16_TILE, tstft.BF16_CLUSTERS) == (16, (2, 4, 8))
     for n_fft in (400, 1024, 1536, 1575, 2048, 4096, 4863):
-        tstft.check_bf16_size(n_fft)
+        assert tstft.bf16_cluster(n_fft) == 2
         assert tstft.bf16_smem(n_fft) <= 232448
     assert tstft.bf16_smem(2048) == 146176             # 9 windows
-    for n_fft in (4864, 8192, 19711):
-        with pytest.raises(ValueError, match=f"n_fft {n_fft}"):
-            tstft.check_bf16_size(n_fft)
+    for n_fft, cw in ((4864, 4), (6144, 4), (8192, 4), (9727, 4), (9728, 8), (19711, 8)):
+        assert tstft.bf16_cluster(n_fft) == cw
+        assert tstft.bf16_smem(n_fft, cw) <= 232448 < tstft.bf16_smem(n_fft, cw // 2)
+    with pytest.raises(ValueError, match="n_fft 19712"):
+        tstft.bf16_cluster(19712)
     cfg = AudioConfig(n_fft=512, hop_length=128, win_length=512)
     assert not any(k.startswith("bf16") for k in tstft.stft_bases(cfg, "cpu"))
     bcos, bsin = tstft._bf16_fragments(cfg, "cpu")
@@ -540,3 +550,95 @@ def test_bf16_fragments_use_torchs_rounding():
     bits = tstft.bf16_bits(x)
     back = (bits.astype(np.uint32) << 16).view(np.float32)
     np.testing.assert_array_equal(back, tstft._bf16(torch.from_numpy(x)).numpy())
+
+
+# ---------------------------------------------------------------------------
+# K2: one launch a layer
+# ---------------------------------------------------------------------------
+
+
+def test_refenc_layer_plan_spreads_each_layer():
+    """At the main shape every layer gives the 132 SMs two blocks each; the
+    late layers split their input-channel sums (ks) to get there."""
+    plan = trefenc.layer_plan(32, 128, 80, [32, 32, 64, 64, 128, 128], 132)
+    assert [p["blocks"] for p in plan] == [2560, 640, 320, 320, 384, 512]
+    assert [(p["ks"], p["px"]) for p in plan] == [(1, 4), (1, 4), (1, 4), (2, 2), (2, 1),
+                                                   (8, 1)]
+    assert [p["shape"] for p in plan][-1] == (2, 2, 128)
+    small = trefenc.layer_plan(1, 19, 16, [4, 4, 8], 132)
+    c_in = [1, 4, 4]
+    for p, c in zip(small, c_in):
+        assert trefenc.GROUPS % p["ks"] == 0 and p["ks"] <= c and p["px"] in (1, 2, 4)
+
+
+def emulate_refenc_layer(x, kern, scale, bias, lengths, ks, px):
+    """``refenc_layer_kernel``'s tiles over one layer, in float64: block bx
+    of utterance b and channel tile, warp g = (slot, k part), lane = output
+    channel; each (pixel, k part) partial sum over its input channels, the
+    parts added in order, then scale, bias, ReLU. Returns the output and a
+    count of writes per output."""
+    b, hi, wi, ci = x.shape
+    co = kern.shape[-1]
+    ho, wo = (hi + 1) // 2, (wi + 1) // 2
+    top, left = max(0, 2 * (ho - 1) + 3 - hi) // 2, max(0, 2 * (wo - 1) + 3 - wi) // 2
+    vec = 4 if ci % 4 == 0 else 1
+    slots, npix = trefenc.GROUPS // ks, ho * wo
+    cper = -(-(-(-ci // ks)) // vec) * vec
+    out = np.zeros((b, npix, co))
+    writes = np.zeros((b, npix), int)
+    for bb in range(b):
+        row_lim = min(hi, lengths[bb]) if lengths is not None else hi
+        for bx in range(-(-npix // (slots * px))):
+            for slot in range(slots):
+                for i in range(px):
+                    p = bx * slots * px + slot * px + i
+                    if p >= npix:
+                        continue
+                    oi, oq = divmod(p, wo)
+                    parts = []
+                    for kpart in range(ks):
+                        c0 = min(ci, kpart * cper)
+                        c1 = min(ci, c0 + cper)
+                        acc = np.zeros(co)
+                        for di in range(3):
+                            for dj in range(3):
+                                u, v = 2 * oi + di - top, 2 * oq + dj - left
+                                if 0 <= u < row_lim and 0 <= v < wi:
+                                    acc += x[bb, u, v, c0:c1] @ kern[di, dj, c0:c1]
+                        parts.append(acc)
+                    out[bb, p] = np.maximum(sum(parts) * scale + bias, 0.0)
+                    writes[bb, p] += 1
+    return out.reshape(b, ho, wo, co), writes
+
+
+@pytest.mark.parametrize("t,f,channels,lengths", [(19, 16, (4, 8, 8), (19, 7)),
+                                                  (24, 12, (8, 12, 16), None)])
+def test_refenc_layer_emulation_matches_plain(t, f, channels, lengths):
+    """Every layer of a small stack through the emulated tiles of its
+    ``layer_plan`` (several k parts and pixel counts): each output written
+    once, the plain stack's values to 1e-5."""
+    rng = np.random.default_rng(t)
+    x = rng.uniform(0, 1, (2, t, f, 1))
+    lens = None if lengths is None else np.array(lengths)
+    kerns, scales, biases, c_in = [], [], [], 1
+    for c in channels:
+        kerns.append(rng.uniform(-0.3, 0.3, (3, 3, c_in, c)))
+        scales.append(rng.uniform(0.5, 1.5, c))
+        biases.append(rng.normal(0, 0.1, c))
+        c_in = c
+    plan = trefenc.layer_plan(2, t, f, channels, 132)
+    splits = set()
+    act = x
+    for layer, (kern, sc, bi, p) in enumerate(zip(kerns, scales, biases, plan)):
+        for ks, px in {(p["ks"], p["px"]), (min(2, act.shape[-1]), 2)}:
+            got, writes = emulate_refenc_layer(act, kern, sc, bi,
+                                               lens if layer == 0 else None, ks, px)
+            assert np.all(writes == 1)
+            splits.add((ks, px))
+        act = got
+    t32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    ref = trefenc.refenc_stack_plain(
+        t32(x[..., 0]), [t32(k) for k in kerns], [t32(v) for v in scales],
+        [t32(v) for v in biases], lengths=None if lens is None else torch.from_numpy(lens))
+    np.testing.assert_allclose(act.reshape(ref.shape), ref.numpy(), atol=1e-5)
+    assert len(splits) > 1

@@ -48,8 +48,8 @@ def reference_wavs(sr, n=2):
 
 
 def both_configs(jcfg, tmp_path):
-    """The JAX config with float32 Griffin-Lim (as the port runs it) and the
-    port's copy of it, read back from the same JSON."""
+    """The JAX config with float32 Griffin-Lim and the port's copy of it,
+    read back from the same JSON (so both iterate in float32)."""
     jcfg = japply(jcfg, {"audio.griffin_lim_bf16": False})
     path = str(tmp_path / "config.json")
     save_config(jcfg, path)

@@ -14,7 +14,7 @@ from gst_tacotron_tpu.config import apply_overrides as japply
 from gst_tacotron_tpu.config import load_config as jload
 from gst_tacotron_tpu.synthesize import Synthesizer as JSynthesizer
 from gst_tacotron_tpu.train import build_model as jbuild
-from gst_tacotron_tpu_torch.config import load_config
+from gst_tacotron_tpu_torch.config import apply_overrides, load_config
 from gst_tacotron_tpu_torch.synthesize import Synthesizer
 from gst_tacotron_tpu_torch.weights import build_model
 
@@ -39,7 +39,8 @@ def test_golden_prod_text_matches_jax_synthesizer():
     with np.load(os.path.join(PROD, "text_0.npz")) as z:
         text = str(z["text"])
     ref = JSynthesizer(jcfg, model, variables, deterministic_prenet=True)([text], seed=0)
-    cfg = load_config(os.path.join(PROD, "config.json"))
+    cfg = apply_overrides(load_config(os.path.join(PROD, "config.json")),
+                          {"audio.griffin_lim_bf16": False})
     ts = Synthesizer(cfg, build_model(cfg, flat=flat, device="cpu"), device="cpu",
                      deterministic_prenet=True)
     got = ts([text], seed=0)

@@ -10,7 +10,9 @@
 * the Philox Gumbel stream the kernel and the plain version share: seeded,
   strictly inside (0, 1), numpy and torch twins equal; and Gumbel-max at
   fixed logits samples their softmax (it cannot match jax.random's stream);
-* the vocoder wrappers.
+* the vocoder wrappers;
+* the kernel's hoisted input product (``input_tables``) against the
+  un-hoisted step's gates, and its score keys' order.
 """
 
 import os
@@ -191,3 +193,89 @@ def test_vocoders():
     assert wav.shape == (2, 12) and float(wav.abs().max()) <= 1.0
     assert torch.equal(wav, WaveRNNVocoder(cfg, model, device="cpu")(mel, seed=5))
     assert not torch.equal(wav, voc(mel, seed=6))
+
+
+@pytest.mark.parametrize("batch,t_frames", [(2, 5), (3, 2)])
+def test_hoisted_input_tables_match_the_step(batch, t_frames):
+    """K5 computes (embed @ wi + bi)[prev] + (cond @ wi)[frame] where the
+    plain version (the JAX kernel's step) computes (embed[prev] +
+    cond[frame]) @ wi + bi: the same gates to float32 rounding, and the same
+    GRU update to 1e-6."""
+    from gst_tacotron_tpu_torch.ops.gru import gru_update
+
+    _, _, model, mel = build(t_frames, batch)
+    packed = model.pack()
+    with torch.no_grad():
+        cond = model.cond_frames(torch.from_numpy(mel))
+    table, cond_table = twavernn.input_tables(packed, cond)
+    k, h3 = packed["embed"].shape[0], packed["wi"].shape[1]
+    assert table.shape == (k, h3) and cond_table.shape == (batch, t_frames, h3)
+    rng = np.random.default_rng(batch)
+    for _ in range(4):
+        prev = torch.from_numpy(rng.integers(0, k, batch))
+        frame = int(rng.integers(0, t_frames))
+        hoisted = table[prev] + cond_table[:, frame]
+        step = (packed["embed"][prev] + cond[:, frame]) @ packed["wi"] + packed["bi"]
+        np.testing.assert_allclose(hoisted.numpy(), step.numpy(), atol=1e-5, rtol=1e-5)
+        hprev = torch.from_numpy(rng.normal(0, 0.5, (batch, h3 // 3)).astype(np.float32))
+        gh = hprev @ packed["wh"] + packed["bh"]
+        np.testing.assert_allclose(gru_update(hoisted, gh, hprev).numpy(),
+                                   gru_update(step, gh, hprev).numpy(), atol=1e-6)
+
+
+def _score_key(v: np.float32, idx: int) -> int:
+    """csrc/wavernn_sample.cu::score_key in Python."""
+    u = int(np.array(np.float32(v) + np.float32(0.0), np.float32).view(np.uint32))
+    u = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+    return (u << 32) | (0xFFFFFFFF - idx)
+
+
+def test_score_keys_order_as_argmax():
+    """The largest key is torch.argmax's pick: the larger score, and on a
+    tie the lower index (-0.0 and 0.0 tie); keys merge in any order."""
+    rng = np.random.default_rng(5)
+    for trial in range(50):
+        scores = rng.normal(0, 3, 24).astype(np.float32)
+        if trial % 3 == 0:
+            scores[rng.integers(0, 24, 4)] = scores.max()        # ties at the top
+        if trial % 5 == 0:
+            scores[:] = 0.0
+            scores[::2] = -0.0
+        keys = [_score_key(v, i) for i, v in enumerate(scores)]
+        best = max(keys[i] for i in rng.permutation(24))
+        want = int(torch.argmax(torch.from_numpy(scores)))
+        assert 0xFFFFFFFF - (best & 0xFFFFFFFF) == want
+
+
+def test_sample_smem_fits_config_5():
+    """K5's CTA on 132 SMs at gst_wavernn's widths (C = H = F = 512, K =
+    256): 4 units, 4 fc1 columns, 4 classes a CTA, in one block's shared
+    memory."""
+    v = get_preset("gst_wavernn").model.vocoder
+    c = h = v.wavernn_gru_dim
+    assert v.wavernn_fc_dim == c
+    smem = twavernn.sample_smem(c, h, c, 2 ** v.wavernn_bits, 132)
+    assert smem == 189456 and smem <= 232448
+
+
+def test_warp_products_reduce_scatter_covers_each_output_once():
+    """csrc/wavernn_sample.cu::warp_products' shuffles, lane by lane: 32
+    lanes' partial sums of 16 outputs, four halving exchanges (xor 16, 8,
+    4, 2) and a final pair (xor 1); each even lane emits output idx(lane),
+    every output exactly once, equal to the sum over the lanes."""
+    rng = np.random.default_rng(3)
+    part = rng.normal(0, 1, (32, 16))
+    a = part.copy()
+    lane = np.arange(32)
+    for bit, half in ((16, 8), (8, 4), (4, 2), (2, 1)):
+        hi = (lane & bit) != 0
+        keep = np.where(hi[:, None], a[:, half:2 * half], a[:, :half])
+        send = np.where(hi[:, None], a[:, :half], a[:, half:2 * half])
+        a = keep + send[lane ^ bit]
+    a = a[:, 0] + a[lane ^ 1, 0]
+    idx = (8 * ((lane & 16) > 0) + 4 * ((lane & 8) > 0) + 2 * ((lane & 4) > 0)
+           + ((lane & 2) > 0))
+    even = lane % 2 == 0
+    assert sorted(idx[even]) == list(range(16))
+    np.testing.assert_allclose(a[even], part.sum(0)[idx[even]], rtol=1e-12)
+    np.testing.assert_array_equal(a[even], a[lane[even] ^ 1])
