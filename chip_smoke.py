@@ -18,7 +18,8 @@ Phases, each of which exits non-zero on failure:
    bf16 bases at n_fft 6144, on clusters of 4); each is timed beside its
    plain version, a PyTorch library yardstick where one exists, and its
    least possible time on an H100 (device time from torch.profiler for K1's
-   two phases, K2, the STFT kernels and K5; K5 also at width 8, where its
+   two phases, K2, the STFT kernels, K5 and K4, K4 also by phase kernel with
+   its launches and microseconds a step; K5 also at width 8, where its
    samples are its grid barriers alone);
 3. paths: three configurations synthesize through ``Synthesizer`` on the
    card with seeded random weights, B=32 texts of 64 tokens and 32
@@ -43,6 +44,12 @@ Phases, each of which exits non-zero on failure:
 It prints one JSON line per kernel check and per path, one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``.
+
+    python3 chip_smoke.py --decode-only
+
+builds K4 alone and prints its two rows (Bahdanau at gst_lj, location-
+sensitive at gst_r1_location; per-phase device time, launches and
+microseconds a step) and the card.
 """
 
 from __future__ import annotations
@@ -698,6 +705,16 @@ def check_stft_frames(torch, dev, cfg):
 # ---------------------------------------------------------------------------
 
 
+# K4's kernels by profiler name: the nine phases of a step and the one-off
+# preparation (keys and weights transposed, the alignment state)
+DECODE_PHASES = {"P1_prenet1_state_products": "decode_phase<1>", "P2_prenet2": "decode_phase<2>",
+                 "P3_attention_gru": "decode_phase<3>", "P4_query_scores": "decode_scores",
+                 "P5_softmax_context": "decode_attend", "P6_decoder_input": "decode_phase<6>",
+                 "P7_gru1": "decode_phase<7>", "P8_gru2": "decode_phase<8>",
+                 "P9_frame_stop": "decode_phase<9>", "prep": "decode_prep"}
+DECODE_STEP_KERNELS = ("decode_phase<", "decode_scores", "decode_attend")
+
+
 def check_decode(torch, rng, dev, cfg, init_seed=7):
     """K4 at ``cfg``'s shapes: the Bahdanau branch (gst_lj) or the
     location-sensitive one (gst_r1_location)."""
@@ -742,6 +759,19 @@ def check_decode(torch, rng, dev, cfg, init_seed=7):
                                             use_dropout=True, **kw), iters=3)
     plain = time_ms(torch, lambda: decode_scan_plain(packed, memory, keys, full, seed=3,
                                                      use_dropout=True, **kw), iters=1)
+    # device time by phase kernel (csrc/decode_scan.cu), one profiled decode
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_scan(packed, memory, keys, full, seed=3, use_dropout=True, **kw)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    per_phase = {label: sum(ms for key, ms, _ in rows if sub in key)
+                 for label, sub in DECODE_PHASES.items()}
+    step_launches = sum(n for key, _, n in rows
+                        if any(sub in key for sub in DECODE_STEP_KERNELS))
+    device_ms = sum(ms for key, ms, _ in rows if "decode_" in key)
     n_w = sum(x.numel() for x in packed.values())
     d = m.decoder
     per_step = 2.0 * (m.num_mels * d.prenet_dims[0] + d.prenet_dims[0] * d.prenet_dims[1]
@@ -768,6 +798,9 @@ def check_decode(torch, rng, dev, cfg, init_seed=7):
                            "autoregressive steps (the last frame re-enters the prenet"
                            + (", the alignment the location taps)" if lsa else ")"),
                 kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                kernel_device_ms=device_ms, phase_device_ms=per_phase,
+                launches_per_step=step_launches / steps, us_per_step=1e3 * ms / steps,
+                device_us_per_step=1e3 * device_ms / steps,
                 library="none: no single PyTorch call runs an autoregressive decode",
                 work=f"one {steps}-step decode of 32 utterances at r={r}, "
                      f"{m.attention.kind} attention, dropout on")
@@ -1311,9 +1344,10 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    decode_only = sys.argv[1:] == ["--decode-only"]
     t0 = time.perf_counter()
-    build_all(ops.all_kernels())
-    log(f"built and loaded {len(ops.all_kernels())} kernels in {time.perf_counter() - t0:.1f} s")
+    build_all([ops.decode.KERNEL] if decode_only else ops.all_kernels())
+    log(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
 
     cfg = apply_overrides(get_preset("gst_lj"), {
         "model.decoder.max_decode_steps": 200,
@@ -1326,6 +1360,12 @@ def main() -> None:
         "model.decoder.max_decode_steps": 64,
         "model.decoder.stop_threshold": 1.0,
     })
+    if decode_only:   # K4's two rows alone (its phase times), then stop
+        for c, seed in ((cfg, 7), (cfg3, 8)):
+            row = check_decode(torch, np.random.default_rng(seed), dev, c, init_seed=seed)
+            print(json.dumps({"kernel_check": row}), flush=True)
+        print(card)
+        return
     rng = np.random.default_rng(0)
     kernels = []
     for check in (lambda: check_gru(torch, rng, dev),

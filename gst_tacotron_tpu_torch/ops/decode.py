@@ -20,24 +20,34 @@ not carried over. The alignment state starts as a delta at position 0
 Prenet dropout draws from one Philox4x32-10 stream shared by the kernel and
 the plain version (``dropout_uniforms``), so both give the same output for
 the same seed. It is not jax.random's stream, nor the TPU kernel's.
+
+The kernel runs each step as nine phase launches over the whole card (see
+``csrc/decode_scan.cu``). Everything it needs besides the inputs and
+outputs lives in one device workspace: the recurrent state, the step's
+vectors, the partial scores, the keys transposed to (B, A, T) and each
+product's weights transposed to (columns, k). ``decode_products`` lists the
+products, ``decode_phase_plan`` gives each phase's CTAs their slices of
+columns, and ``decode_workspace_layout`` places every buffer; the launcher
+takes all three as integers (``decode_launch_ints``) and derives none of
+them itself.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
 from ..config import AttentionConfig, DecoderConfig
-from .build import F, I, P, U64, CudaKernel, check_cuda, ptr, stream_ptr
+from .build import F, I, P, U64, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
 from .gru import gru_update
 from .philox import stream_uniforms
 
 KERNEL = CudaKernel("decode_scan.cu", "decode_scan_launch",
-                    [P, P, P, P, P, P, P, P, I, U64, F, I, P],
+                    [P, P, P, P, P, P, P, P, P, U64, F, I, P],
                     branches=("location_sensitive",))
 
 LANE = 128
@@ -185,6 +195,202 @@ def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     return mel, stop_logits, torch.stack(aligns, 1)
 
 
+# --- the kernel's phases, plan and workspace ---------------------------------
+
+ROWS = 32           # rows of the batch a CTA steps (a row group: grid.y)
+WARPS = 8           # warps a CTA (csrc/decode_scan.cu DEC_WARPS)
+MAX_SLICE = 256     # context columns a P5 CTA at most (its threads)
+
+# the workspace's state buffers, in the kernel's order (enum Buf)
+BUFFERS = ("h_attn", "h_d1", "h_d2", "ctx", "p1", "p2", "last", "hdec0", "hdec1",
+           "hdec2", "gha", "gxc", "gh1", "gh2", "prev", "cum", "part", "keys_t")
+
+
+class DecodeDims(NamedTuple):
+    B: int      # rows
+    T: int      # memory positions
+    S: int      # steps
+    r: int      # frames a step
+    NM: int     # mel channels
+    P1: int     # prenet widths
+    P2: int
+    Ha: int     # attention GRU
+    A: int      # attention columns
+    Hd: int     # decoder GRUs
+    Md: int     # memory width
+    loc_k: int  # location taps
+    loc_c: int  # location feature channels
+    ld_fw: int  # columns of the packed frame + stop projection
+
+    @property
+    def n_out(self) -> int:
+        return self.r * self.NM + self.r
+
+
+class Product(NamedTuple):
+    """One product of a phase: Y = [X0 ; X1] @ W[rows of each segment]. A
+    GRU product (gates 3) owns units: unit k takes columns k, H + k, 2H + k
+    of W, so a CTA holds the z, r and n columns of each unit it owns."""
+    kind: str
+    phase: int
+    weight: str                 # key of the packed weights
+    gates: int
+    n: int                      # output columns, or units when gates == 3
+    segs: Tuple[Tuple[int, int], ...]   # (first row of W, rows) per input
+    inputs: Tuple[str, ...]     # the workspace buffer of each segment
+
+
+def _r4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def decode_dims(packed: Dict[str, torch.Tensor], memory: torch.Tensor, keys: torch.Tensor,
+                *, r: int, num_mels: int, steps: int, attn_cfg: AttentionConfig) -> DecodeDims:
+    b, t, m_dim = memory.shape
+    loc_k, loc_c = location_taps(attn_cfg)
+    return DecodeDims(B=b, T=t, S=steps, r=r, NM=num_mels, P1=packed["pw1"].shape[1],
+                      P2=packed["pw2"].shape[1], Ha=packed["awh"].shape[0],
+                      A=keys.shape[-1], Hd=packed["g1wh"].shape[0], Md=m_dim,
+                      loc_k=loc_k, loc_c=loc_c, ld_fw=packed["fw"].shape[1])
+
+
+def decode_products(d: DecodeDims) -> List[Product]:
+    """The step's products in the kernel's order (enum Kind), each with the
+    phase that launches it: P1 prenet layer 1; P2 prenet layer 2; P3 the
+    attention GRU; P4 the query (then the partial scores); P6 the decoder
+    input projection; P7, P8 the decoder GRUs; P9 the frame and stop
+    projection. The products of the state alone (h_attn @ awh + abh, ctx @
+    awi[ctx rows] + abi, h_d1 @ g1wh + g1bh, h_d2 @ g2wh + g2bh), which the
+    next step's GRUs add, run on the spare CTAs of the first launch after
+    their state is final (P7, P6, P8, P9); the launcher writes their values
+    for the zero state, the biases, before step 0."""
+    return [
+        Product("pre1", 1, "pw1", 1, d.P1, ((0, d.NM),), ("last",)),
+        Product("gha", 7, "awh", 3, d.Ha, ((0, d.Ha),), ("h_attn",)),
+        Product("gxc", 6, "awi", 3, d.Ha, ((d.P2, d.Md),), ("ctx",)),
+        Product("gh1", 8, "g1wh", 3, d.Hd, ((0, d.Hd),), ("h_d1",)),
+        Product("gh2", 9, "g2wh", 3, d.Hd, ((0, d.Hd),), ("h_d2",)),
+        Product("pre2", 2, "pw2", 1, d.P2, ((0, d.P1),), ("p1",)),
+        Product("attn", 3, "awi", 3, d.Ha, ((0, d.P2),), ("p2",)),
+        Product("query", 4, "qproj", 1, d.A, ((0, d.Ha),), ("h_attn",)),
+        Product("dec", 6, "dwi", 1, d.Hd, ((0, d.Ha), (d.Ha, d.Md)), ("h_attn", "ctx")),
+        Product("g1", 7, "g1wi", 3, d.Hd, ((0, d.Hd),), ("hdec0",)),
+        Product("g2", 8, "g2wi", 3, d.Hd, ((0, d.Hd),), ("hdec1",)),
+        Product("out", 9, "fw", 1, d.n_out, ((0, d.Hd), (d.Hd, d.Md)), ("hdec2", "ctx")),
+    ]
+
+
+def product_quads(p: Product) -> int:
+    """Column (or unit) quads of a product: a warp's tile is 8 rows x 4."""
+    return _r4(p.n) // 4
+
+
+def product_kp(p: Product) -> int:
+    """k of the transposed weights: each segment padded to a multiple of 4."""
+    return sum(_r4(n) for _, n in p.segs)
+
+
+def decode_phase_plan(d: DecodeDims, sms: int) -> dict:
+    """Each phase's CTAs and their slices, aiming at about one CTA an SM.
+
+    - Products (P1-P3, P6-P9): a CTA owns ``qpc`` consecutive quads of one
+      product for the rows of its row group, over all k; a phase's quads
+      cost gates x k each, and each product takes ``qpc`` = the phase's
+      cost a CTA over its cost a quad, at least 1 and at most as many as
+      give each warp one tile (a CTA's tiles run one after another, so more
+      would lengthen the phase).
+    - P4: a CTA owns a chunk of ``qpc`` attention-column quads; the chunks
+      are the partial scores that P5 sums in order.
+    - P5: a CTA owns (row, slice of ``slice_width`` context columns), at
+      least 32 columns and about four CTAs an SM: each thread of a slice
+      then sums few positions (the phase is a chain of latencies).
+
+    Returns {"row_groups", "qpc": {kind: n}, "ncta": {kind: n}, "jobs":
+    {phase: [(kind, q0, q1), ...] in CTA order}, "chunks", "slice_width",
+    "slices"}."""
+    if sms < 1:
+        raise ValueError("sms must be positive")
+    row_groups = -(-d.B // ROWS)
+    target = max(1, sms // row_groups)
+    most = max(1, WARPS // -(-min(d.B, ROWS) // 8))     # quads for one tile a warp
+    prods = decode_products(d)
+    qpc, ncta = {}, {}
+    for ph in sorted({p.phase for p in prods}):
+        mine = [p for p in prods if p.phase == ph]
+        if ph == 4:
+            (p,) = mine
+            qpc[p.kind] = -(-product_quads(p) // target)
+        else:
+            cost = sum(product_quads(p) * p.gates * product_kp(p) for p in mine)
+            budget = -(-cost // target)
+            for p in mine:
+                qpc[p.kind] = max(1, min(most, budget // (p.gates * product_kp(p))))
+        for p in mine:
+            ncta[p.kind] = -(-product_quads(p) // qpc[p.kind])
+    jobs: Dict[int, list] = {}
+    for p in prods:
+        nq = product_quads(p)
+        jobs.setdefault(p.phase, []).extend(
+            (p.kind, q0, min(nq, q0 + qpc[p.kind])) for q0 in range(0, nq, qpc[p.kind]))
+    cols = -(-d.Md // max(1, 4 * sms // d.B))
+    width = min(MAX_SLICE, -(-cols // 32) * 32)
+    return {"row_groups": row_groups, "qpc": qpc, "ncta": ncta, "jobs": jobs,
+            "chunks": ncta["query"], "slice_width": width, "slices": -(-d.Md // width)}
+
+
+def _buffer_widths(d: DecodeDims, plan: dict) -> Dict[str, int]:
+    """Row stride (floats) of each state buffer; k-side buffers padded to a
+    multiple of 4 (zeros past the width) for the products' float4 loads."""
+    return {"h_attn": _r4(d.Ha), "h_d1": _r4(d.Hd), "h_d2": _r4(d.Hd), "ctx": _r4(d.Md),
+            "p1": _r4(d.P1), "p2": _r4(d.P2), "last": _r4(d.NM), "hdec0": _r4(d.Hd),
+            "hdec1": _r4(d.Hd), "hdec2": _r4(d.Hd), "gha": 3 * _r4(d.Ha),
+            "gxc": 3 * _r4(d.Ha), "gh1": 3 * _r4(d.Hd), "gh2": 3 * _r4(d.Hd),
+            "prev": d.T, "cum": d.T, "part": plan["chunks"] * d.T, "keys_t": d.A * d.T}
+
+
+def decode_workspace_layout(d: DecodeDims, plan: dict) -> Dict[str, Tuple[int, int, int]]:
+    """{name: (offset, rows, row stride)} in floats: the state buffers (B
+    rows each; ``state`` covers them all, zeroed at the start of a decode),
+    then each product's transposed weights ``wt_<kind>`` (gates x r4(n)
+    rows of ``product_kp`` floats). Every offset is a multiple of 4."""
+    out, off = {}, 0
+    for name, ld in _buffer_widths(d, plan).items():
+        out[name] = (off, d.B, ld)
+        off += _r4(d.B * ld)
+    out["state"] = (0, 1, off)
+    for p in decode_products(d):
+        rows = p.gates * _r4(p.n)
+        out[f"wt_{p.kind}"] = (off, rows, product_kp(p))
+        off += rows * product_kp(p)
+    out["total"] = (0, 1, off)
+    return out
+
+
+def decode_workspace_floats(d: DecodeDims, plan: dict) -> int:
+    return decode_workspace_layout(d, plan)["total"][2]
+
+
+def decode_launch_ints(d: DecodeDims, plan: dict) -> List[int]:
+    """The launcher's ``dims``: a header, (offset, stride) of each state
+    buffer, then per product (enum Kind order) kind, weights offset, source
+    index in ``_WEIGHT_ORDER``, source row stride, n, gates, two (first row,
+    rows) segments, the two input buffers (-1: none), qpc and phase."""
+    lay = decode_workspace_layout(d, plan)
+    out = [d.B, d.T, d.S, d.r, d.NM, d.P1, d.P2, d.Ha, d.A, d.Hd, d.Md, d.loc_k, d.loc_c,
+           plan["chunks"], plan["slice_width"], plan["slices"], lay["state"][2]]
+    for name in BUFFERS:
+        out += [lay[name][0], lay[name][2]]
+    for i, p in enumerate(decode_products(d)):
+        segs = list(p.segs) + [(0, 0)] * (2 - len(p.segs))
+        ins = [BUFFERS.index(x) for x in p.inputs] + [-1] * (2 - len(p.inputs))
+        out += [i, lay[f"wt_{p.kind}"][0], _WEIGHT_ORDER.index(p.weight),
+                d.ld_fw if p.weight == "fw" else p.gates * p.n, p.n, p.gates,
+                *segs[0], *segs[1], *ins, plan["qpc"][p.kind], p.phase]
+    if lay["total"][2] >= 2 ** 31:
+        raise ValueError("decode_scan: workspace past 2^31 floats")
+    return out
+
+
 def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                 keys: torch.Tensor, lengths: torch.Tensor, *,
                 dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
@@ -209,19 +415,20 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     lens = lengths.to(memory.device, torch.int32).contiguous()
     ws = [packed[k] for k in _WEIGHT_ORDER]
     check_cuda("decode_scan", memory, keys, lens, *ws)
-    w = packed
-    dims = [t, steps, r, num_mels, w["pw1"].shape[1], w["pw2"].shape[1],
-            w["awh"].shape[0], w["qproj"].shape[1], w["g1wh"].shape[0], m_dim,
-            w["pw1"].shape[1], w["fw"].shape[1], loc_k, loc_c]
     mel = torch.empty(b, steps * r, num_mels, device=memory.device)
     stop_logits = torch.empty(b, steps * r, device=memory.device)
     aligns = torch.empty(b, steps, t, device=memory.device)
     if b == 0 or steps == 0:
         return mel, stop_logits, aligns
+    d = decode_dims(packed, memory, keys, r=r, num_mels=num_mels, steps=steps,
+                    attn_cfg=attn_cfg)
+    plan = decode_phase_plan(d, sm_count(memory.device.index))
+    ints = decode_launch_ints(d, plan)
+    work = torch.empty(decode_workspace_floats(d, plan), device=memory.device)
     wptrs = (ctypes.c_void_p * len(ws))(*[x.data_ptr() for x in ws])
-    dptrs = (ctypes.c_int * len(dims))(*dims)
+    dptrs = (ctypes.c_int * len(ints))(*ints)
     KERNEL(ptr(memory), ptr(keys), ptr(lens), wptrs, dptrs, ptr(mel),
-           ptr(stop_logits), ptr(aligns), b, seed & 0xFFFFFFFFFFFFFFFF,
+           ptr(stop_logits), ptr(aligns), ptr(work), seed & 0xFFFFFFFFFFFFFFFF,
            float(dec_cfg.prenet_dropout), int(use_dropout),
            stream_ptr(memory.device),
            branch="location_sensitive" if attn_cfg.kind == "location_sensitive" else None)

@@ -417,6 +417,76 @@ def test_decode_scan_lsa_kernel(dev, use_dropout, r, cumulative):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
 
 
+# K4's phase launches at the configs' widths: B = 32 (one row group), B = 1,
+# B = 33 (across a row-group boundary), T = 1; lengths 0 and 1; dropout on
+@pytest.mark.parametrize("config,b,t", [("gst_lj", 32, 64), ("gst_r1_location", 32, 64),
+                                        ("gst_lj", 1, 64), ("gst_r1_location", 33, 64),
+                                        ("gst_lj", 33, 1), ("gst_r1_location", 5, 1)])
+def test_decode_scan_phases_at_config_widths(dev, config, b, t):
+    """Within 1e-5 of the plain version; the same bits on a second run; one
+    K4 launch a decode, counted on the branch of the config's attention."""
+    import numpy as np
+
+    from gst_tacotron_tpu_torch.config import load_config
+    from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+    from gst_tacotron_tpu_torch.ops.decode import KERNEL, decode_scan, decode_scan_plain
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    m = load_config(f"configs/{config}.json").model
+    mem_dim = m.encoder.output_dim + m.gst.style_dim
+    cell = DecoderCell(m.decoder, m.attention, m.num_mels, mem_dim)
+    init_weights(cell, seed=b + t)
+    cell = cell.to(dev)
+    rng = np.random.default_rng(b * t)
+    memory = torch.from_numpy(rng.normal(0, 0.5, (b, t, mem_dim)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        keys = cell.precompute_keys(memory).contiguous()
+    lengths = torch.tensor(([t, 0, 1] + list(rng.integers(1, t + 1, b)))[:b], device=dev)
+    kw = dict(dec_cfg=m.decoder, attn_cfg=m.attention, num_mels=m.num_mels, steps=4, seed=5,
+              use_dropout=True)
+    lsa = m.attention.kind == "location_sensitive"
+    before, branch = KERNEL.launches, KERNEL.branch_launches["location_sensitive"]
+    got = decode_scan(cell.pack(), memory, keys, lengths, **kw)
+    again = decode_scan(cell.pack(), memory, keys, lengths, **kw)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2
+    assert KERNEL.branch_launches["location_sensitive"] == branch + (2 if lsa else 0)
+    ref = decode_scan_plain(cell.pack(), memory, keys, lengths, **kw)
+    for x, y, z in zip(got, ref, again):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        assert torch.equal(x, z)
+
+
+# widths off every multiple of 4 (each product input padded), two row groups
+@pytest.mark.parametrize("kind,r", [("bahdanau", 2), ("location_sensitive", 3)])
+@pytest.mark.parametrize("use_dropout", [False, True])
+def test_decode_scan_phases_at_ragged_widths(dev, kind, r, use_dropout):
+    from gst_tacotron_tpu_torch.config import AttentionConfig, DecoderConfig
+    from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+    from gst_tacotron_tpu_torch.ops.decode import decode_scan, decode_scan_plain
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    dec = DecoderConfig(prenet_dims=(15, 9), attention_rnn_dim=13, decoder_rnn_dim=22,
+                        reduction_factor=r, max_decode_steps=8)
+    attn = (AttentionConfig(kind=kind, dim=11, location_filters=5, location_kernel_size=7)
+            if kind == "location_sensitive" else AttentionConfig(dim=11))
+    cell = DecoderCell(dec, attn, 7, 19)
+    init_weights(cell, seed=9)
+    cell = cell.to(dev)
+    g = torch.Generator().manual_seed(10)
+    t = 37
+    memory = rand(g, 35, t, 19).to(dev)
+    with torch.no_grad():
+        keys = cell.precompute_keys(memory).contiguous()
+    lengths = torch.tensor(([t, 0, 1, 20, 5] * 7)[:35], device=dev)
+    kw = dict(dec_cfg=dec, attn_cfg=attn, num_mels=7, steps=8, seed=17,
+              use_dropout=use_dropout)
+    got = decode_scan(cell.pack(), memory, keys, lengths, **kw)
+    ref = decode_scan_plain(cell.pack(), memory, keys, lengths, **kw)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("b,t,c,h,bits", [(3, 5, 16, 16, 8), (2, 4, 12, 13, 5), (2, 0, 8, 8, 3),
                                           (33, 3, 20, 37, 6)])  # 33 rows: two launches
 @pytest.mark.parametrize("greedy", [True, False])
