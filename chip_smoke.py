@@ -39,10 +39,23 @@ Phases, each of which exits non-zero on failure:
    varied length): patterns with device features (K3), every route of the
    feature extractor and ``KernelDSP`` (K3′, K3″), the bucketed loader in
    both transports and the wav-transport features on the card, each held
-   against the host numpy oracle, with launch counts per route.
+   against the host numpy oracle, with launch counts per route;
+5. train: on the corpus phase's patterns, ``Trainer`` on gst_lj at its
+   published widths, B=32: 6 steps on the feature transport (checkpoints
+   every 4, the held-out eval and ``default_eval_hook`` at step 6), a second
+   ``Trainer`` restoring step 6 bit for bit, 2 steps on the wav transport
+   with the corpus on the card, then synthesis of 32 texts with 32
+   reference wavs from the trained state. Every train step launches no
+   kernel (every counter reads 0 after it) and gives every parameter a
+   nonzero gradient at step 1; the eval hook launches K1 and K4; the
+   synthesis gives the gst_lj path's counts (K1 3, K2 1, K3 4, K4 1). One
+   step at the CPU tests' widths on the card against the same step on the
+   CPU (loss 1e-5 relative, parameters 1e-5, gradients 1e-4 of each
+   tensor's largest); gst_wavernn's WaveRNN at its widths, 2
+   ``VocoderTrainer`` steps of 16 x 24 frames and a restore.
 
-It prints one JSON line per kernel check and per path, one
-``{"kernels": [...]}`` line, the card's name and power limit, and last
+It prints one JSON line per kernel check, per path and per training run
+(``{"train": ...}``), one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py --decode-only
@@ -50,6 +63,11 @@ It prints one JSON line per kernel check and per path, one
 builds K4 alone and prints its two rows (Bahdanau at gst_lj, location-
 sensitive at gst_r1_location; per-phase device time, launches and
 microseconds a step) and the card.
+
+    python3 chip_smoke.py --train-only
+
+builds every kernel and runs the train phase alone, on a fresh corpus of
+the corpus phase's kind (patterns through K3), then prints the card.
 """
 
 from __future__ import annotations
@@ -57,6 +75,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1143,9 +1162,10 @@ def wire_oracle(row: np.ndarray, a, frames: int):
     return db(mag @ basis.T), db(mag)
 
 
-def run_corpus(torch, dev, cfg):
+def run_corpus(torch, dev, cfg, out):
     """The training-corpus path on ``cfg`` (gst_lj): a variable-length
-    synthetic corpus -> ``generate_patterns(device_features=True)`` (K3) ->
+    synthetic corpus -> ``generate_patterns(device_features=True)`` (K3),
+    into the directory ``out`` (the train phase's corpus) ->
     every extractor route and ``KernelDSP`` on the same prepared wavs (K3′,
     K3″, the plain route) -> ``BucketedLoader`` batches in both transports ->
     ``_materialize_features`` on the card. Each route is held against the
@@ -1153,8 +1173,6 @@ def run_corpus(torch, dev, cfg):
     against the feature batches. Counts are set to 0 once before the path
     and read after it; each phase's launches are the counts' growth over
     it. Returns the path's launch counts."""
-    import tempfile
-
     from gst_tacotron_tpu_torch import ops
     from gst_tacotron_tpu_torch.config import apply_overrides
     from gst_tacotron_tpu_torch.data import (BucketedLoader, PatternDataset, generate_patterns,
@@ -1186,108 +1204,107 @@ def run_corpus(torch, dev, cfg):
 
     utts = synthetic_utterances(CORPUS_UTTERANCES, variable=True)
     ops.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as out:
-        t0 = start()
-        generate_patterns(utts, a, out, store_wav=True, device_features=True, device=dev)
-        patterns_s = stop("patterns", t0)
-        ds = PatternDataset(out)
-        items = [ds.load(i) for i in range(len(ds))]
-        wavs = [it["wav"] for it in items]
-        resident = [(it["mel"], it["linear"]) for it in items]
-        num_frames = [1 + len(w) // a.hop_length for w in wavs]
-        t0 = time.perf_counter()
-        oracle = [(dsp_ref.melspectrogram(w, a), dsp_ref.spectrogram(w, a)) for w in wavs]
-        oracle_s = time.perf_counter() - t0
+    t0 = start()
+    generate_patterns(utts, a, out, store_wav=True, device_features=True, device=dev)
+    patterns_s = stop("patterns", t0)
+    ds = PatternDataset(out)
+    items = [ds.load(i) for i in range(len(ds))]
+    wavs = [it["wav"] for it in items]
+    resident = [(it["mel"], it["linear"]) for it in items]
+    num_frames = [1 + len(w) // a.hop_length for w in wavs]
+    t0 = time.perf_counter()
+    oracle = [(dsp_ref.melspectrogram(w, a), dsp_ref.spectrogram(w, a)) for w in wavs]
+    oracle_s = time.perf_counter() - t0
 
-        err_oracle = {"patterns (resident)": errs(resident, oracle)}
-        err_resident, route_ms = {}, {}
-        min_calls = len(DeviceFeatureExtractor(a, dev).plan(num_frames))
-        kernel_of = {"resident": "stft_features", "fused": "stft_fused",
-                     "frames": "stft_frames", None: None}
-        for route, kname in kernel_of.items():
-            ex = DeviceFeatureExtractor(a, dev, stft_kernel=route)
-            label = str(route)
-            t0 = start()
-            res = ex.extract(wavs)
-            route_ms[label] = 1e3 * stop(label, t0)
-            calls = len(ex.plan(num_frames))
-            if launches[label] != ({kname: calls} if kname else {}):
-                fail(f"corpus: route {label} launched {launches[label]}, expected "
-                     f"{calls} launches of {kname}")
-            err_oracle[label] = errs(res, oracle)
-            err_resident[label] = errs(res, resident)
-        kd = KernelDSP(a, dev)
+    err_oracle = {"patterns (resident)": errs(resident, oracle)}
+    err_resident, route_ms = {}, {}
+    min_calls = len(DeviceFeatureExtractor(a, dev).plan(num_frames))
+    kernel_of = {"resident": "stft_features", "fused": "stft_fused",
+                 "frames": "stft_frames", None: None}
+    for route, kname in kernel_of.items():
+        ex = DeviceFeatureExtractor(a, dev, stft_kernel=route)
+        label = str(route)
         t0 = start()
-        res = []
-        for w in wavs:
-            mel, lin = kd.features(torch.from_numpy(w)[None].to(dev))
-            res.append((mel[0].cpu().numpy(), lin[0].cpu().numpy()))
-        route_ms["KernelDSP"] = 1e3 * stop("KernelDSP", t0)
-        if launches["KernelDSP"] != {"stft_frames": len(wavs)}:
-            fail(f"corpus: KernelDSP launched {launches['KernelDSP']}, expected "
-                 f"{len(wavs)} launches of stft_frames")
-        err_oracle["KernelDSP"] = errs(res, oracle)
-        err_resident["KernelDSP"] = errs(res, resident)
-        # the generator extracts in chunks, so at least the one-call plan's count
-        if launches["patterns"].keys() != {"stft_features"} or \
-                launches["patterns"]["stft_features"] < min_calls:
-            fail(f"corpus: generate_patterns launched {launches['patterns']}")
-        del oracle, resident, res
+        res = ex.extract(wavs)
+        route_ms[label] = 1e3 * stop(label, t0)
+        calls = len(ex.plan(num_frames))
+        if launches[label] != ({kname: calls} if kname else {}):
+            fail(f"corpus: route {label} launched {launches[label]}, expected "
+                 f"{calls} launches of {kname}")
+        err_oracle[label] = errs(res, oracle)
+        err_resident[label] = errs(res, resident)
+    kd = KernelDSP(a, dev)
+    t0 = start()
+    res = []
+    for w in wavs:
+        mel, lin = kd.features(torch.from_numpy(w)[None].to(dev))
+        res.append((mel[0].cpu().numpy(), lin[0].cpu().numpy()))
+    route_ms["KernelDSP"] = 1e3 * stop("KernelDSP", t0)
+    if launches["KernelDSP"] != {"stft_frames": len(wavs)}:
+        fail(f"corpus: KernelDSP launched {launches['KernelDSP']}, expected "
+             f"{len(wavs)} launches of stft_frames")
+    err_oracle["KernelDSP"] = errs(res, oracle)
+    err_resident["KernelDSP"] = errs(res, resident)
+    # the generator extracts in chunks, so at least the one-call plan's count
+    if launches["patterns"].keys() != {"stft_features"} or \
+            launches["patterns"]["stft_features"] < min_calls:
+        fail(f"corpus: generate_patterns launched {launches['patterns']}")
+    del oracle, resident, res
 
-        r = cfg.model.decoder.reduction_factor
-        wire_cfg = apply_overrides(cfg, {"data.wav_transport": True})
-        feat = BucketedLoader(ds, cfg.data, r, seed=0)
-        wire = BucketedLoader(ds, wire_cfg.data, r, seed=0, audio_cfg=a)
-        sizes = [len(m) for m in feat.bucket_members]
-        if min(sizes) < cfg.data.batch_size:
-            fail(f"corpus: bucket sizes {sizes}: a bucket fills no batch of "
-                 f"{cfg.data.batch_size}; raise CORPUS_UTTERANCES")
-        stream = feat.stream()
-        first = next(stream)
-        stream.close()
-        wire_err = {"mel": [0.0, 0.0], "linear": [0.0, 0.0]}
-        wire_vs_oracle, lin_over = [0.0, 0.0], 0
-        zeros_ok, n_batches, mat_ms, feat_s, wire_s = True, 0, 0.0, 0.0, 0.0
-        t0 = start()
-        feat_batches, wire_batches = feat.epoch(0), wire.epoch(0)
-        while True:
-            t1 = time.perf_counter()
-            fb = next(feat_batches, None)
-            t2 = time.perf_counter()
-            wb = next(wire_batches, None)
-            feat_s, wire_s = feat_s + t2 - t1, wire_s + time.perf_counter() - t2
-            if fb is None or wb is None:
-                if fb is not wb:
-                    fail("corpus: the two transports' epochs differ in length")
-                break
-            if n_batches == 0 and any(not np.array_equal(first[k], fb[k]) for k in fb):
-                fail("corpus: the prefetching stream's first batch is not the epoch's")
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in wb.items()}
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            mat = _materialize_features(wire_cfg, batch)
-            torch.cuda.synchronize()
-            mat_ms += 1e3 * (time.perf_counter() - t1)
-            for k in ("tokens", "token_lengths", "mel_lengths", "speaker_ids"):
-                if not np.array_equal(mat[k].cpu().numpy(), fb[k]):
-                    fail(f"corpus: the wire batch's {k} differ from the feature batch's")
-            t = fb["mel"].shape[1]
-            true_frames = torch.from_numpy(wb["ints"][:, -2]).to(dev)
-            past = torch.arange(mat["mel"].shape[1], device=dev)[None, :] >= true_frames[:, None]
-            for k in ("mel", "linear"):
-                d = (mat[k][:, :t] - torch.from_numpy(fb[k]).to(dev)).abs()
-                wire_err[k][0] = max(wire_err[k][0], float(d.mean()))
-                wire_err[k][1] = max(wire_err[k][1], float(d.max()))
-                zeros_ok &= bool((mat[k][past] == 0).all())
-                if k == "linear":
-                    lin_over += int((d >= WIRE_MAX[k]).sum())
-            got = [mat[k].cpu().numpy() for k in ("mel", "linear")]
-            for j, (row, tf) in enumerate(zip(wb["wav"], wb["ints"][:, -2])):
-                for i, ref in enumerate(wire_oracle(row, a, tf)):
-                    wire_vs_oracle[i] = max(wire_vs_oracle[i],
-                                            float(np.abs(got[i][j, :tf] - ref).max()))
-            n_batches += 1
-        stop("loader", t0)
+    r = cfg.model.decoder.reduction_factor
+    wire_cfg = apply_overrides(cfg, {"data.wav_transport": True})
+    feat = BucketedLoader(ds, cfg.data, r, seed=0)
+    wire = BucketedLoader(ds, wire_cfg.data, r, seed=0, audio_cfg=a)
+    sizes = [len(m) for m in feat.bucket_members]
+    if min(sizes) < cfg.data.batch_size:
+        fail(f"corpus: bucket sizes {sizes}: a bucket fills no batch of "
+             f"{cfg.data.batch_size}; raise CORPUS_UTTERANCES")
+    stream = feat.stream()
+    first = next(stream)
+    stream.close()
+    wire_err = {"mel": [0.0, 0.0], "linear": [0.0, 0.0]}
+    wire_vs_oracle, lin_over = [0.0, 0.0], 0
+    zeros_ok, n_batches, mat_ms, feat_s, wire_s = True, 0, 0.0, 0.0, 0.0
+    t0 = start()
+    feat_batches, wire_batches = feat.epoch(0), wire.epoch(0)
+    while True:
+        t1 = time.perf_counter()
+        fb = next(feat_batches, None)
+        t2 = time.perf_counter()
+        wb = next(wire_batches, None)
+        feat_s, wire_s = feat_s + t2 - t1, wire_s + time.perf_counter() - t2
+        if fb is None or wb is None:
+            if fb is not wb:
+                fail("corpus: the two transports' epochs differ in length")
+            break
+        if n_batches == 0 and any(not np.array_equal(first[k], fb[k]) for k in fb):
+            fail("corpus: the prefetching stream's first batch is not the epoch's")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in wb.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mat = _materialize_features(wire_cfg, batch)
+        torch.cuda.synchronize()
+        mat_ms += 1e3 * (time.perf_counter() - t1)
+        for k in ("tokens", "token_lengths", "mel_lengths", "speaker_ids"):
+            if not np.array_equal(mat[k].cpu().numpy(), fb[k]):
+                fail(f"corpus: the wire batch's {k} differ from the feature batch's")
+        t = fb["mel"].shape[1]
+        true_frames = torch.from_numpy(wb["ints"][:, -2]).to(dev)
+        past = torch.arange(mat["mel"].shape[1], device=dev)[None, :] >= true_frames[:, None]
+        for k in ("mel", "linear"):
+            d = (mat[k][:, :t] - torch.from_numpy(fb[k]).to(dev)).abs()
+            wire_err[k][0] = max(wire_err[k][0], float(d.mean()))
+            wire_err[k][1] = max(wire_err[k][1], float(d.max()))
+            zeros_ok &= bool((mat[k][past] == 0).all())
+            if k == "linear":
+                lin_over += int((d >= WIRE_MAX[k]).sum())
+        got = [mat[k].cpu().numpy() for k in ("mel", "linear")]
+        for j, (row, tf) in enumerate(zip(wb["wav"], wb["ints"][:, -2])):
+            for i, ref in enumerate(wire_oracle(row, a, tf)):
+                wire_vs_oracle[i] = max(wire_vs_oracle[i],
+                                        float(np.abs(got[i][j, :tf] - ref).max()))
+        n_batches += 1
+    stop("loader", t0)
 
     info = {"name": "corpus (gst_lj)", "utterances": len(wavs), "frames": sum(num_frames),
             "audio_seconds": sum(len(w) for w in wavs) / a.sample_rate,
@@ -1320,6 +1337,320 @@ def run_corpus(torch, dev, cfg):
     return ops.launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, WIRE_STEPS = 6, 2
+# tests/test_train_smoke.py::small_cfg's widths (the CPU tests' sizes)
+SMALL_WIDTHS = {
+    "audio.n_fft": 512, "audio.hop_length": 128, "audio.win_length": 512,
+    "model.num_freq": 257, "model.encoder.embedding_dim": 32,
+    "model.encoder.prenet_dims": [32, 16], "model.encoder.cbhg_bank_k": 4,
+    "model.encoder.cbhg_bank_channels": 16, "model.encoder.cbhg_proj_channels": [16, 16],
+    "model.encoder.cbhg_highway_layers": 2, "model.encoder.cbhg_highway_dim": 16,
+    "model.encoder.cbhg_gru_dim": 16, "model.gst.ref_conv_channels": [4, 8, 16],
+    "model.gst.ref_gru_dim": 16, "model.gst.style_dim": 16, "model.attention.dim": 16,
+    "model.decoder.prenet_dims": [32, 16], "model.decoder.attention_rnn_dim": 16,
+    "model.decoder.decoder_rnn_dim": 16, "model.postnet.cbhg_bank_k": 2,
+    "model.postnet.cbhg_bank_channels": 8, "model.postnet.cbhg_proj_channels": [16, 80],
+    "model.postnet.cbhg_highway_layers": 1, "model.postnet.cbhg_highway_dim": 16,
+    "model.postnet.cbhg_gru_dim": 16}
+TRAIN_TOL = 1e-5          # card against CPU: loss (relative), parameters (absolute)
+GRAD_TOL = 1e-4           # gradients, relative to each tensor's largest |g|
+
+
+def nonzero_counts(ops):
+    return {k: n for k, n in ops.launch_counts().items() if n}
+
+
+def drive_trainer(torch, ops, trainer, steps, eval_fn=None):
+    """``trainer.train(steps)`` with every step timed (a synchronize at its
+    end) and held to zero kernel launches, and every parameter's gradient
+    nonzero at step 1. Returns (per-step records, eval hook launches)."""
+    records, eval_launches = [], {}
+    t_last = [time.perf_counter()]
+
+    def on_step(tr, step, metrics, frames):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        records.append({"step": step, "frames": frames, "ms": 1e3 * (now - t_last[0]),
+                        **{k: float(v) for k, v in metrics.items()}})
+        counts = nonzero_counts(ops)
+        if counts:
+            fail(f"train: step {step} launched kernels {counts}")
+        if step == 1:
+            dead = [k for k, p in tr.state.model.named_parameters()
+                    if p.grad is None or not bool(p.grad.abs().max() > 0)]
+            if dead:
+                fail(f"train: no gradient at step 1 for {dead}")
+        t_last[0] = time.perf_counter()
+
+    def hook(tr, step):
+        before = ops.launch_counts()
+        eval_launches["run_eval"] = nonzero_counts(ops)
+        eval_fn(tr, step)
+        torch.cuda.synchronize()
+        eval_launches["eval_hook"] = {k: n - before[k] for k, n in ops.launch_counts().items()
+                                      if n != before[k]}
+        ops.reset_launch_counts()
+        t_last[0] = time.perf_counter()
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(steps, eval_fn=hook if eval_fn else None, on_step=on_step)
+    return records, eval_launches
+
+
+def train_line(cfg, transport, records, restored, **extra):
+    by_bucket = {}
+    for r in records:
+        by_bucket.setdefault(str(r["frames"]), []).append(r["ms"])
+    losses = [r["loss"] for r in records]
+    if not all(np.isfinite(v) for r in records for k, v in r.items() if k.endswith("loss")):
+        fail(f"train ({transport}): non-finite loss in {records}")
+    return {"train": {"config": cfg.name, "transport": transport, "steps": len(records),
+                      "batch": cfg.data.batch_size,
+                      "ms_per_step": {b: float(np.median(v)) for b, v in by_bucket.items()},
+                      "step_ms": [r["ms"] for r in records],
+                      "bucket_frames": [r["frames"] for r in records],
+                      "peak_mem_gb": torch_peak_gb(), "loss_first": losses[0],
+                      "loss_last": losses[-1], "grad_norm": records[-1]["grad_norm"],
+                      "restored": restored,
+                      "note": "step ms: from one step's end to the next's, a synchronize at "
+                              "each end; the step after a checkpoint includes its save",
+                      **extra}}
+
+
+def torch_peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def same_state(torch, a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def run_train(torch, dev, pattern_dir, rng):
+    """The training path on gst_lj at its published widths, B=32, over the
+    corpus phase's patterns: 6 steps on the feature transport
+    (checkpoint_every 4, the held-out eval and ``default_eval_hook`` at
+    step 6), a second ``Trainer`` restoring step 6 bit for bit, 2 steps on
+    the wav transport with the corpus on the card, then synthesis of 32
+    texts with 32 reference wavs from the trained state. No train step may
+    launch a kernel; the eval hook launches K1 and K4, the synthesis the
+    gst_lj path's counts."""
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+    from gst_tacotron_tpu_torch.synthesize import Synthesizer
+    from gst_tacotron_tpu_torch.train import Trainer, default_eval_hook
+
+    cfg = apply_overrides(get_preset("gst_lj"), {
+        "train.checkpoint_every": 4, "train.eval_every": TRAIN_STEPS, "train.log_every": 1})
+    lines = []
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, pattern_dir, f"{work}/feat", device=dev)
+        setup_s = time.perf_counter() - t0
+        records, ev = drive_trainer(torch, ops, trainer, TRAIN_STEPS, default_eval_hook)
+        for k in ("gru_scan", "decode_scan"):
+            if not ev.get("eval_hook", {}).get(k):
+                fail(f"train: the eval hook launched {ev.get('eval_hook')}, no {k}")
+        log = [json.loads(x) for x in open(f"{work}/feat/logs/metrics.jsonl")]
+        evals = [r for r in log if r["step"] == TRAIN_STEPS and "eval/diagonality" in r]
+        if not evals or any("eval/eval_error" in r for r in log):
+            fail("train: the eval hook did not synthesize (eval/eval_error or no diagonality)")
+        if not any("eval/eval_loss" in r and np.isfinite(r["eval/eval_loss"]) for r in log):
+            fail("train: the held-out eval logged no finite eval_loss")
+        again = Trainer(cfg, pattern_dir, f"{work}/feat", device=dev)
+        restored = (again.restore_if_available() and again.state.step == TRAIN_STEPS
+                    and same_state(torch, trainer.state.model, again.state.model)
+                    and all(torch.equal(trainer.state.opt.mu[k], again.state.opt.mu[k])
+                            and torch.equal(trainer.state.opt.nu[k], again.state.opt.nu[k])
+                            for k in trainer.state.opt.mu))
+        eval_loss = next(r["eval/eval_loss"] for r in log if "eval/eval_loss" in r)
+        lines.append(train_line(cfg, "features", records, restored, setup_s=setup_s,
+                                eval_launches=ev["eval_hook"],
+                                run_eval_launches=ev["run_eval"], eval_loss=eval_loss,
+                                eval_diagonality=evals[0]["eval/diagonality"]))
+        print(json.dumps(lines[-1]), flush=True)
+        if not restored:
+            fail("train: the restored state differs from the trained one")
+
+        wire = apply_overrides(cfg, {"data.wav_transport": True, "data.device_corpus": True})
+        t0 = time.perf_counter()
+        wt = Trainer(wire, pattern_dir, f"{work}/wire", device=dev)
+        setup_s = time.perf_counter() - t0
+        records, _ = drive_trainer(torch, ops, wt, WIRE_STEPS)
+        lines.append(train_line(wire, "wav + device corpus", records, None, setup_s=setup_s,
+                                device_corpus_gb=wt.device_corpus_gb,
+                                profiled_step=profile_train_step(torch, ops, wt)))
+        print(json.dumps(lines[-1]), flush=True)
+
+        texts, wavs = make_inputs(rng, cfg.audio.sample_rate)
+        synth = Synthesizer(cfg, trainer.state.model, device=dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = synth(texts, reference_wavs=wavs, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    expected = {**dict.fromkeys(counts, 0), "gru_scan": 3, "refenc_stack": 1,
+                "stft_features": 4, "decode_scan": 1}
+    info = {"config": "gst_lj", "transport": "synthesis from the trained state",
+            "batch": B, "launches": nonzero_counts(ops), "wall_ms": 1e3 * wall,
+            "frames": out["mel"].shape[1],
+            "finite": bool(all(np.all(np.isfinite(out[k])) for k in ("mel", "linear", "wav")))}
+    print(json.dumps({"train": info}), flush=True)
+    if counts != expected:
+        fail(f"train: synthesis from the trained state launched {counts}, expected {expected}")
+    if not info["finite"]:
+        fail("train: synthesis from the trained state is not finite")
+    return counts
+
+
+def profile_train_step(torch, ops, trainer):
+    """One more step of ``trainer`` (the next batch of its index stream)
+    under torch.profiler: host wall, device busy time, the device's idle
+    share and the kernels the step ran. The profiler's own host cost
+    inflates the wall, so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, rows, spec = next(trainer.loader.stream_indices(trainer.state.step))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_rows(b, rows, spec)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    if nonzero_counts(ops):
+        fail(f"train: the profiled step launched kernels {nonzero_counts(ops)}")
+    dev_rows = device_rows(prof)
+    busy = sum(ms for _, ms, _ in dev_rows)
+    top = sorted(dev_rows, key=lambda r: -r[1])[:5]
+    return {"frames": spec.max_frames, "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "device_kernels": sum(n for k, _, n in dev_rows if "Memcpy" not in k
+                                  and "Memset" not in k),
+            "top_device_ms": {k[:60]: ms for k, ms, _ in top}}
+
+
+def small_train_batch(rng, cfg, b=4, t_text=24, t_mel=64):
+    """A seeded feature batch at ``cfg``'s widths. No token twice in a row:
+    equal neighbours tie in the encoder's maxpool, and which side takes the
+    gradient then rests on a one-ulp rounding difference."""
+    tl = np.array([t_text] + [int(x) for x in rng.integers(5, t_text, b - 1)])
+    ml = np.array([t_mel] + [2 * int(x) for x in rng.integers(8, t_mel // 2, b - 1)])
+    tokens = 1 + (rng.integers(0, 39, (b, 1)) + np.cumsum(rng.integers(1, 39, (b, t_text)), 1)) % 39
+    tokens = tokens * (np.arange(t_text)[None] < tl[:, None])
+    fmask = (np.arange(t_mel)[None] < ml[:, None])[..., None]
+    return {"tokens": tokens.astype(np.int32), "token_lengths": tl.astype(np.int32),
+            "mel": (rng.uniform(0, 1, (b, t_mel, 80)) * fmask).astype(np.float32),
+            "mel_lengths": ml.astype(np.int32),
+            "linear": (rng.uniform(0, 1, (b, t_mel, cfg.model.num_freq)) * fmask
+                       ).astype(np.float32),
+            "speaker_ids": np.zeros(b, np.int32)}
+
+
+def check_train_card_vs_cpu(torch, dev):
+    """One train step of gst_lj at the CPU tests' widths (dropout off, the
+    constant schedule at lr 1e-3 of tests/test_torch_train_parity.py) on the
+    card (TF32 off) and on the CPU, from the same weights and batch."""
+    import copy
+
+    from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+    from gst_tacotron_tpu_torch.train import TrainState, make_optimizer, train_step
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    cfg = apply_overrides(get_preset("gst_lj"), {
+        **SMALL_WIDTHS, "model.encoder.prenet_dropout": 0.0,
+        "model.decoder.prenet_dropout": 0.0, "optimizer.schedule": "constant",
+        "optimizer.learning_rate": 1e-3})
+    batch = small_train_batch(np.random.default_rng(11), cfg)
+    cpu_model = build_model(cfg, seed=5, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    res = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("card", card_model, dev)):
+        tx = make_optimizer(cfg.optimizer)
+        st = TrainState(0, model, tx.init(dict(model.named_parameters())), 0)
+        m = train_step(tx, cfg, st, {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        res[name] = ({k: float(v) for k, v in m.items()},
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (mc, gc, pc), (mg, gg, pg) = res["cpu"], res["card"]
+    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc)
+    grad_rel = max(float((gg[k] - gc[k]).abs().max() / max(float(gc[k].abs().max()), 1e-30))
+                   for k in gc)
+    param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    info = {"config": "gst_lj at the CPU tests' widths", "transport": "card vs CPU, one step",
+            "loss_max_rel_err": loss_rel, "grad_max_err_rel_to_max": grad_rel,
+            "param_max_abs_err": param_err, "tol": TRAIN_TOL, "grad_tol": GRAD_TOL,
+            "loss": mg["loss"]}
+    print(json.dumps({"train": info}), flush=True)
+    if not (loss_rel <= TRAIN_TOL and param_err <= TRAIN_TOL and grad_rel <= GRAD_TOL):
+        fail(f"train: the card's step differs from the CPU's: {info}")
+
+
+def run_vocoder_train(torch, dev, pattern_dir):
+    """gst_wavernn's WaveRNN at its widths: 2 ``VocoderTrainer`` steps of
+    batch 16 x 24 frames over the corpus phase's patterns, then a restore."""
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+    from gst_tacotron_tpu_torch.vocoder_train import VocoderTrainer
+
+    cfg = apply_overrides(get_preset("gst_wavernn"), {"train.log_every": 1,
+                                                      "train.checkpoint_every": 2})
+    steps = 2
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        vt = VocoderTrainer(cfg, pattern_dir, work, device=dev, segment_frames=24,
+                            batch_size=16)
+        setup_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for step in range(1, steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vt.train(step)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if nonzero_counts(ops):
+                fail(f"vocoder train: step {step} launched kernels {nonzero_counts(ops)}")
+        log = [json.loads(x) for x in open(f"{work}/vocoder_logs/metrics.jsonl")]
+        again = VocoderTrainer(cfg, pattern_dir, work, device=dev, segment_frames=24,
+                               batch_size=16)
+        restored = (again.restore_if_available() and again.state.step == steps
+                    and same_state(torch, vt.model, again.model))
+    losses = [r["vocoder/loss"] for r in log]
+    info = {"config": cfg.name, "transport": "vocoder segments 16 x 24 frames",
+            "steps": steps, "batch": 16, "samples_per_row": 24 * cfg.audio.hop_length,
+            "ms_per_step": float(np.median(times)), "step_ms": times,
+            "peak_mem_gb": torch_peak_gb(), "loss_first": losses[0], "loss_last": losses[-1],
+            "restored": restored, "setup_s": setup_s,
+            "note": "each step includes its checkpoint save (checkpoint_every 2: step 2)"}
+    print(json.dumps({"train": info}), flush=True)
+    if not all(np.isfinite(losses)) or len(losses) != steps:
+        fail(f"vocoder train: losses {losses}")
+    if not restored:
+        fail("vocoder train: the restored state differs from the trained one")
+
+
+def run_train_phase(torch, dev, corpus_dir):
+    t_train = time.perf_counter()
+    run_train(torch, dev, corpus_dir, np.random.default_rng(9))
+    log(f"train path done in {time.perf_counter() - t_train:.1f} s")
+    t0 = time.perf_counter()
+    check_train_card_vs_cpu(torch, dev)
+    log(f"train card vs CPU done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_vocoder_train(torch, dev, corpus_dir)
+    log(f"vocoder train done in {time.perf_counter() - t0:.1f} s; train phase "
+        f"{time.perf_counter() - t_train:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -1345,6 +1676,7 @@ def main() -> None:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     decode_only = sys.argv[1:] == ["--decode-only"]
+    train_only = sys.argv[1:] == ["--train-only"]
     t0 = time.perf_counter()
     build_all([ops.decode.KERNEL] if decode_only else ops.all_kernels())
     log(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
@@ -1364,6 +1696,16 @@ def main() -> None:
         for c, seed in ((cfg, 7), (cfg3, 8)):
             row = check_decode(torch, np.random.default_rng(seed), dev, c, init_seed=seed)
             print(json.dumps({"kernel_check": row}), flush=True)
+        print(card)
+        return
+    if train_only:   # the train phase alone, on a fresh corpus, then stop
+        from gst_tacotron_tpu_torch.data import generate_patterns, synthetic_utterances
+
+        with tempfile.TemporaryDirectory() as corpus_dir:
+            generate_patterns(synthetic_utterances(CORPUS_UTTERANCES, variable=True),
+                              get_preset("gst_lj").audio, corpus_dir, store_wav=True,
+                              device_features=True, device=dev)
+            run_train_phase(torch, dev, corpus_dir)
         print(card)
         return
     rng = np.random.default_rng(0)
@@ -1406,12 +1748,14 @@ def main() -> None:
             if "launches" not in r and counts[r["name"]]:
                 r["launches"] = counts[r["name"]]
         log(f"{name} path done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    counts = run_corpus(torch, dev, get_preset("gst_lj"))
-    for r in kernels:
-        if "launches" not in r and counts[r["name"]]:
-            r["launches"] = counts[r["name"]]
-    log(f"corpus path done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as corpus_dir:
+        t0 = time.perf_counter()
+        counts = run_corpus(torch, dev, get_preset("gst_lj"), corpus_dir)
+        for r in kernels:
+            if "launches" not in r and counts[r["name"]]:
+                r["launches"] = counts[r["name"]]
+        log(f"corpus path done in {time.perf_counter() - t0:.1f} s")
+        run_train_phase(torch, dev, corpus_dir)
     for r in kernels:
         if "launches" not in r:
             fail(f"{r['name']}: no path launched it")

@@ -11,10 +11,14 @@ JAX layout so each counterpart is easy to find:
   data/              — pattern generation and the bucketed loader (numpy, scipy)
   ops/               — one wrapper per Hopper kernel plus its plain PyTorch twin
   csrc/              — the CUDA C++ kernels (sm_90a), built by nvcc at first use
-  weights.py         — flat JAX variables -> port modules; seeded init
+  weights.py         — flat JAX variables <-> port modules; seeded init
   vocoder.py         — Griffin-Lim and WaveRNN vocoders
   synthesize.py      — ``Synthesizer``: texts + reference wavs -> waveforms
-  train.py           — the wav-transport features (the trainer is not ported)
+  losses.py          — the training losses
+  train.py           — ``Trainer``: teacher-forced step, optimizer, eval hook
+  checkpoint.py, metrics.py, utils/ — checkpoints, JSONL/TensorBoard logs,
+                       the step-window profiler
+  vocoder_train.py   — the WaveRNN vocoder's trainer
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

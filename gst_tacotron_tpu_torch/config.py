@@ -237,8 +237,8 @@ class DataConfig:
     # device (train._materialize_features). Needs patterns with --store-wav.
     wav_transport: bool = False
     # Device-resident corpus (requires wav_transport): the loader preps it
-    # (BucketedLoader.build_wav_corpus); the trainer that holds it on the
-    # card is not ported yet.
+    # (BucketedLoader.build_wav_corpus) and the trainer holds it on the card,
+    # shipping only row indices a step.
     device_corpus: bool = False
     device_corpus_max_gb: float = 8.0
 
@@ -252,7 +252,8 @@ class TrainConfig:
     keep_checkpoints: int = 5
     checkpoint_dir: str = "checkpoints"
     seed: int = 0
-    # NaN-checking debug mode of the JAX trainer.
+    # NaN checking: the JAX trainer's jax_debug_nans, the port's autograd
+    # anomaly mode.
     debug_nans: bool = False
     eval_sentences: Tuple[str, ...] = (
         "Scientists at the CERN laboratory say they have discovered a new particle.",

@@ -1,17 +1,22 @@
-"""Bahdanau and location-sensitive attention parameters, the initial
-attention state and the alignment diagonality metric (counterparts of
-``gst_tacotron_tpu/models/attention.py``).
+"""Bahdanau and location-sensitive attention: parameters, the step, the
+initial attention state and the alignment diagonality metric (counterparts
+of ``gst_tacotron_tpu/models/attention.py``).
 
-The per-step score, masked softmax and context of the decoder live in
-``ops/decode.py`` (the plain version of the decode kernel) and in the
-kernel itself; the modules hold the parameters and project the keys once.
+``attention_step`` is the per-step score, masked softmax and context over
+projected keys. The plain decode step (``ops/decode.py::decode_step``, K4's
+oracle and the teacher-forced training step) calls it with the packed
+weights; the modules' ``forward`` calls it with their own parameters, as the
+JAX modules' ``__call__``. Location-sensitive attention folds its conv and
+projection into one (k*c, A) tap matrix (``loca``), a linear refolding of
+the same sum.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import AttentionConfig
@@ -24,6 +29,34 @@ def init_attention_state(batch: int, memory_time: int, device=None) -> Dict[str,
     alignment[:, 0] = 1.0
     return {"alignment": alignment,
             "cumulative": torch.zeros(batch, memory_time, device=device)}
+
+
+def attention_step(q: torch.Tensor, keys: torch.Tensor, memory: torch.Tensor,
+                   valid: Optional[torch.Tensor], prev: torch.Tensor, cum: torch.Tensor,
+                   vvec: torch.Tensor, loca: Optional[torch.Tensor] = None,
+                   loc_k: int = 1, loc_c: int = 1
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """score = v . tanh(keys + q [+ taps([prev ; cum]) @ loca]), masked to
+    -1e9 where ``valid`` (B, T) is False, softmax over T, context.
+    ``q`` (B, A) is the projected query, ``keys`` (B, T, A), ``memory``
+    (B, T, M). ``loca`` None is Bahdanau attention. Returns (context (B, M),
+    alignment (B, T), previous', cumulative')."""
+    t = keys.shape[1]
+    arg = keys + q[:, None, :]
+    if loca is not None:
+        feats = torch.stack([prev, cum][:loc_c], -1)                # (B, T, c)
+        fp = F.pad(feats, (0, 0, (loc_k - 1) // 2, loc_k // 2))
+        arg = arg + torch.cat([fp[:, j: j + t] for j in range(loc_k)], -1) @ loca
+    scores = (torch.tanh(arg) * vvec).sum(-1)
+    if valid is not None:
+        scores = torch.where(valid, scores, torch.full_like(scores, -1e9))
+    m = scores.max(-1, keepdim=True).values
+    e = torch.exp(scores - m)
+    if valid is not None:
+        e = e * valid
+    align = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-9)
+    ctx = torch.einsum("bt,btm->bm", align, memory)
+    return ctx, align, align, cum + align
 
 
 class BahdanauAttention(nn.Module):
@@ -40,6 +73,22 @@ class BahdanauAttention(nn.Module):
         """(B, T, M) encoder states -> (B, T, dim) keys, once per utterance."""
         return self.memory_proj(memory)
 
+    def loca(self) -> Optional[torch.Tensor]:
+        """The location conv folded with its projection into one (k*c, dim)
+        tap matrix (None: no location term)."""
+        return None
+
+    def forward(self, query: torch.Tensor, memory: torch.Tensor, keys: torch.Tensor,
+                memory_mask: Optional[torch.Tensor], state: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """One step: (context (B, M), alignment (B, T), new state)."""
+        k = self.cfg.location_kernel_size
+        ctx, align, prev, cum = attention_step(
+            self.query_proj(query), keys, memory, memory_mask, state["alignment"],
+            state["cumulative"], self.score_v.kernel[:, 0], self.loca(), k,
+            self.cfg.location_channels)
+        return ctx, align, {"alignment": prev, "cumulative": cum}
+
 
 class LocationSensitiveAttention(BahdanauAttention):
     """Content + location attention (Chorowski 2015):
@@ -52,6 +101,10 @@ class LocationSensitiveAttention(BahdanauAttention):
         self.location_conv = MatmulConv1D(cfg.location_channels, cfg.location_filters,
                                           cfg.location_kernel_size)
         self.location_proj = Dense(cfg.location_filters, cfg.dim, use_bias=False)
+
+    def loca(self) -> torch.Tensor:
+        k, c, f = self.location_conv.kernel.shape
+        return self.location_conv.kernel.reshape(k * c, f) @ self.location_proj.kernel
 
 
 def make_attention(cfg: AttentionConfig, query_dim: int, memory_dim: int) -> nn.Module:

@@ -1,12 +1,14 @@
-"""Autoregressive mel decoder (counterpart of
-``gst_tacotron_tpu/models/decoder.py``), Bahdanau or location-sensitive
-attention.
+"""Mel decoder (counterpart of ``gst_tacotron_tpu/models/decoder.py``),
+Bahdanau or location-sensitive attention.
 
 ``DecoderCell`` holds the step's parameters under the flax names. The step
-itself runs inside ``ops.decode.decode_scan``: the decode kernel (K4) on the
-card, its plain version on the CPU, both over the packed weights of
+itself is ``ops.decode.decode_step`` over the packed weights of
 ``ops.decode.pack_decoder_weights``. ``Decoder.decode`` is the fixed-length
-decode with stop masking and zeroing of the frames past each stop.
+AR decode (``ops.decode.decode_scan``: the decode kernel (K4) on the card,
+its plain version on the CPU) with stop masking and zeroing of the frames
+past each stop. ``Decoder.teacher_forced`` drives the same step with the
+target frames (``ops.decode.teacher_forced_scan``) over a differentiable
+pack, on every device: the training forward.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from torch import nn
 
 from ..config import AttentionConfig, DecoderConfig
-from ..ops.decode import decode_scan, decode_scan_plain, pack_decoder_weights
+from ..ops.decode import (decode_scan, decode_scan_plain, pack_decoder_weights,
+                          teacher_forced_scan)
 from .attention import make_attention
 from .modules import Dense, Prenet, length_mask
 from .rnn import GRUCell
@@ -48,8 +51,9 @@ class DecoderCell(nn.Module):
     def precompute_keys(self, memory: torch.Tensor) -> torch.Tensor:
         return self.attention.precompute(memory)
 
-    def pack(self):
-        return pack_decoder_weights(self, self.num_mels, self.cfg.reduction_factor)
+    def pack(self, differentiable: bool = False):
+        return pack_decoder_weights(self, self.num_mels, self.cfg.reduction_factor,
+                                    differentiable=differentiable)
 
 
 def stop_frame_lengths(stop_logits: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
@@ -90,3 +94,18 @@ class Decoder(nn.Module):
             seed=seed, use_dropout=not deterministic_prenet)
         frame_lengths = stop_frame_lengths(stops, self.cfg)
         return mask_frames(mel, frame_lengths), stops, aligns, frame_lengths
+
+    def teacher_forced(self, memory: torch.Tensor, memory_lengths: Optional[torch.Tensor],
+                       mel_targets: torch.Tensor, *, deterministic_prenet: bool = False,
+                       seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Teacher-forced decode of ``mel_targets`` (B, T_mel, M), T_mel % r
+        == 0 -> (mel (B, T_mel, M), stop_logits (B, T_mel), alignments (B, S,
+        T)); prenet dropout from the Philox stream ``seed``."""
+        keys = self.cell.precompute_keys(memory)
+        if memory_lengths is None:
+            memory_lengths = torch.full((memory.shape[0],), memory.shape[1],
+                                        device=memory.device)
+        return teacher_forced_scan(
+            self.cell.pack(differentiable=True), memory, keys, memory_lengths, mel_targets,
+            dec_cfg=self.cfg, attn_cfg=self.attn_cfg, num_mels=self.num_mels, seed=seed,
+            use_dropout=not deterministic_prenet)

@@ -26,8 +26,8 @@ class Taco1Encoder(nn.Module):
     def forward(self, tokens: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 *, deterministic_prenet: bool = False,
                 generator: Optional[torch.Generator] = None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, train: bool = False) -> torch.Tensor:
         x = self.embedding(tokens)
         x = self.prenet(x, deterministic=deterministic_prenet, generator=generator)
-        x = self.cbhg(x, lengths, plain=plain)
+        x = self.cbhg(x, lengths, plain=plain, train=train)
         return mask_sequence(x, lengths)

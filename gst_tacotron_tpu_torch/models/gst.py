@@ -1,10 +1,14 @@
 """Global Style Tokens: reference encoder + style-token layer (counterparts of
 ``gst_tacotron_tpu/models/gst.py``).
 
-The forward passes are the inference composition of
+At inference the forward passes are the composition of
 ``gst_tacotron_tpu/ops/refenc_pallas.py``, ported in ``ops/refenc.py``:
 masked, folded-BN conv stack (K2), then the reference GRU (K1), then the
-multi-head attention over the tanh tokens.
+multi-head attention over the tanh tokens. In training (``train=True``) the
+reference encoder is the flax module's own composition: plain stride-2
+convs, BatchNorm with the batch's statistics, ReLU, then the masked GRU's
+plain scan, as the JAX package trains it. The style-token layer is the same
+in both.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from torch import nn
 
 from ..config import GSTConfig
 from ..ops import refenc
-from .modules import BatchNorm, Dense, MatmulConv2DStride2
+from .modules import BatchNorm, Dense, MatmulConv2DStride2, mask_sequence
 from .rnn import GRU
 
 
@@ -35,8 +39,20 @@ class ReferenceEncoder(nn.Module):
         self.gru = GRU(f * c_in, cfg.ref_gru_dim)
 
     def forward(self, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None,
-                *, plain: bool = False) -> torch.Tensor:
-        return refenc.ref_encoder(self, ref_mel, mel_lengths, plain=plain)
+                *, plain: bool = False, train: bool = False) -> torch.Tensor:
+        if not train:
+            return refenc.ref_encoder(self, ref_mel, mel_lengths, plain=plain)
+        x = mask_sequence(ref_mel, mel_lengths)[..., None]        # (B, T, F, 1)
+        n = len(self.cfg.ref_conv_channels)
+        for i in range(n):
+            conv, bn = getattr(self, f"conv_{i}"), getattr(self, f"bn_{i}")
+            x = torch.relu(bn(conv(x), train=True))
+        b, t, f, c = x.shape
+        gru_lengths = None
+        if mel_lengths is not None:
+            gru_lengths = torch.clamp((mel_lengths + 2 ** n - 1) // 2 ** n, min=1)
+        _, final = self.gru(x.reshape(b, t, f * c), gru_lengths, train=True)
+        return final
 
 
 class StyleTokenLayer(nn.Module):
@@ -73,6 +89,10 @@ class GST(nn.Module):
     def forward(self, ref_mel: Optional[torch.Tensor],
                 mel_lengths: Optional[torch.Tensor] = None,
                 token_weights: Optional[torch.Tensor] = None, *,
-                plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        return refenc.gst_style_from_params(self, ref_mel, mel_lengths,
-                                            token_weights, plain=plain)
+                plain: bool = False, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if not train or ref_mel is None:
+            return refenc.gst_style_from_params(self, ref_mel, mel_lengths,
+                                                token_weights, plain=plain)
+        ref = self.reference_encoder(ref_mel, mel_lengths, train=True)
+        return self.stl(ref, token_weights)

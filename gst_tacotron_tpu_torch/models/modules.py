@@ -1,11 +1,13 @@
-"""Shared modules: dense, inference BatchNorm, prenet, highway, convs, CBHG.
+"""Shared modules: dense, BatchNorm, prenet, highway, convs, CBHG.
 
 Counterparts of ``gst_tacotron_tpu/models/modules.py``. Parameters keep the
 JAX package's names and layouts (``kernel`` is (in, out), conv kernels are
 (k, in, out) or (3, 3, in, out), BatchNorm has ``scale``/``bias`` parameters
 and ``mean``/``var`` buffers), so ``weights.py`` maps a flax path onto a
 state-dict key one to one. Sequence tensors are (B, T, C). Padded positions
-are re-zeroed before every conv, as in the JAX package.
+are re-zeroed before every conv, as in the JAX package. ``train=True``
+normalizes with the batch's statistics and updates the running ones, as
+flax's ``BatchNorm(use_running_average=False)`` in a mutable step.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from torch import nn
 
 # Keras BatchNormalization epsilon (flax's default is 1e-5).
 BN_EPS = 1e-3
+# flax's BatchNorm momentum: running = 0.99 * running + 0.01 * batch
+BN_MOMENTUM = 0.99
 
 
 def length_mask(lengths: torch.Tensor, time: int) -> torch.Tensor:
@@ -62,8 +66,13 @@ class Embed(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis with running statistics, in
-    flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias."""
+    """BatchNorm over the last axis in flax's order: (x - mean) * (scale *
+    rsqrt(var + eps)) + bias. Inference takes the running statistics.
+    ``train=True`` takes the batch's, over every axis but the last (padded
+    positions included, as flax), with flax 0.12's fast variance E[x^2] -
+    E[x]^2 clipped at 0 (biased), and moves the running buffers by
+    ``BN_MOMENTUM``. Not ``nn.BatchNorm``: its momentum weighs the other way
+    and its running variance is unbiased."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -73,9 +82,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean) * mul + self.bias
 
 
 class Prenet(nn.Module):
@@ -178,19 +196,22 @@ class ConvBankBlock(nn.Module):
             bank_tap_mask(bank_k, c_in, channels)), persistent=False)
         self.bn = BatchNorm(bank_k * channels)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                train: bool = False) -> torch.Tensor:
         x = mask_sequence(x, lengths)
         t = x.shape[1]
         smin, smax = -((self.bank_k - 1) // 2), self.bank_k // 2
         xp = F.pad(x, (0, 0, -smin, smax))
         x_cat = torch.cat([xp[:, s - smin: s - smin + t] for s in range(smin, smax + 1)], dim=-1)
         y = x_cat @ (self.bank_kernel * self.tap_mask)
-        return torch.relu(self.bn(y))
+        return torch.relu(self.bn(y, train))
 
 
 class CBHG(nn.Module):
     """Conv bank -> maxpool(2, stride 1) -> conv projections (+BN) ->
-    residual -> highways -> BiGRU. Encoder body (K=16) and post-net (K=8)."""
+    residual -> highways -> BiGRU. Encoder body (K=16) and post-net (K=8).
+    ``train`` takes the BatchNorms' batch statistics and the BiGRU's plain
+    scans."""
 
     def __init__(self, in_dim: int, bank_k: int, bank_channels: int,
                  proj_channels: Sequence[int], highway_layers: int,
@@ -213,15 +234,15 @@ class CBHG(nn.Module):
         self.bigru = BiGRU(highway_dim, gru_dim)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                *, plain: bool = False) -> torch.Tensor:
+                *, plain: bool = False, train: bool = False) -> torch.Tensor:
         residual = x
-        y = self.bank(x, lengths)
+        y = self.bank(x, lengths, train)
         y = mask_sequence(y, lengths)
         padded = F.pad(y, (0, 0, 0, 1), value=-float("inf"))
         y = torch.maximum(padded[:, :-1], padded[:, 1:])
         for i in range(self.num_proj):
             y = mask_sequence(y, lengths)
-            y = getattr(self, f"proj_bn_{i}")(getattr(self, f"proj_{i}")(y))
+            y = getattr(self, f"proj_bn_{i}")(getattr(self, f"proj_{i}")(y), train)
             if i + 1 < self.num_proj:
                 y = torch.relu(y)
         if self.residual_proj is not None:
@@ -232,5 +253,5 @@ class CBHG(nn.Module):
         for i in range(self.highway_layers):
             y = getattr(self, f"highway_{i}")(y)
         y = mask_sequence(y, lengths)
-        out, _ = self.bigru(y, lengths, plain=plain)
+        out, _ = self.bigru(y, lengths, plain=plain, train=train)
         return out

@@ -22,5 +22,5 @@ class PostCBHG(nn.Module):
         self.linear_proj = Dense(2 * c.cbhg_gru_dim, num_freq)
 
     def forward(self, mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None,
-                *, plain: bool = False) -> torch.Tensor:
-        return self.linear_proj(self.cbhg(mel, mel_lengths, plain=plain))
+                *, plain: bool = False, train: bool = False) -> torch.Tensor:
+        return self.linear_proj(self.cbhg(mel, mel_lengths, plain=plain, train=train))

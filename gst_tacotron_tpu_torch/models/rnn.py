@@ -7,6 +7,11 @@ reset_after. ``GRU`` runs its whole sequence through ``ops.gru.gru_scan``,
 ``BiGRU`` both directions through ``ops.gru.bigru_scan`` (one launch): the
 CUDA kernel (K1) on the card, its plain version on the CPU. ``plain=True``
 picks the plain version on any device.
+
+``train=True`` runs the plain masked scans on every device. That is the JAX
+package's own choice (its GRU takes the Pallas kernel only when not
+training), not a fallback: the kernel has no backward, and the plain scan is
+autograd over torch ops.
 """
 
 from __future__ import annotations
@@ -48,11 +53,12 @@ class GRU(_GRUParams):
 
     def forward(self, xs: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 initial_state: Optional[torch.Tensor] = None, *,
-                plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                plain: bool = False, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         h0 = initial_state
         if h0 is None:
             h0 = xs.new_zeros(xs.shape[0], self.features)
-        scan = gru_scan_plain if plain else gru_scan
+        scan = gru_scan_plain if plain or train else gru_scan
         return scan(xs, h0, self.kernel, self.bias, self.recurrent_kernel,
                     self.recurrent_bias, lengths=lengths, reverse=self.reverse)
 
@@ -68,8 +74,8 @@ class BiGRU(nn.Module):
         self.bwd = GRU(in_dim, features, reverse=True)
 
     def forward(self, xs: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                *, plain: bool = False):
-        if plain:
+                *, plain: bool = False, train: bool = False):
+        if plain or train:
             f, f_final = self.fwd(xs, lengths, plain=True)
             b, b_final = self.bwd(xs, lengths, plain=True)
             return torch.cat([f, b], dim=-1), (f_final, b_final)

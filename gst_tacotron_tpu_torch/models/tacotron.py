@@ -1,12 +1,15 @@
-"""GSTTacotron inference (counterpart of ``gst_tacotron_tpu/models/tacotron.py``).
+"""GSTTacotron (counterpart of ``gst_tacotron_tpu/models/tacotron.py``).
 
 tokens -> Taco1Encoder -> encoder states (B, T, E)
 [GST: ref mel -> ReferenceEncoder -> StyleTokenLayer -> style (B, S)]
-memory = concat([encoder states, style broadcast over T])
-memory -> Decoder.decode (K4) -> mel, stops, alignments -> PostCBHG -> linear
+[multi-speaker: speaker id -> embedding (B, P)]
+memory = concat([encoder states, style and speaker broadcast over T])
+memory -> Decoder (teacher-forced | AR decode, K4) -> mel, stops, alignments
+mel -> PostCBHG -> linear
 
-The Taco2 encoder, the speaker embedding and teacher forcing are not ported
-yet; configs that need them are refused.
+``forward`` is the teacher-forced pass of training and eval (the JAX
+``__call__``); ``infer`` is synthesis. The Taco2 encoder is not ported;
+configs that need it are refused.
 """
 
 from __future__ import annotations
@@ -20,7 +23,16 @@ from ..config import ModelConfig
 from .decoder import Decoder
 from .encoder import Taco1Encoder
 from .gst import GST
+from .modules import Embed
 from .postnet import PostCBHG
+
+
+def _generator(seed: int, device, deterministic: bool) -> Optional[torch.Generator]:
+    if deterministic:
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 class GSTTacotron(nn.Module):
@@ -28,11 +40,11 @@ class GSTTacotron(nn.Module):
         super().__init__()
         if cfg.encoder.kind != "taco1":
             raise NotImplementedError("only the taco1 encoder is ported")
-        if cfg.num_speakers > 1:
-            raise NotImplementedError("the speaker embedding is not ported")
         self.cfg = cfg
         self.encoder = Taco1Encoder(cfg.encoder, num_symbols)
         self.gst = GST(cfg.gst, cfg.num_mels) if cfg.gst.enabled else None
+        self.speaker_embedding = (Embed(cfg.num_speakers, cfg.speaker_dim)
+                                  if cfg.num_speakers > 1 else None)
         self.decoder = Decoder(cfg.decoder, cfg.attention, cfg.num_mels, self.memory_dim)
         self.postnet = PostCBHG(cfg.postnet, cfg.num_mels, cfg.num_freq)
 
@@ -41,49 +53,82 @@ class GSTTacotron(nn.Module):
         dim = self.cfg.encoder.output_dim
         if self.cfg.gst.enabled:
             dim += self.cfg.gst.style_dim
+        if self.cfg.num_speakers > 1:
+            dim += self.cfg.speaker_dim
         return dim
 
     def build_memory(self, tokens: torch.Tensor, token_lengths: Optional[torch.Tensor],
                      ref_mel: Optional[torch.Tensor] = None,
                      ref_mel_lengths: Optional[torch.Tensor] = None,
                      token_weights: Optional[torch.Tensor] = None, *,
+                     speaker_ids: Optional[torch.Tensor] = None,
                      deterministic_prenet: bool = False,
                      generator: Optional[torch.Generator] = None,
                      precomputed_style: Optional[torch.Tensor] = None,
-                     plain: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Encoder states with the style broadcast-concatenated to every
-        frame. ``precomputed_style`` (B, style_dim) skips the GST block."""
+                     plain: bool = False, train: bool = False
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Encoder states with the style and the speaker embedding (ids
+        default to 0) broadcast-concatenated to every frame.
+        ``precomputed_style`` (B, style_dim) skips the GST block; ``train``
+        takes the BatchNorms' batch statistics and the plain scans."""
         enc = self.encoder(tokens, token_lengths, deterministic_prenet=deterministic_prenet,
-                           generator=generator, plain=plain)
-        aux: Dict[str, Any] = {}
-        if self.gst is None:
-            return enc, aux
-        if precomputed_style is not None:
-            style = precomputed_style
-        else:
-            style, aux["style_attention"] = self.gst(
-                ref_mel, ref_mel_lengths, token_weights, plain=plain)
-        aux["style_embedding"] = style
-        style_t = style[:, None, :].expand(enc.shape[0], enc.shape[1], style.shape[-1])
-        return torch.cat([enc, style_t], dim=-1), aux
+                           generator=generator, plain=plain, train=train)
+        b, t = enc.shape[:2]
+        parts, aux = [enc], {}
+        if self.gst is not None:
+            if precomputed_style is not None:
+                style = precomputed_style
+            else:
+                style, aux["style_attention"] = self.gst(
+                    ref_mel, ref_mel_lengths, token_weights, plain=plain, train=train)
+            aux["style_embedding"] = style
+            parts.append(style[:, None, :].expand(b, t, style.shape[-1]))
+        if self.speaker_embedding is not None:
+            if speaker_ids is None:
+                speaker_ids = torch.zeros(b, dtype=torch.int64, device=enc.device)
+            spk = self.speaker_embedding(speaker_ids.to(enc.device).long())
+            parts.append(spk[:, None, :].expand(b, t, spk.shape[-1]))
+        return (torch.cat(parts, dim=-1) if len(parts) > 1 else enc), aux
+
+    def forward(self, tokens: torch.Tensor, token_lengths: Optional[torch.Tensor],
+                mel_targets: torch.Tensor, ref_mel: Optional[torch.Tensor] = None,
+                ref_mel_lengths: Optional[torch.Tensor] = None,
+                speaker_ids: Optional[torch.Tensor] = None,
+                token_weights: Optional[torch.Tensor] = None, *,
+                train: bool = False, deterministic_prenet: bool = False,
+                seed: int = 0) -> Dict[str, torch.Tensor]:
+        """Teacher-forced pass (training and eval losses): encode (prenet
+        dropout from a generator seeded ``seed``), decode the targets
+        (dropout stream ``seed + 1``), post-net over the whole decoded mel.
+        In training the GST reference is the target mel itself; pass
+        ``ref_mel=mel_targets``."""
+        gen = _generator(seed, tokens.device, deterministic_prenet)
+        memory, aux = self.build_memory(
+            tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
+            speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,
+            generator=gen, train=train)
+        mel, stops, aligns = self.decoder.teacher_forced(
+            memory, token_lengths, mel_targets, deterministic_prenet=deterministic_prenet,
+            seed=seed + 1)
+        linear = self.postnet(mel, None, train=train)
+        return {"mel": mel, "linear": linear, "stop_logits": stops, "alignments": aligns,
+                **aux}
 
     def infer(self, tokens: torch.Tensor, token_lengths: torch.Tensor,
               ref_mel: Optional[torch.Tensor] = None,
               ref_mel_lengths: Optional[torch.Tensor] = None,
               token_weights: Optional[torch.Tensor] = None, *,
+              speaker_ids: Optional[torch.Tensor] = None,
               max_steps: Optional[int] = None, deterministic_prenet: bool = False,
               seed: int = 0, precomputed_style: Optional[torch.Tensor] = None,
               plain: bool = False) -> Dict[str, torch.Tensor]:
         """Autoregressive synthesis: encode (prenet dropout from ``seed``),
         decode (dropout stream ``seed + 1``), post-net."""
-        gen = None
-        if not deterministic_prenet:
-            gen = torch.Generator(device=tokens.device)
-            gen.manual_seed(seed)
+        gen = _generator(seed, tokens.device, deterministic_prenet)
         memory, aux = self.build_memory(
             tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
-            deterministic_prenet=deterministic_prenet, generator=gen,
-            precomputed_style=precomputed_style, plain=plain)
+            speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,
+            generator=gen, precomputed_style=precomputed_style, plain=plain)
         mel, stops, aligns, frame_lengths = self.decoder.decode(
             memory, token_lengths, max_steps=max_steps,
             deterministic_prenet=deterministic_prenet, seed=seed + 1, plain=plain)

@@ -8,11 +8,15 @@ The parameters keep the flax names (``sample_embed.embedding``,
 ``cond_proj``, ``gru``, ``fc1``, ``fc2``), so ``weights.load_flat`` carries a
 JAX WaveRNN's variables over unchanged. ``sample`` runs through
 ``ops.wavernn.wavernn_sample``: the sampling kernel (K5) on the card, its
-plain version on the CPU. ``forward`` is the teacher-forced pass (logits
-only; the training loss is not ported).
+plain version on the CPU. ``forward`` is the teacher-forced pass of training
+and ``loss`` its mu-law cross-entropy: plain PyTorch on every device, over
+the parameters themselves, with the input product over all samples one
+GEMM, the output layers one GEMM each, and only ``h @ wh`` in the loop.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -56,8 +60,8 @@ class WaveRNN(nn.Module):
         h_new, out = self.gru(h, x)
         return h_new, self.fc2(torch.relu(self.fc1(out)))
 
-    def pack(self):
-        return pack_wavernn_weights(self)
+    def pack(self, differentiable: bool = False):
+        return pack_wavernn_weights(self, differentiable=differentiable)
 
     # -- teacher-forced pass ------------------------------------------------
 
@@ -65,8 +69,19 @@ class WaveRNN(nn.Module):
         """mel (B, T, M), wav (B, T*hop) in [-1, 1] -> logits (B, T*hop, K):
         sample t predicted from the samples before it and the conditioning."""
         classes = mulaw_encode(wav, self.cfg.wavernn_bits)
-        return teacher_forced_logits(self.pack(), self.cond_frames(mel), classes,
-                                     hop=self.cfg.wavernn_hop)
+        return teacher_forced_logits(self.pack(differentiable=True), self.cond_frames(mel),
+                                     classes, hop=self.cfg.wavernn_hop)
+
+    def loss(self, mel: torch.Tensor, wav: torch.Tensor,
+             sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean negative log-likelihood of each sample's mu-law class
+        (masked by ``sample_mask`` (B, T*hop) when given)."""
+        logp = torch.log_softmax(self(mel, wav), dim=-1)
+        targets = mulaw_encode(wav, self.cfg.wavernn_bits).long()
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        if sample_mask is None:
+            return nll.mean()
+        return (nll * sample_mask).sum() / torch.clamp(sample_mask.sum(), min=1.0)
 
     # -- sampling -----------------------------------------------------------
 

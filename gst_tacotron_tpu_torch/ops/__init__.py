@@ -11,7 +11,10 @@
 ``philox.py`` is the kernels' random stream for their plain versions.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
-the plain version for CPU tensors.
+the plain version for CPU tensors. No kernel has a backward: on the card a
+wrapper raises when grad mode is on and an input requires grad
+(``build.refuse_grad``), so training takes the plain versions, which stay
+differentiable.
 """
 
 

@@ -156,6 +156,19 @@ def ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and any tensor requires grad: a kernel's
+    output has no ``grad_fn``, so a training graph through it would leave
+    every parameter before it untrained. Training runs the plain versions;
+    inference runs under ``torch.no_grad()``."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the kernel has no "
+                           "backward; run it under torch.no_grad() or take the plain "
+                           "version")
+
+
 def check_cuda(name: str, *tensors) -> None:
     """Raise unless every tensor is a contiguous float32/int32 CUDA tensor on
     one device (the kernels take raw pointers)."""

@@ -35,14 +35,16 @@ them itself.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
 from ..config import AttentionConfig, DecoderConfig
-from .build import F, I, P, U64, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
+from ..models.attention import attention_step
+from .build import (F, I, P, U64, CudaKernel, check_cuda, ptr, refuse_grad, sm_count,
+                    stream_ptr)
 from .gru import gru_update
 from .philox import stream_uniforms
 
@@ -66,13 +68,17 @@ def location_taps(attn_cfg: AttentionConfig) -> Tuple[int, int]:
     return 1, 1
 
 
-def pack_decoder_weights(cell, num_mels: int, r: int) -> Dict[str, torch.Tensor]:
+def pack_decoder_weights(cell, num_mels: int, r: int, *,
+                         differentiable: bool = False) -> Dict[str, torch.Tensor]:
     """Pad and pack a ``models.decoder.DecoderCell`` into the kernel's operand
     layout (the layout of the JAX ``pack_decoder_weights``): the prenet input
     padded to 128 rows, the frame and stop projections packed side by side
     into 256 output columns, and ``loca``, the location conv (k, c, F) folded
     with the location projection (F, A) into (k*c, A) (zeros (1, A) for
-    Bahdanau attention)."""
+    Bahdanau attention). Every operand is a torch op on the parameters, so
+    with ``differentiable`` the pack stays in the graph and a loss on the
+    plain decode reaches every decoder parameter (the teacher-forced step);
+    otherwise the operands are detached, contiguous copies (the kernel's)."""
     if len(cell.cfg.prenet_dims) != 2 or cell.cfg.num_decoder_rnn_layers != 2:
         raise ValueError("the decode kernel covers a 2-layer prenet and 2 decoder GRUs")
     if cell.attn_cfg.kind not in _KINDS:
@@ -80,39 +86,29 @@ def pack_decoder_weights(cell, num_mels: int, r: int) -> Dict[str, torch.Tensor]
     out_dim = 2 * LANE
     if r * num_mels + r > out_dim:
         raise ValueError("packed frame+stop output exceeds 256 columns")
-    with torch.no_grad():
-        d1 = cell.prenet.dense_0
-        pw1 = torch.zeros(LANE, d1.kernel.shape[1], device=d1.kernel.device)
-        pw1[:num_mels] = d1.kernel
-        fk, fb_ = cell.frame_proj.kernel, cell.frame_proj.bias
-        sk, sb = cell.stop_proj.kernel, cell.stop_proj.bias
-        fw = torch.zeros(fk.shape[0], out_dim, device=fk.device)
-        fb = torch.zeros(out_dim, device=fk.device)
-        fw[:, : r * num_mels] = fk
-        fb[: r * num_mels] = fb_
-        fw[:, r * num_mels: r * num_mels + r] = sk
-        fb[r * num_mels: r * num_mels + r] = sb
-        att = cell.attention
-        if cell.attn_cfg.kind == "location_sensitive":
-            conv_k = att.location_conv.kernel
-            k, c, f = conv_k.shape
-            loca = conv_k.reshape(k * c, f) @ att.location_proj.kernel
-        else:
-            loca = torch.zeros(1, att.query_proj.kernel.shape[1], device=fk.device)
-        packed = dict(
-            pw1=pw1, pb1=d1.bias, pw2=cell.prenet.dense_1.kernel,
-            pb2=cell.prenet.dense_1.bias,
-            awi=cell.attention_rnn.kernel, abi=cell.attention_rnn.bias,
-            awh=cell.attention_rnn.recurrent_kernel,
-            abh=cell.attention_rnn.recurrent_bias,
-            qproj=att.query_proj.kernel, vvec=att.score_v.kernel[:, 0], loca=loca,
-            dwi=cell.decoder_input_proj.kernel, dbi=cell.decoder_input_proj.bias,
-            fw=fw, fb=fb)
-        for i, g in enumerate((cell.decoder_rnn_0, cell.decoder_rnn_1), start=1):
-            packed.update({f"g{i}wi": g.kernel, f"g{i}bi": g.bias,
-                           f"g{i}wh": g.recurrent_kernel,
-                           f"g{i}bh": g.recurrent_bias})
-        return {k: v.detach().to(torch.float32).contiguous() for k, v in packed.items()}
+    d1 = cell.prenet.dense_0
+    fp, sp = cell.frame_proj, cell.stop_proj
+    pad = out_dim - r * num_mels - r
+    att = cell.attention
+    loca = att.loca()
+    if loca is None:
+        loca = att.query_proj.kernel.new_zeros(1, att.query_proj.kernel.shape[1])
+    packed = dict(
+        pw1=Fn.pad(d1.kernel, (0, 0, 0, LANE - num_mels)), pb1=d1.bias,
+        pw2=cell.prenet.dense_1.kernel, pb2=cell.prenet.dense_1.bias,
+        awi=cell.attention_rnn.kernel, abi=cell.attention_rnn.bias,
+        awh=cell.attention_rnn.recurrent_kernel,
+        abh=cell.attention_rnn.recurrent_bias,
+        qproj=att.query_proj.kernel, vvec=att.score_v.kernel[:, 0], loca=loca,
+        dwi=cell.decoder_input_proj.kernel, dbi=cell.decoder_input_proj.bias,
+        fw=Fn.pad(torch.cat([fp.kernel, sp.kernel], 1), (0, pad)),
+        fb=Fn.pad(torch.cat([fp.bias, sp.bias]), (0, pad)))
+    for i, g in enumerate((cell.decoder_rnn_0, cell.decoder_rnn_1), start=1):
+        packed.update({f"g{i}wi": g.kernel, f"g{i}bi": g.bias,
+                       f"g{i}wh": g.recurrent_kernel, f"g{i}bh": g.recurrent_bias})
+    if differentiable:
+        return packed
+    return {k: v.detach().to(torch.float32).contiguous() for k, v in packed.items()}
 
 
 def dropout_uniforms(seed: int, steps: int, layer: int, batch: int,
@@ -126,13 +122,73 @@ def _gru(x, h, wi, bi, wh, bh):
     return gru_update(x @ wi + bi, h @ wh + bh, h)
 
 
-def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
-                      keys: torch.Tensor, lengths: torch.Tensor, *,
-                      dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
-                      num_mels: int, steps: int, seed: int = 0,
-                      use_dropout: bool = False
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The same decode in plain PyTorch, one step per loop iteration."""
+class DecodeState(NamedTuple):
+    """The recurrent state a decode step carries: the three GRU states, the
+    attention context and the alignment state (previous, cumulative)."""
+    h_attn: torch.Tensor
+    h_d1: torch.Tensor
+    h_d2: torch.Tensor
+    ctx: torch.Tensor
+    prev: torch.Tensor
+    cum: torch.Tensor
+
+
+def initial_decode_state(packed: Dict[str, torch.Tensor], memory: torch.Tensor) -> DecodeState:
+    """Zero GRU states and context; the alignment a delta at position 0."""
+    b, t, m_dim = memory.shape
+    prev = memory.new_zeros(b, t)
+    prev[:, 0] = 1.0
+    return DecodeState(memory.new_zeros(b, packed["awh"].shape[0]),
+                       memory.new_zeros(b, packed["g1wh"].shape[0]),
+                       memory.new_zeros(b, packed["g2wh"].shape[0]),
+                       memory.new_zeros(b, m_dim), prev, memory.new_zeros(b, t))
+
+
+def prenet_keep(seed: int, steps: int, batch: int, p1: int, p2: int, rate: float,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(steps, batch, P) keep masks of the two prenet layers: the kernel's
+    Philox draw (``dropout_uniforms``), made on ``device``."""
+    idx = torch.arange(steps, device=device)
+    return tuple(stream_uniforms(seed, idx, layer, batch, units) >= rate
+                 for layer, units in ((0, p1), (1, p2)))
+
+
+def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor,
+                memory: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor, *,
+                attn_cfg: AttentionConfig, num_mels: int, rate: float = 0.0,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[DecodeState, torch.Tensor, torch.Tensor]:
+    """One decoder step (the JAX ``DecoderCell.__call__``) over packed weights:
+    prenet of ``frame`` (B, num_mels) -> attention GRU -> attention -> input
+    projection -> two residual GRUs -> packed frame and stop projection.
+    ``keep`` holds this step's prenet keep masks (None: no dropout).
+    Returns (state, out (B, 256): r frames then r stop logits, alignment)."""
+    h1 = torch.relu(frame @ w["pw1"][:num_mels] + w["pb1"])
+    if keep is not None:
+        h1 = torch.where(keep[0], h1 / (1.0 - rate), torch.zeros_like(h1))
+    h2 = torch.relu(h1 @ w["pw2"] + w["pb2"])
+    if keep is not None:
+        h2 = torch.where(keep[1], h2 / (1.0 - rate), torch.zeros_like(h2))
+    h_attn = _gru(torch.cat([h2, st.ctx], -1), st.h_attn, w["awi"], w["abi"],
+                  w["awh"], w["abh"])
+    loc_k, loc_c = location_taps(attn_cfg)
+    loca = w["loca"] if attn_cfg.kind == "location_sensitive" else None
+    ctx, align, prev, cum = attention_step(h_attn @ w["qproj"], keys, memory, valid,
+                                           st.prev, st.cum, w["vvec"], loca, loc_k, loc_c)
+    h = torch.cat([h_attn, ctx], -1) @ w["dwi"] + w["dbi"]
+    h_d1 = _gru(h, st.h_d1, w["g1wi"], w["g1bi"], w["g1wh"], w["g1bh"])
+    h = h + h_d1
+    h_d2 = _gru(h, st.h_d2, w["g2wi"], w["g2bi"], w["g2wh"], w["g2bh"])
+    h = h + h_d2
+    out = torch.cat([h, ctx], -1) @ w["fw"] + w["fb"]
+    return DecodeState(h_attn, h_d1, h_d2, ctx, prev, cum), out, align
+
+
+def _plain_decode(packed, memory, keys, lengths, inputs, *, dec_cfg, attn_cfg,
+                  num_mels, steps, seed, use_dropout):
+    """Drive ``decode_step`` for ``steps`` steps: each step's input frame is
+    ``inputs[:, s]`` (teacher forcing) or, with ``inputs`` None, the last
+    frame of the step before (autoregressive, the go frame zeros)."""
     if attn_cfg.kind not in _KINDS:
         raise ValueError(f"unknown attention kind {attn_cfg.kind!r}")
     w = packed
@@ -142,50 +198,17 @@ def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     dev = memory.device
     valid = torch.arange(t, device=dev)[None, :] < lengths.to(dev)[:, None]
     valid[:, 0] = True
-    p1, p2 = w["pw1"].shape[1], w["pw2"].shape[1]
+    keep = None
     if use_dropout:
-        keep1 = torch.from_numpy(
-            dropout_uniforms(seed, steps, 0, b, p1) >= np.float32(rate)).to(dev)
-        keep2 = torch.from_numpy(
-            dropout_uniforms(seed, steps, 1, b, p2) >= np.float32(rate)).to(dev)
-    h_attn = memory.new_zeros(b, w["awh"].shape[0])
-    h_d1 = memory.new_zeros(b, w["g1wh"].shape[0])
-    h_d2 = memory.new_zeros(b, w["g2wh"].shape[0])
-    ctx = memory.new_zeros(b, memory.shape[2])
+        keep = prenet_keep(seed, steps, b, w["pw1"].shape[1], w["pw2"].shape[1], rate, dev)
+    st = initial_decode_state(w, memory)
     last = memory.new_zeros(b, num_mels)
-    pw1 = w["pw1"][:num_mels]
-    loc_k, loc_c = location_taps(attn_cfg)
-    prev = memory.new_zeros(b, t)
-    prev[:, 0] = 1.0
-    cum = memory.new_zeros(b, t)
     frames, stops, aligns = [], [], []
     for s in range(steps):
-        h1 = torch.relu(last @ pw1 + w["pb1"])
-        if use_dropout:
-            h1 = torch.where(keep1[s], h1 / (1.0 - rate), torch.zeros_like(h1))
-        h2 = torch.relu(h1 @ w["pw2"] + w["pb2"])
-        if use_dropout:
-            h2 = torch.where(keep2[s], h2 / (1.0 - rate), torch.zeros_like(h2))
-        h_attn = _gru(torch.cat([h2, ctx], -1), h_attn, w["awi"], w["abi"],
-                      w["awh"], w["abh"])
-        q = h_attn @ w["qproj"]
-        feats = torch.stack([prev, cum][:loc_c], -1)                # (B, T, c)
-        fp = Fn.pad(feats, (0, 0, (loc_k - 1) // 2, loc_k // 2))
-        taps = torch.cat([fp[:, j: j + t] for j in range(loc_k)], -1)
-        arg = keys + q[:, None, :] + taps @ w["loca"]
-        scores = (torch.tanh(arg) * w["vvec"]).sum(-1)
-        scores = torch.where(valid, scores, torch.full_like(scores, -1e9))
-        m = scores.max(-1, keepdim=True).values
-        e = torch.exp(scores - m) * valid
-        align = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-9)
-        prev, cum = align, cum + align
-        ctx = torch.einsum("bt,btm->bm", align, memory)
-        h = torch.cat([h_attn, ctx], -1) @ w["dwi"] + w["dbi"]
-        h_d1 = _gru(h, h_d1, w["g1wi"], w["g1bi"], w["g1wh"], w["g1bh"])
-        h = h + h_d1
-        h_d2 = _gru(h, h_d2, w["g2wi"], w["g2bi"], w["g2wh"], w["g2bh"])
-        h = h + h_d2
-        out = torch.cat([h, ctx], -1) @ w["fw"] + w["fb"]
+        frame = last if inputs is None else inputs[:, s]
+        st, out, align = decode_step(
+            w, st, frame, memory, keys, valid, attn_cfg=attn_cfg, num_mels=num_mels,
+            rate=rate, keep=None if keep is None else (keep[0][s], keep[1][s]))
         frames.append(out[:, : r * num_mels])
         stops.append(out[:, r * num_mels: r * num_mels + r])
         aligns.append(align)
@@ -193,6 +216,43 @@ def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     mel = torch.stack(frames, 1).reshape(b, steps * r, num_mels)
     stop_logits = torch.stack(stops, 1).reshape(b, steps * r)
     return mel, stop_logits, torch.stack(aligns, 1)
+
+
+def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
+                      keys: torch.Tensor, lengths: torch.Tensor, *,
+                      dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
+                      num_mels: int, steps: int, seed: int = 0,
+                      use_dropout: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same decode in plain PyTorch, one ``decode_step`` per loop
+    iteration, each fed the last frame of the step before."""
+    return _plain_decode(packed, memory, keys, lengths, None, dec_cfg=dec_cfg,
+                         attn_cfg=attn_cfg, num_mels=num_mels, steps=steps, seed=seed,
+                         use_dropout=use_dropout)
+
+
+def teacher_forced_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
+                        keys: torch.Tensor, lengths: torch.Tensor,
+                        mel_targets: torch.Tensor, *, dec_cfg: DecoderConfig,
+                        attn_cfg: AttentionConfig, num_mels: int, seed: int = 0,
+                        use_dropout: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The teacher-forced decode (the JAX ``Decoder.teacher_forced``): step i
+    takes the target's last frame of group i - 1, the go frame (zeros)
+    first, through the same ``decode_step`` as the AR decode. ``mel_targets``
+    (B, T_mel, num_mels) with T_mel % r == 0. No kernel: with a
+    differentiable pack (``pack_decoder_weights(differentiable=True)``) a
+    loss on the outputs reaches every decoder parameter."""
+    r = dec_cfg.reduction_factor
+    b, t_mel, _ = mel_targets.shape
+    if t_mel % r:
+        raise ValueError(f"mel length {t_mel} not divisible by r={r}")
+    steps = t_mel // r
+    go = mel_targets.new_zeros(b, 1, num_mels)
+    inputs = torch.cat([go, mel_targets[:, r - 1:: r][:, :-1]], 1)
+    return _plain_decode(packed, memory, keys, lengths, inputs, dec_cfg=dec_cfg,
+                         attn_cfg=attn_cfg, num_mels=num_mels, steps=steps, seed=seed,
+                         use_dropout=use_dropout)
 
 
 # --- the kernel's phases, plan and workspace ---------------------------------
@@ -403,6 +463,7 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
         return decode_scan_plain(packed, memory, keys, lengths, dec_cfg=dec_cfg,
                                  attn_cfg=attn_cfg, num_mels=num_mels,
                                  steps=steps, seed=seed, use_dropout=use_dropout)
+    refuse_grad("decode_scan", memory, keys, *packed.values())
     if attn_cfg.kind not in _KINDS:
         raise ValueError(f"unknown attention kind {attn_cfg.kind!r}")
     loc_k, loc_c = location_taps(attn_cfg)

@@ -16,7 +16,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .build import I, P, CudaKernel, check_cuda, ptr, stream_ptr
+from .build import I, P, CudaKernel, check_cuda, ptr, refuse_grad, stream_ptr
 
 KERNEL = CudaKernel("gru_scan.cu", "gru_scan_launch",
                     [P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
@@ -120,6 +120,7 @@ def _launch(xs: torch.Tensor, dirs: Sequence[Direction], lengths: Optional[torch
             reverse: bool, name: str):
     """One kernel call for one direction (``reverse`` as given) or both of a
     BiGRU (forward, then reverse): (ys (B, T, len(dirs) * H), finals)."""
+    refuse_grad(name, xs, *(x for dr in dirs for x in dr))
     b, t, d = xs.shape
     hdim = dirs[0][0].shape[-1]
     for h0, wi, bi, wh, bh in dirs:

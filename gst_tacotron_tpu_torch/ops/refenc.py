@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..models.modules import BN_EPS, conv2d_stride2_same, mask_sequence
-from .build import I, P, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
+from .build import I, P, CudaKernel, check_cuda, ptr, refuse_grad, sm_count, stream_ptr
 from .gru import gru_scan, gru_scan_plain
 
 KERNEL = CudaKernel("refenc_stack.cu", "refenc_stack_launch",
@@ -89,6 +89,7 @@ def refenc_stack(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tensor],
     if ref_mel.device.type == "cpu":
         return refenc_stack_plain(ref_mel, conv_kernels, bn_scales, bn_biases,
                                   lengths=lengths)
+    refuse_grad("refenc_stack", ref_mel, *conv_kernels, *bn_scales, *bn_biases)
     b, t, f = ref_mel.shape
     channels = [int(k.shape[-1]) for k in conv_kernels]
     if not 1 <= len(channels) <= MAX_LAYERS:

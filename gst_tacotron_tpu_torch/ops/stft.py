@@ -38,7 +38,7 @@ from ..device import resolve_device
 from ..dsp.mel import mel_filterbank
 from ..dsp.ref import live_tap_span, padded_window
 from ..dsp.torch_dsp import TorchDSP
-from .build import F, I, P, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
+from .build import F, I, P, CudaKernel, check_cuda, ptr, refuse_grad, sm_count, stream_ptr
 
 KERNEL = CudaKernel("stft_features.cu", "stft_features_launch",
                     [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
@@ -418,6 +418,7 @@ def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConf
     the FFT (in shared memory, or on a device-memory scratch past
     ``MAX_FFT_SIZE``), or K3′'s bf16 bases on clusters of
     ``bf16_cluster(n_fft)`` CTAs."""
+    refuse_grad(name, wav)
     cw = bf16_cluster(cfg.n_fft) if bf16_bases else 0    # the size limit, before any table
     wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, name, _FFT_TABLES)
     b, total = wav.shape
@@ -484,6 +485,7 @@ def stft_features_frames(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
     if frames.device.type == "cpu":
         return stft_features_frames_plain(frames, cfg, bases,
                                           normalize_linear=normalize_linear)
+    refuse_grad("stft_features_frames", frames)
     n = frames.shape[0]
     check_fft_size(cfg)
     bases = bases or stft_bases(cfg, frames.device)

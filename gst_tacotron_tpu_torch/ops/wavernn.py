@@ -23,7 +23,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .build import F, I, P, U64, CudaKernel, check_cuda, ptr, sm_count, stream_ptr
+from .build import (F, I, P, U64, CudaKernel, check_cuda, ptr, refuse_grad, sm_count,
+                    stream_ptr)
 from .gru import gru_scan_plain, gru_update
 from .philox import STREAM_GUMBEL, stream_uniforms
 
@@ -42,17 +43,20 @@ _NOISE_CHUNK = 256
 _GAP_CHUNK = 4096
 
 
-def pack_wavernn_weights(model) -> Dict[str, torch.Tensor]:
+def pack_wavernn_weights(model, *, differentiable: bool = False) -> Dict[str, torch.Tensor]:
     """The kernel's operands from a ``models.wavernn.WaveRNN`` (the arrays of
     the JAX ``pack_wavernn_weights``). ``cond_proj`` stays outside: the
-    sampler takes conditioning already projected."""
-    with torch.no_grad():
-        packed = dict(embed=model.sample_embed.embedding,
-                      wi=model.gru.kernel, bi=model.gru.bias,
-                      wh=model.gru.recurrent_kernel, bh=model.gru.recurrent_bias,
-                      fc1=model.fc1.kernel, fb1=model.fc1.bias,
-                      fc2=model.fc2.kernel, fb2=model.fc2.bias)
-        return {k: v.detach().to(torch.float32).contiguous() for k, v in packed.items()}
+    sampler takes conditioning already projected. With ``differentiable``
+    the operands are the parameters themselves (the teacher-forced pass
+    trains through them); otherwise detached, contiguous copies."""
+    packed = dict(embed=model.sample_embed.embedding,
+                  wi=model.gru.kernel, bi=model.gru.bias,
+                  wh=model.gru.recurrent_kernel, bh=model.gru.recurrent_bias,
+                  fc1=model.fc1.kernel, fb1=model.fc1.bias,
+                  fc2=model.fc2.kernel, fb2=model.fc2.bias)
+    if differentiable:
+        return packed
+    return {k: v.detach().to(torch.float32).contiguous() for k, v in packed.items()}
 
 
 def input_tables(packed: Dict[str, torch.Tensor], cond: torch.Tensor
@@ -168,6 +172,7 @@ def wavernn_sample(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
     if cond.device.type == "cpu":
         return wavernn_sample_plain(packed, cond, hop=hop, seed=seed,
                                     temperature=temperature, greedy=greedy)
+    refuse_grad("wavernn_sample", cond, *packed.values())
     w = packed
     b, t, c = cond.shape
     k, hdim, f = w["embed"].shape[0], w["wh"].shape[0], w["fc1"].shape[1]

@@ -17,14 +17,18 @@ through the sampling kernel (K5) instead of Griffin-Lim, drawn with seed
 On the card every kernel launches; with ``device="cpu"`` the same math runs
 through the kernels' plain versions. ``plain=True`` picks the plain versions
 on the card too, as the reference the kernels are held against.
+``save_outputs`` writes the eval artifacts: 16-bit wavs, and alignment PNGs
+where matplotlib imports.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from scipy.io import wavfile
 
 from .config import Config
 from .device import resolve_device
@@ -86,8 +90,10 @@ class Synthesizer:
     def __call__(self, texts: Sequence[str],
                  reference_wavs: Optional[Sequence[np.ndarray]] = None,
                  token_weights: Optional[np.ndarray] = None,
+                 speaker_ids: Optional[Sequence[int]] = None,
                  max_steps: Optional[int] = None,
                  seed: int = 0) -> Dict[str, np.ndarray]:
+        """``speaker_ids`` (a multi-speaker config) default to speaker 0."""
         cfg = self.cfg
         tokens, lengths = batch_text_to_ids(texts)
         pad_to = _round_up(tokens.shape[1], self.text_pad_multiple)
@@ -104,11 +110,16 @@ class Synthesizer:
         tw = None if token_weights is None else torch.as_tensor(
             np.asarray(token_weights, np.float32), device=dev)
 
+        spk = None
+        if cfg.model.num_speakers > 1:
+            spk = torch.as_tensor(np.asarray(
+                speaker_ids if speaker_ids is not None else [0] * len(texts), np.int64),
+                device=dev)
         tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
         tok_len = torch.from_numpy(lengths.astype(np.int64)).to(dev)
         steps = max_steps or cfg.model.decoder.max_decode_steps
         out = self.model.infer(
-            tok, tok_len, ref_mel, ref_lengths, tw, max_steps=steps,
+            tok, tok_len, ref_mel, ref_lengths, tw, speaker_ids=spk, max_steps=steps,
             deterministic_prenet=self.deterministic_prenet, seed=seed,
             plain=self.plain)
         if self._inline_gl:
@@ -122,3 +133,43 @@ class Synthesizer:
         result["wav"] = wav.cpu().numpy()
         result["wav_lengths"] = result["frame_lengths"] * cfg.audio.hop_length
         return result
+
+    # -- artifacts ----------------------------------------------------------
+
+    def save_outputs(self, outputs: Dict[str, np.ndarray], out_dir: str,
+                     prefix: str = "synth") -> List[str]:
+        """Write each row's wav (16-bit, cut to its length) and, where
+        matplotlib imports, its alignment PNG; returns the paths."""
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        sr = self.cfg.audio.sample_rate
+        for i in range(outputs["wav"].shape[0]):
+            n = int(outputs["wav_lengths"][i])
+            wav = np.clip(outputs["wav"][i, :n], -1.0, 1.0)
+            path = os.path.join(out_dir, f"{prefix}_{i:03d}.wav")
+            wavfile.write(path, sr, (wav * 32767).astype(np.int16))
+            paths.append(path)
+            png = save_alignment_png(outputs["alignments"][i], out_dir, f"{prefix}_{i:03d}")
+            if png:
+                paths.append(png)
+        return paths
+
+
+def save_alignment_png(alignment: np.ndarray, out_dir: str, name: str) -> Optional[str]:
+    """(S, T) alignment -> ``<name>_align.png``; None where matplotlib does
+    not import."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:
+        return None
+    path = os.path.join(out_dir, f"{name}_align.png")
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.imshow(alignment.T, aspect="auto", origin="lower", interpolation="none")
+    ax.set_xlabel("decoder step")
+    ax.set_ylabel("encoder position")
+    fig.tight_layout()
+    fig.savefig(path, dpi=80)
+    plt.close(fig)
+    return path

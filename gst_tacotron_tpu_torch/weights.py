@@ -1,4 +1,4 @@
-"""Weights: the JAX package's variables -> the port's modules, and a seeded
+"""Weights: the JAX package's variables <-> the port's modules, and a seeded
 init.
 
 The JAX variables arrive as a flat mapping of numpy arrays keyed
@@ -12,12 +12,16 @@ here. Layouts that carry over unchanged and that the modules honour:
   * BatchNorm ``scale``/``bias`` with running ``mean``/``var``, eps 1e-3;
   * ``MatmulConv1D`` kernel (k, in, out), padded (k-1)//2 left, k//2 right;
   * the conv bank's ``bank_kernel`` block matrix, masked by its tap mask;
-  * the post-net maxpool pads its right edge with -inf (in ``CBHG``).
+  * the post-net maxpool pads its right edge with -inf (in ``CBHG``);
+  * the speaker embedding (``speaker_embedding/embedding``, num_speakers > 1).
+
+``export_flat`` is the inverse of ``load_flat``: the model's parameters and
+BatchNorm buffers under their flat JAX names.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,11 +29,13 @@ from torch import nn
 
 from .config import Config
 from .device import resolve_device
+from .models.modules import BatchNorm
 from .models.tacotron import GSTTacotron
 from .models.wavernn import WaveRNN
 from .text import NUM_SYMBOLS
 
 _RENAMES = {"forward": "fwd", "backward": "bwd"}
+_INVERSE = {v: k for k, v in _RENAMES.items()}
 
 
 def flat_key_to_state_key(key: str) -> str:
@@ -58,6 +64,22 @@ def load_flat(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     missing = sorted(set(state) - seen)
     if missing:
         raise KeyError(f"variables missing from the flat mapping: {missing}")
+
+
+def state_key_to_flat(key: str, collection: str = "params") -> str:
+    """The inverse of ``flat_key_to_state_key``."""
+    return f"{collection}/" + "/".join(_INVERSE.get(p, p) for p in key.split("."))
+
+
+def export_flat(model: nn.Module) -> Dict[str, np.ndarray]:
+    """{flat JAX name: float32 array} of every parameter (``params/...``)
+    and BatchNorm running statistic (``batch_stats/...``) of ``model``."""
+    stats = {f"{name}.{b}" if name else b
+             for name, mod in model.named_modules() if isinstance(mod, BatchNorm)
+             for b in ("mean", "var")}
+    return {state_key_to_flat(key, "batch_stats" if key in stats else "params"):
+            value.detach().cpu().numpy().astype(np.float32)
+            for key, value in model.state_dict().items()}
 
 
 def _glorot_uniform(p: torch.Tensor, fan_in: int, fan_out: int, g: torch.Generator) -> None:

@@ -418,10 +418,12 @@ def test_decode_scan_lsa_kernel(dev, use_dropout, r, cumulative):
 
 
 # K4's phase launches at the configs' widths: B = 32 (one row group), B = 1,
-# B = 33 (across a row-group boundary), T = 1; lengths 0 and 1; dropout on
+# B = 33 (across a row-group boundary), T = 1; lengths 0 and 1; dropout on;
+# gst_multispeaker's memory of 576 (512 + its 64-wide speaker embedding)
 @pytest.mark.parametrize("config,b,t", [("gst_lj", 32, 64), ("gst_r1_location", 32, 64),
                                         ("gst_lj", 1, 64), ("gst_r1_location", 33, 64),
-                                        ("gst_lj", 33, 1), ("gst_r1_location", 5, 1)])
+                                        ("gst_lj", 33, 1), ("gst_r1_location", 5, 1),
+                                        ("gst_multispeaker", 32, 64)])
 def test_decode_scan_phases_at_config_widths(dev, config, b, t):
     """Within 1e-5 of the plain version; the same bits on a second run; one
     K4 launch a decode, counted on the branch of the config's attention."""
@@ -433,7 +435,9 @@ def test_decode_scan_phases_at_config_widths(dev, config, b, t):
     from gst_tacotron_tpu_torch.weights import init_weights
 
     m = load_config(f"configs/{config}.json").model
-    mem_dim = m.encoder.output_dim + m.gst.style_dim
+    # gst_multispeaker: the speaker embedding widens the memory to 576
+    mem_dim = (m.encoder.output_dim + m.gst.style_dim
+               + (m.speaker_dim if m.num_speakers > 1 else 0))
     cell = DecoderCell(m.decoder, m.attention, m.num_mels, mem_dim)
     init_weights(cell, seed=b + t)
     cell = cell.to(dev)
@@ -526,3 +530,65 @@ def test_wavernn_sample_kernel(dev, b, t, c, h, bits, greedy):
         assert int(classes.min()) >= 0 and int(classes.max()) < 2 ** bits
         gaps = score_gaps(packed, cond, classes, **kw)
         assert float(gaps.max()) <= 1e-4
+
+
+def _entry_point_call(name, dev, grad):
+    """A call of kernel entry point ``name`` on small CUDA inputs, one of
+    which requires grad when ``grad``."""
+    from gst_tacotron_tpu_torch.config import (AttentionConfig, AudioConfig, DecoderConfig,
+                                               VocoderConfig)
+    from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+    from gst_tacotron_tpu_torch.models.wavernn import WaveRNN
+    from gst_tacotron_tpu_torch.ops import decode, gru, refenc, stft, wavernn
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    g = torch.Generator().manual_seed(1)
+    t = lambda *shape: rand(g, *shape, scale=0.3).to(dev).requires_grad_(grad)
+    if name in ("gru_scan", "bigru_scan"):
+        xs, h0 = t(2, 5, 3), rand(g, 2, 4).to(dev)
+        dirs = [(h0, t(3, 12), rand(g, 12).to(dev), t(4, 12), rand(g, 12).to(dev))
+                for _ in range(2)]
+        if name == "gru_scan":
+            return gru.gru_scan(xs, *dirs[0])
+        return gru.bigru_scan(xs, dirs[0], dirs[1])
+    if name == "refenc_stack":
+        kernels = [t(3, 3, 1, 4), t(3, 3, 4, 8)]
+        ones = [torch.ones(c, device=dev) for c in (4, 8)]
+        return refenc.refenc_stack(t(2, 16, 20), kernels, ones, [0 * o for o in ones])
+    if name == "decode_scan":
+        dec = DecoderConfig(prenet_dims=(16, 8), attention_rnn_dim=16, decoder_rnn_dim=16)
+        attn = AttentionConfig(dim=8)
+        cell = DecoderCell(dec, attn, 10, 12)
+        init_weights(cell, seed=1)
+        cell = cell.to(dev).requires_grad_(grad)
+        memory = rand(g, 2, 6, 12).to(dev)
+        keys = cell.precompute_keys(memory).detach().contiguous()
+        return decode.decode_scan(cell.pack(differentiable=True), memory, keys,
+                                  torch.tensor([6, 3], device=dev), dec_cfg=dec,
+                                  attn_cfg=attn, num_mels=10, steps=3)
+    if name == "wavernn_sample":
+        model = WaveRNN(VocoderConfig(kind="wavernn", wavernn_gru_dim=8, wavernn_fc_dim=8,
+                                      wavernn_bits=4, wavernn_hop=2), 6)
+        init_weights(model, seed=2)
+        model = model.to(dev).requires_grad_(grad)
+        return wavernn.wavernn_sample(model.pack(differentiable=True),
+                                      rand(g, 2, 3, 8).to(dev), hop=2, greedy=True)
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=512)
+    if name == "stft_features_frames":
+        return stft.stft_features_frames(t(3, 512), cfg)
+    return getattr(stft, name)(t(2, 2048), cfg)
+
+
+@pytest.mark.parametrize("name", ["gru_scan", "bigru_scan", "refenc_stack", "decode_scan",
+                                  "wavernn_sample", "stft_features", "stft_features_fused",
+                                  "stft_features_frames"])
+def test_kernel_entry_points_refuse_grad(dev, name):
+    """No kernel has a backward: with grad mode on, an input that requires
+    grad is refused; under torch.no_grad() the same call runs, as it does on
+    inputs that need no grad."""
+    with pytest.raises(RuntimeError, match="requires grad"):
+        _entry_point_call(name, dev, grad=True)
+    with torch.no_grad():
+        _entry_point_call(name, dev, grad=True)
+    _entry_point_call(name, dev, grad=False)
+    torch.cuda.synchronize()

@@ -1,7 +1,8 @@
 """The port imports and runs with ``jax`` blocked (the gst_lj slice, the
-location-sensitive decode, the WaveRNN vocoder, and the training-corpus path:
-a pattern run and a loader batch in both transports), and no file of the port
-(nor chip_smoke.py) imports jax or the JAX package."""
+location-sensitive decode, the WaveRNN vocoder, the training-corpus path: a
+pattern run and a loader batch in both transports, and the trainers: a
+seq2seq step with its checkpoint and a vocoder step), and no file of the
+port (nor chip_smoke.py) imports jax or the JAX package."""
 
 import ast
 import os
@@ -83,6 +84,39 @@ def test_port_imports_and_runs_with_jax_blocked():
         "                              audio_cfg=wd.audio).epoch(0)))\n"
         "mat = _materialize_features(wd, {k: torch.from_numpy(v) for k, v in wb.items()})\n"
         "assert mat['mel'].shape == (2, 1024, 80), mat['mel'].shape\n"
+        "assert 'gst_tacotron_tpu' not in sys.modules\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_port_trains_with_jax_blocked(tmp_path):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "import torch; torch.set_num_threads(1)\n"
+        "from gst_tacotron_tpu_torch.config import apply_overrides, load_config\n"
+        "from gst_tacotron_tpu_torch.data import generate_patterns, synthetic_utterances\n"
+        "from gst_tacotron_tpu_torch.train import Trainer\n"
+        "from gst_tacotron_tpu_torch.vocoder_train import VocoderTrainer\n"
+        f"cfg = load_config({str(ROOT / 'tests/fixtures/golden/config.json')!r})\n"
+        "cfg = apply_overrides(cfg, {'audio.hop_length': 256, 'data.batch_size': 2,\n"
+        "    'data.buckets': [[64, 320]], 'data.val_fraction': 0.0,\n"
+        "    'model.vocoder.wavernn_hop': 256, 'model.vocoder.wavernn_gru_dim': 8,\n"
+        "    'model.vocoder.wavernn_fc_dim': 8})\n"
+        f"d = {str(tmp_path)!r}\n"
+        "generate_patterns(synthetic_utterances(3), cfg.audio, d + '/p', store_wav=True)\n"
+        "t = Trainer(cfg, d + '/p', d + '/w', device='cpu')\n"
+        "assert t.train(1).step == 1\n"
+        "assert Trainer(cfg, d + '/p', d + '/w', device='cpu').restore_if_available()\n"
+        "v = VocoderTrainer(cfg, d + '/p', d + '/v', device='cpu', segment_frames=4,\n"
+        "                   batch_size=2)\n"
+        "assert v.train(1).step == 1\n"
         "assert 'gst_tacotron_tpu' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
