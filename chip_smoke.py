@@ -52,10 +52,27 @@ Phases, each of which exits non-zero on failure:
    step at the CPU tests' widths on the card against the same step on the
    CPU (loss 1e-5 relative, parameters 1e-5, gradients 1e-4 of each
    tensor's largest); gst_wavernn's WaveRNN at its widths, 2
-   ``VocoderTrainer`` steps of 16 x 24 frames and a restore.
+   ``VocoderTrainer`` steps of 16 x 24 frames and a restore;
+6. chunked (before the corpus phase): ``decode.chunked_decode`` at gst_lj's
+   widths (200 steps in chunks of 64) and gst_r1_location's (cut to 256
+   steps), B=32, stop threshold 1.0, dropout on: one K4 launch a chunk
+   (counted), the fixed-length call's bits over the first steps, one chunk
+   at stop threshold 0.0; the fixed and chunked decode's times;
+7. bf16: gst_lj synthesis at ``model.compute_dtype="bfloat16"`` (finite,
+   apart from float32 with mean |d| of the mel < 0.05, the float32 path's
+   launches) with its stage times, and one bf16 ``Trainer`` step at
+   gst_lj's widths (finite loss, float32 parameters);
+8. CLI: ``synthesize.main`` on the train phase's workdir (decode cut to 64
+   steps) with Griffin-Lim and two reference wavs, with
+   ``--chunked-decoder``, and with ``--vocoder wavernn --vocoder-workdir``
+   on the vocoder's workdir: each writes its wavs, and the three runs'
+   launch counters show K1-K5;
+9. bench: ``gst_tacotron_tpu_torch.bench``'s functions at its workload;
+   its JSON line (informational) with the card, and its details.
 
 It prints one JSON line per kernel check, per path and per training run
-(``{"train": ...}``), one ``{"kernels": [...]}`` line, the card's name and power limit, and last
+(``{"train": ...}``), per chunked, bf16 and CLI run, the bench's two lines,
+one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py --decode-only
@@ -1052,6 +1069,7 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
 
     from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
     from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+    from gst_tacotron_tpu_torch.ops.refenc import gst_style_from_params
     from gst_tacotron_tpu_torch.synthesize import Synthesizer
     from gst_tacotron_tpu_torch.text import batch_text_to_ids
 
@@ -1072,10 +1090,12 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
         tok = torch.from_numpy(ids.astype(np.int64)).to(dev)
         tok_len = torch.from_numpy(lens.astype(np.int64)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(0)
+        # as GSTTacotron.infer: the style from the float32 fast path (K2, K1)
         (memory, _), stages["encode_and_gst"] = timed(lambda: model.build_memory(
-            tok, tok_len, ref, ref_len, generator=gen))
+            tok, tok_len, generator=gen,
+            precomputed_style=gst_style_from_params(model.gst, ref, ref_len)[0]))
         dec_out, stages["decode"] = timed(lambda: model.decoder.decode(memory, tok_len, seed=1))
-        linear, stages["postnet"] = timed(lambda: model.postnet(dec_out[0], dec_out[3]))
+        linear, stages["postnet"] = timed(lambda: model.postnet(dec_out[0], dec_out[3]).float())
         gl = {}
         if vocoder is None:
             # the config's own setting (gst_lj's default: the iterations'
@@ -1433,7 +1453,7 @@ def same_state(torch, a, b) -> bool:
     return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
-def run_train(torch, dev, pattern_dir, rng):
+def run_train(torch, dev, pattern_dir, rng, work):
     """The training path on gst_lj at its published widths, B=32, over the
     corpus phase's patterns: 6 steps on the feature transport
     (checkpoint_every 4, the held-out eval and ``default_eval_hook`` at
@@ -1441,7 +1461,8 @@ def run_train(torch, dev, pattern_dir, rng):
     the wav transport with the corpus on the card, then synthesis of 32
     texts with 32 reference wavs from the trained state. No train step may
     launch a kernel; the eval hook launches K1 and K4, the synthesis the
-    gst_lj path's counts."""
+    gst_lj path's counts. The feature run's workdir stays in ``work``/feat
+    for the CLI phase."""
     from gst_tacotron_tpu_torch import ops
     from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
     from gst_tacotron_tpu_torch.synthesize import Synthesizer
@@ -1450,53 +1471,52 @@ def run_train(torch, dev, pattern_dir, rng):
     cfg = apply_overrides(get_preset("gst_lj"), {
         "train.checkpoint_every": 4, "train.eval_every": TRAIN_STEPS, "train.log_every": 1})
     lines = []
-    with tempfile.TemporaryDirectory() as work:
-        t0 = time.perf_counter()
-        trainer = Trainer(cfg, pattern_dir, f"{work}/feat", device=dev)
-        setup_s = time.perf_counter() - t0
-        records, ev = drive_trainer(torch, ops, trainer, TRAIN_STEPS, default_eval_hook)
-        for k in ("gru_scan", "decode_scan"):
-            if not ev.get("eval_hook", {}).get(k):
-                fail(f"train: the eval hook launched {ev.get('eval_hook')}, no {k}")
-        log = [json.loads(x) for x in open(f"{work}/feat/logs/metrics.jsonl")]
-        evals = [r for r in log if r["step"] == TRAIN_STEPS and "eval/diagonality" in r]
-        if not evals or any("eval/eval_error" in r for r in log):
-            fail("train: the eval hook did not synthesize (eval/eval_error or no diagonality)")
-        if not any("eval/eval_loss" in r and np.isfinite(r["eval/eval_loss"]) for r in log):
-            fail("train: the held-out eval logged no finite eval_loss")
-        again = Trainer(cfg, pattern_dir, f"{work}/feat", device=dev)
-        restored = (again.restore_if_available() and again.state.step == TRAIN_STEPS
-                    and same_state(torch, trainer.state.model, again.state.model)
-                    and all(torch.equal(trainer.state.opt.mu[k], again.state.opt.mu[k])
-                            and torch.equal(trainer.state.opt.nu[k], again.state.opt.nu[k])
-                            for k in trainer.state.opt.mu))
-        eval_loss = next(r["eval/eval_loss"] for r in log if "eval/eval_loss" in r)
-        lines.append(train_line(cfg, "features", records, restored, setup_s=setup_s,
-                                eval_launches=ev["eval_hook"],
-                                run_eval_launches=ev["run_eval"], eval_loss=eval_loss,
-                                eval_diagonality=evals[0]["eval/diagonality"]))
-        print(json.dumps(lines[-1]), flush=True)
-        if not restored:
-            fail("train: the restored state differs from the trained one")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, pattern_dir, f"{work}/feat", device=dev)
+    setup_s = time.perf_counter() - t0
+    records, ev = drive_trainer(torch, ops, trainer, TRAIN_STEPS, default_eval_hook)
+    for k in ("gru_scan", "decode_scan"):
+        if not ev.get("eval_hook", {}).get(k):
+            fail(f"train: the eval hook launched {ev.get('eval_hook')}, no {k}")
+    log = [json.loads(x) for x in open(f"{work}/feat/logs/metrics.jsonl")]
+    evals = [r for r in log if r["step"] == TRAIN_STEPS and "eval/diagonality" in r]
+    if not evals or any("eval/eval_error" in r for r in log):
+        fail("train: the eval hook did not synthesize (eval/eval_error or no diagonality)")
+    if not any("eval/eval_loss" in r and np.isfinite(r["eval/eval_loss"]) for r in log):
+        fail("train: the held-out eval logged no finite eval_loss")
+    again = Trainer(cfg, pattern_dir, f"{work}/feat", device=dev)
+    restored = (again.restore_if_available() and again.state.step == TRAIN_STEPS
+                and same_state(torch, trainer.state.model, again.state.model)
+                and all(torch.equal(trainer.state.opt.mu[k], again.state.opt.mu[k])
+                        and torch.equal(trainer.state.opt.nu[k], again.state.opt.nu[k])
+                        for k in trainer.state.opt.mu))
+    eval_loss = next(r["eval/eval_loss"] for r in log if "eval/eval_loss" in r)
+    lines.append(train_line(cfg, "features", records, restored, setup_s=setup_s,
+                            eval_launches=ev["eval_hook"],
+                            run_eval_launches=ev["run_eval"], eval_loss=eval_loss,
+                            eval_diagonality=evals[0]["eval/diagonality"]))
+    print(json.dumps(lines[-1]), flush=True)
+    if not restored:
+        fail("train: the restored state differs from the trained one")
 
-        wire = apply_overrides(cfg, {"data.wav_transport": True, "data.device_corpus": True})
-        t0 = time.perf_counter()
-        wt = Trainer(wire, pattern_dir, f"{work}/wire", device=dev)
-        setup_s = time.perf_counter() - t0
-        records, _ = drive_trainer(torch, ops, wt, WIRE_STEPS)
-        lines.append(train_line(wire, "wav + device corpus", records, None, setup_s=setup_s,
-                                device_corpus_gb=wt.device_corpus_gb,
-                                profiled_step=profile_train_step(torch, ops, wt)))
-        print(json.dumps(lines[-1]), flush=True)
+    wire = apply_overrides(cfg, {"data.wav_transport": True, "data.device_corpus": True})
+    t0 = time.perf_counter()
+    wt = Trainer(wire, pattern_dir, f"{work}/wire", device=dev)
+    setup_s = time.perf_counter() - t0
+    records, _ = drive_trainer(torch, ops, wt, WIRE_STEPS)
+    lines.append(train_line(wire, "wav + device corpus", records, None, setup_s=setup_s,
+                            device_corpus_gb=wt.device_corpus_gb,
+                            profiled_step=profile_train_step(torch, ops, wt)))
+    print(json.dumps(lines[-1]), flush=True)
 
-        texts, wavs = make_inputs(rng, cfg.audio.sample_rate)
-        synth = Synthesizer(cfg, trainer.state.model, device=dev)
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = synth(texts, reference_wavs=wavs, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+    texts, wavs = make_inputs(rng, cfg.audio.sample_rate)
+    synth = Synthesizer(cfg, trainer.state.model, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = synth(texts, reference_wavs=wavs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
     expected = {**dict.fromkeys(counts, 0), "gru_scan": 3, "refenc_stack": 1,
                 "stft_features": 4, "decode_scan": 1}
     info = {"config": "gst_lj", "transport": "synthesis from the trained state",
@@ -1593,9 +1613,10 @@ def check_train_card_vs_cpu(torch, dev):
         fail(f"train: the card's step differs from the CPU's: {info}")
 
 
-def run_vocoder_train(torch, dev, pattern_dir):
+def run_vocoder_train(torch, dev, pattern_dir, work):
     """gst_wavernn's WaveRNN at its widths: 2 ``VocoderTrainer`` steps of
-    batch 16 x 24 frames over the corpus phase's patterns, then a restore."""
+    batch 16 x 24 frames over the corpus phase's patterns, then a restore;
+    the workdir ``work`` stays for the CLI phase."""
     from gst_tacotron_tpu_torch import ops
     from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
     from gst_tacotron_tpu_torch.vocoder_train import VocoderTrainer
@@ -1603,27 +1624,26 @@ def run_vocoder_train(torch, dev, pattern_dir):
     cfg = apply_overrides(get_preset("gst_wavernn"), {"train.log_every": 1,
                                                       "train.checkpoint_every": 2})
     steps = 2
-    with tempfile.TemporaryDirectory() as work:
+    t0 = time.perf_counter()
+    vt = VocoderTrainer(cfg, pattern_dir, work, device=dev, segment_frames=24,
+                        batch_size=16)
+    setup_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for step in range(1, steps + 1):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vt = VocoderTrainer(cfg, pattern_dir, work, device=dev, segment_frames=24,
-                            batch_size=16)
-        setup_s = time.perf_counter() - t0
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for step in range(1, steps + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            vt.train(step)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            if nonzero_counts(ops):
-                fail(f"vocoder train: step {step} launched kernels {nonzero_counts(ops)}")
-        log = [json.loads(x) for x in open(f"{work}/vocoder_logs/metrics.jsonl")]
-        again = VocoderTrainer(cfg, pattern_dir, work, device=dev, segment_frames=24,
-                               batch_size=16)
-        restored = (again.restore_if_available() and again.state.step == steps
-                    and same_state(torch, vt.model, again.model))
+        vt.train(step)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if nonzero_counts(ops):
+            fail(f"vocoder train: step {step} launched kernels {nonzero_counts(ops)}")
+    log = [json.loads(x) for x in open(f"{work}/vocoder_logs/metrics.jsonl")]
+    again = VocoderTrainer(cfg, pattern_dir, work, device=dev, segment_frames=24,
+                           batch_size=16)
+    restored = (again.restore_if_available() and again.state.step == steps
+                and same_state(torch, vt.model, again.model))
     losses = [r["vocoder/loss"] for r in log]
     info = {"config": cfg.name, "transport": "vocoder segments 16 x 24 frames",
             "steps": steps, "batch": 16, "samples_per_row": 24 * cfg.audio.hop_length,
@@ -1638,20 +1658,239 @@ def run_vocoder_train(torch, dev, pattern_dir):
         fail("vocoder train: the restored state differs from the trained one")
 
 
-def run_train_phase(torch, dev, corpus_dir):
+def run_train_phase(torch, dev, corpus_dir, work):
+    """The train phase; leaves the trainer's workdir in ``work``/feat and
+    the vocoder's in ``work``/voc."""
     t_train = time.perf_counter()
-    run_train(torch, dev, corpus_dir, np.random.default_rng(9))
+    run_train(torch, dev, corpus_dir, np.random.default_rng(9), work)
     log(f"train path done in {time.perf_counter() - t_train:.1f} s")
     t0 = time.perf_counter()
     check_train_card_vs_cpu(torch, dev)
     log(f"train card vs CPU done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    run_vocoder_train(torch, dev, corpus_dir)
+    run_vocoder_train(torch, dev, corpus_dir, f"{work}/voc")
     log(f"vocoder train done in {time.perf_counter() - t0:.1f} s; train phase "
         f"{time.perf_counter() - t_train:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the synthesis entry points: chunked decode, bf16 compute, the CLI, the bench
+# ---------------------------------------------------------------------------
+
+
+def run_chunked(torch, dev, cfg, cfg3):
+    """K4 resumed chunk by chunk (``decode.chunked_decode``) at gst_lj's
+    widths (200 steps, chunks of 64: a budget of 256) and gst_r1_location's
+    (its 1000 steps cut to 256, chunks of 64), B=32, stop threshold 1.0,
+    dropout on: one K4 launch a chunk, and the first steps give the bits of
+    one fixed-length call over them; at stop threshold 0.0 one chunk runs.
+    Times the fixed-length and the chunked decode (host wall, a synchronize
+    at each end)."""
+    import math
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.decode import chunked_decode
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for name, c, steps, chunk in (("gst_lj", cfg, 200, 64), ("gst_r1_location", cfg3, 256, 64)):
+        model = build_model(c, seed=11, device=dev)
+        rng = np.random.default_rng(steps)
+        memory = torch.from_numpy(rng.normal(0, 0.5, (B, TEXT_TOKENS, model.memory_dim))
+                                  .astype(np.float32)).to(dev)
+        lens = rng.integers(TEXT_TOKENS // 2, TEXT_TOKENS + 1, B)
+        lens[0], lens[1] = TEXT_TOKENS, 1
+        lengths = torch.from_numpy(lens).to(dev)
+        counter = "decode_scan:location_sensitive" if name == "gst_r1_location" else "decode_scan"
+        with torch.no_grad():
+            fixed, fixed_ms = wall(lambda: model.decoder.decode(memory, lengths, max_steps=steps,
+                                                                seed=5))
+            fixed, fixed_ms = wall(lambda: model.decoder.decode(memory, lengths, max_steps=steps,
+                                                                seed=5))
+            ops.reset_launch_counts()
+            out, chunked_ms = wall(lambda: chunked_decode(model, memory, lengths,
+                                                          chunk_steps=chunk, max_steps=steps,
+                                                          seed=5))
+            counts = ops.launch_counts()
+            zero = build_model(apply_overrides(c, {"model.decoder.stop_threshold": 0.0}),
+                               seed=11, device=dev)
+            ops.reset_launch_counts()
+            out0 = chunked_decode(zero, memory, lengths, chunk_steps=chunk, max_steps=steps,
+                                  seed=5)
+            torch.cuda.synchronize()
+            counts0 = ops.launch_counts()
+        n = fixed[0].shape[1]
+        bits = (torch.equal(out["mel"][:, :n], fixed[0])
+                and torch.equal(out["stop_logits"][:, :n], fixed[1])
+                and torch.equal(out["alignments"][:, :steps], fixed[2]))
+        want = math.ceil(steps / chunk)
+        info = {"name": name, "batch": B, "steps": steps, "chunk_steps": chunk,
+                "budget_steps": want * chunk, "chunks_run": out["chunks_run"],
+                "k4_launches": counts[counter], "bits_equal_fixed": bits,
+                "threshold0_chunks_run": out0["chunks_run"],
+                "threshold0_k4_launches": counts0[counter],
+                "fixed_ms": fixed_ms, "chunked_ms": chunked_ms,
+                "fixed_us_per_step": 1e3 * fixed_ms / steps,
+                "chunked_us_per_step": 1e3 * chunked_ms / (want * chunk),
+                "dropout": True, "stop_threshold": 1.0}
+        print(json.dumps({"chunked": info}), flush=True)
+        if out["chunks_run"] != want or counts[counter] != want or counts["decode_scan"] != want:
+            fail(f"chunked {name}: {out['chunks_run']} chunks, launches {counts}, "
+                 f"expected {want} of each")
+        if not bits:
+            fail(f"chunked {name}: the chunked decode is not the fixed-length call's bits")
+        if out0["chunks_run"] != 1 or counts0[counter] != 1:
+            fail(f"chunked {name}: at stop threshold 0 ran {out0['chunks_run']} chunks, "
+                 f"{counts0[counter]} launches")
+
+
+def run_bf16(torch, dev, cfg, corpus_dir, work):
+    """``model.compute_dtype="bfloat16"`` on the card: gst_lj synthesis
+    (B=32 with reference wavs, decoder dropout off on both) finite, apart
+    from the float32 one yet within the JAX contract (mean |d| of the mel
+    < 0.05), the same launches; its stage times; and one bf16 ``Trainer``
+    step at gst_lj's widths on the corpus phase's patterns: a finite loss,
+    float32 parameters."""
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.synthesize import Synthesizer
+    from gst_tacotron_tpu_torch.train import Trainer
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    cfg16 = apply_overrides(cfg, {"model.compute_dtype": "bfloat16"})
+    texts, wavs = make_inputs(np.random.default_rng(16), cfg.audio.sample_rate)
+    outs, counts = {}, {}
+    for tag, c in (("float32", cfg), ("bfloat16", cfg16)):
+        model = build_model(c, seed=0, device=dev)
+        synth = Synthesizer(c, model, device=dev, deterministic_prenet=True)
+        synth(texts, reference_wavs=wavs, seed=0)
+        ops.reset_launch_counts()
+        outs[tag] = synth(texts, reference_wavs=wavs, seed=0)
+        torch.cuda.synchronize()
+        counts[tag] = nonzero_counts(ops)
+    d = {k: np.abs(outs["bfloat16"][k] - outs["float32"][k]) for k in ("mel", "linear")}
+    finite = all(np.all(np.isfinite(outs["bfloat16"][k])) for k in ("mel", "linear", "wav"))
+    info = {"name": "gst_lj bf16 synthesis", "batch": B, "launches": counts["bfloat16"],
+            "launches_float32": counts["float32"], "finite": finite,
+            "mel_mean_abs_vs_float32": float(d["mel"].mean()),
+            "mel_max_abs_vs_float32": float(d["mel"].max()),
+            "linear_max_abs_vs_float32": float(d["linear"].max())}
+    print(json.dumps({"bf16": info}), flush=True)
+    if not finite:
+        fail("bf16: synthesis is not finite")
+    if counts["bfloat16"] != counts["float32"]:
+        fail(f"bf16: launches {counts['bfloat16']} differ from float32's {counts['float32']}")
+    if not 0.0 < info["mel_mean_abs_vs_float32"] < 0.05:
+        fail(f"bf16: mel mean |d| from float32 {info['mel_mean_abs_vs_float32']} (want in "
+             f"(0, 0.05))")
+    model16 = build_model(cfg16, seed=0, device=dev)
+    print(json.dumps(profile_path(torch, dev, "gst_lj bf16", cfg16, model16, texts, wavs)),
+          flush=True)
+
+    trainer = Trainer(apply_overrides(cfg16, {"train.log_every": 1}), corpus_dir,
+                      f"{work}/bf16", device=dev)
+    batch = next(iter(trainer.loader.epoch(0)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.step_batch(batch)
+    loss = float(metrics["loss"])
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    f32 = all(p.dtype == torch.float32 for p in trainer.state.model.parameters())
+    info = {"config": "gst_lj", "transport": "features, compute_dtype bfloat16", "batch": B,
+            "frames": int(batch["mel"].shape[1]), "loss": loss,
+            "grad_norm": float(metrics["grad_norm"]), "step_ms_first": step_ms,
+            "params_float32": f32}
+    print(json.dumps({"train": info}), flush=True)
+    if not (np.isfinite(loss) and f32):
+        fail(f"bf16 train step: loss {loss}, parameters float32 {f32}")
+
+
+def run_cli(torch, dev, work):
+    """``synthesize.main`` on the train phase's workdir (``work``/feat,
+    decode cut to 64 steps): Griffin-Lim with two reference wavs, then
+    ``--chunked-decoder``, then ``--vocoder wavernn`` from the vocoder
+    phase's workdir (``work``/voc). Each run writes its wavs (and PNGs
+    where matplotlib imports), and the launch counters show K1-K5 across
+    the three."""
+    import contextlib
+    import io
+    import os
+
+    from scipy.io import wavfile
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import get_preset
+    from gst_tacotron_tpu_torch.synthesize import main as synthesize_main
+
+    sr = get_preset("gst_lj").audio.sample_rate
+    texts, wavs = make_inputs(np.random.default_rng(21), sr)
+    refs = []
+    for i, w in enumerate(wavs[:2]):
+        refs.append(f"{work}/ref_{i}.wav")
+        wavfile.write(refs[-1], sr, (w * 32767).astype(np.int16))
+    try:
+        import matplotlib  # noqa: F401
+        pngs_expected = True
+    except ImportError:
+        pngs_expected = False
+    runs = (("griffin_lim", ["--reference-wavs", *refs]),
+            ("chunked", ["--reference-wavs", *refs, "--chunked-decoder"]),
+            ("wavernn", ["--vocoder", "wavernn", "--vocoder-workdir", f"{work}/voc"]))
+    seen = {}
+    for label, extra in runs:
+        out = f"{work}/cli_{label}"
+        argv = ["--workdir", f"{work}/feat", "--out", out, "model.decoder.max_decode_steps=64",
+                *extra, "--texts", *texts[:2]]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            synthesize_main(argv)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        counts = nonzero_counts(ops)
+        for k, n in counts.items():
+            seen[k] = seen.get(k, 0) + n
+        names = sorted(os.listdir(out))
+        info = {"run": label, "launches": counts, "wall_ms": wall,
+                "wavs": sum(n.endswith(".wav") for n in names),
+                "pngs": sum(n.endswith("_align.png") for n in names),
+                "printed": printed.getvalue().strip().splitlines()[-1:]}
+        print(json.dumps({"cli": info}), flush=True)
+        if info["wavs"] != 2 or (pngs_expected and info["pngs"] != 2):
+            fail(f"cli {label}: wrote {names}")
+    missing = [k for k in ("gru_scan", "refenc_stack", "stft_features", "decode_scan",
+                           "wavernn_sample") if not seen.get(k)]
+    if missing:
+        fail(f"cli: the three runs launched {seen}, none of {missing}")
+
+
+def run_bench(torch, card):
+    """The bench's functions at its workload (``bench.run``: gst_lj, B=32,
+    200 steps, 15 Griffin-Lim iterations): its JSON line, informational,
+    with the card, and its details (median and spread)."""
+    import argparse
+
+    from gst_tacotron_tpu_torch import bench
+
+    args = argparse.Namespace(quick=False, batch=32, checkpoint=None, config5=False,
+                              vocoder_workdir=None, details=None)
+    t0 = time.perf_counter()
+    result, details = bench.run(args)
+    details["card"] = card
+    print(json.dumps({"bench_details": details}), flush=True)
+    print(json.dumps({"bench": result, "card": card}), flush=True)
+    log(f"bench done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1701,11 +1940,12 @@ def main() -> None:
     if train_only:   # the train phase alone, on a fresh corpus, then stop
         from gst_tacotron_tpu_torch.data import generate_patterns, synthetic_utterances
 
-        with tempfile.TemporaryDirectory() as corpus_dir:
+        with tempfile.TemporaryDirectory() as corpus_dir, \
+                tempfile.TemporaryDirectory() as work:
             generate_patterns(synthetic_utterances(CORPUS_UTTERANCES, variable=True),
                               get_preset("gst_lj").audio, corpus_dir, store_wav=True,
                               device_features=True, device=dev)
-            run_train_phase(torch, dev, corpus_dir)
+            run_train_phase(torch, dev, corpus_dir, work)
         print(card)
         return
     rng = np.random.default_rng(0)
@@ -1748,14 +1988,24 @@ def main() -> None:
             if "launches" not in r and counts[r["name"]]:
                 r["launches"] = counts[r["name"]]
         log(f"{name} path done in {time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory() as corpus_dir:
+    t0 = time.perf_counter()
+    run_chunked(torch, dev, cfg, apply_overrides(cfg3, {"model.decoder.max_decode_steps": 256}))
+    log(f"chunked phase done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as corpus_dir, tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
         counts = run_corpus(torch, dev, get_preset("gst_lj"), corpus_dir)
         for r in kernels:
             if "launches" not in r and counts[r["name"]]:
                 r["launches"] = counts[r["name"]]
         log(f"corpus path done in {time.perf_counter() - t0:.1f} s")
-        run_train_phase(torch, dev, corpus_dir)
+        run_train_phase(torch, dev, corpus_dir, work)
+        t0 = time.perf_counter()
+        run_bf16(torch, dev, cfg, corpus_dir, work)
+        log(f"bf16 phase done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_cli(torch, dev, work)
+        log(f"CLI phase done in {time.perf_counter() - t0:.1f} s")
+    run_bench(torch, card)
     for r in kernels:
         if "launches" not in r:
             fail(f"{r['name']}: no path launched it")
@@ -1767,6 +2017,7 @@ def main() -> None:
              "library_ms": r["library_ms"]} for r in kernels]
     print(json.dumps({"kernels": line}), flush=True)
     print(card, flush=True)
+    log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,313 @@
+"""Synthesis throughput of the port on one card: prints ONE JSON line,
+``{"metric": "audio_seconds_per_sec_per_chip", "value", "unit",
+"vs_baseline"}``, as the JAX package's ``bench.py`` does.
+
+    python -m gst_tacotron_tpu_torch.bench [--quick] [--batch B]
+        [--checkpoint WORKDIR] [--config5 [--vocoder-workdir DIR]]
+        [--details FILE]
+
+The workload is ``bench.py::build``'s: ``gst_lj`` at its published widths,
+200 decode steps, Griffin-Lim 15 iterations at momentum 0.99, stop
+threshold 1.0 (every step decodes, as a trained model near its length);
+B = 32 texts of 64 random token ids in [2, 40) and a random 128-frame
+reference mel, drawn in ``bench.py``'s order from ``default_rng(0)`` (so
+both benches see the same arrays); seeded random weights, or a port trainer
+workdir's latest checkpoint with ``--checkpoint`` (then the workdir's config
+with its own stop threshold and its ``eval_sentences``).
+
+``bench_fused`` times what ``bench.py::bench_fused`` times: the style
+through ``ops/refenc.py::gst_style_from_params`` (K2, K1), ``GSTTacotron
+.infer`` (K1, K4) and ``TorchDSP.inv_linear_spectrogram`` (Griffin-Lim),
+the waveform kept on the card; a checksum of it chains the iterations and
+is the one value fetched (one sync a timed loop), and each iteration draws
+a fresh dropout seed. The timed loop runs ``repeats`` times; the headline is
+the median, the spread goes to ``--details``.
+
+``vs_baseline`` divides by ``bench_reference_style``: the same weights driven
+as the reference drives them, one host-dispatched ``ops/decode.py::
+decode_step`` a step with its output copied to the host (the per-step cost
+capped at 2 ms, as ``bench.py`` caps it), then the host numpy Griffin-Lim
+(``dsp/ref.py::griffin_lim``), both measured short and extrapolated.
+
+``--config5`` adds the WaveRNN pipeline (text -> mel -> K5 -> waveform) to
+the details. ``benchmark_synthesis`` (the ``Synthesizer`` with its host
+copies) is reported there too; it is not the headline. The bench needs the
+card: without one it raises "CUDA is not available".
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import Config, apply_overrides, get_preset, load_config
+from .device import resolve_device
+
+WORKLOAD = {"model.decoder.max_decode_steps": 200, "audio.griffin_lim_iters": 15,
+            "audio.griffin_lim_momentum": 0.99, "model.decoder.stop_threshold": 1.0}
+QUICK = {"model.decoder.max_decode_steps": 50, "audio.griffin_lim_iters": 8}
+T_TEXT, T_MEL = 64, 128
+# the per-step dispatch of the reference-style decode is capped at this
+# (bench.py's local eager-dispatch estimate), so vs_baseline favours the
+# baseline
+STEP_CAP_S = 0.002
+
+
+def log(*a) -> None:
+    print("[bench]", *a, file=sys.stderr, flush=True)
+
+
+def workload(batch: int = 32, checkpoint: Optional[str] = None,
+             overrides: Optional[Dict[str, Any]] = None
+             ) -> Tuple[Config, Dict[str, np.ndarray]]:
+    """The config and the inputs: ``bench.py::build``'s, drawn in its order."""
+    ov = dict(WORKLOAD, **(overrides or {}))
+    if checkpoint is not None:
+        ov.pop("model.decoder.stop_threshold")
+        cfg = apply_overrides(load_config(os.path.join(checkpoint, "config.json")), ov)
+    else:
+        cfg = apply_overrides(get_preset("gst_lj"), ov)
+    rng = np.random.default_rng(0)
+    if checkpoint is not None:
+        from .text import batch_text_to_ids
+
+        sents = list(cfg.train.eval_sentences)
+        tok, tok_len = batch_text_to_ids([sents[i % len(sents)] for i in range(batch)])
+        tokens = np.zeros((batch, T_TEXT), np.int32)
+        tokens[:, : min(T_TEXT, tok.shape[1])] = tok[:, :T_TEXT]
+        token_lengths = np.minimum(tok_len, T_TEXT).astype(np.int32)
+    else:
+        tokens = rng.integers(2, 40, (batch, T_TEXT)).astype(np.int32)
+        token_lengths = np.full((batch,), T_TEXT, np.int32)
+    sample = {"tokens": tokens, "token_lengths": token_lengths,
+              "mel": rng.random((batch, T_MEL, cfg.model.num_mels), np.float32),
+              "mel_lengths": np.full((batch,), T_MEL, np.int32)}
+    return cfg, sample
+
+
+def build(batch: int = 32, checkpoint: Optional[str] = None,
+          overrides: Optional[Dict[str, Any]] = None, device=None):
+    """(cfg, model, sample, step): the workload and the model on the card
+    (``device`` another when named); ``step`` the checkpoint's, or None."""
+    from .checkpoint import CheckpointManager
+    from .weights import build_model
+
+    dev = resolve_device(device)
+    cfg, sample = workload(batch, checkpoint, overrides)
+    model = build_model(cfg, seed=0, device=dev)
+    step = None
+    if checkpoint is not None:
+        saved = CheckpointManager(os.path.join(checkpoint, cfg.train.checkpoint_dir)).restore(
+            map_location=dev)
+        model.load_state_dict(saved["model"])
+        step = int(saved["step"])
+        log(f"restored trained checkpoint at step {step}")
+    return cfg, model, sample, step
+
+
+def _inputs(sample, dev):
+    t = lambda k, dt: torch.as_tensor(sample[k], dtype=dt, device=dev)
+    return (t("tokens", torch.int64), t("token_lengths", torch.int64), t("mel", torch.float32),
+            t("mel_lengths", torch.int64))
+
+
+@torch.no_grad()
+def bench_fused(cfg: Config, model, sample, iterations: int = 10, repeats: int = 5
+                ) -> Dict[str, Any]:
+    """The headline path (see the module docstring). Returns the audio
+    seconds a batch, each repeat's ms a batch, their median, and the frame
+    total."""
+    from .dsp.torch_dsp import TorchDSP
+    from .ops.refenc import gst_style_from_params
+
+    dev = next(model.parameters()).device
+    dsp = TorchDSP(cfg.audio, dev)
+    tokens, lengths, ref_mel, ref_lengths = _inputs(sample, dev)
+
+    def synth(acc, seed):
+        style = None
+        if model.gst is not None:
+            style, _ = gst_style_from_params(model.gst, ref_mel, ref_lengths)
+        out = model.infer(tokens, lengths, ref_mel, ref_lengths, precomputed_style=style,
+                          seed=seed)
+        wav = dsp.inv_linear_spectrogram(out["linear"].float())
+        return out["frame_lengths"], wav[:, ::997].sum() + acc * 1e-9
+
+    t0 = time.perf_counter()
+    fl, csum = synth(torch.zeros((), device=dev), 0)
+    float(csum)
+    log(f"first call (kernel builds included) {time.perf_counter() - t0:.1f} s")
+    ms = []
+    for rep in range(repeats):
+        t0 = time.perf_counter()
+        for i in range(iterations):
+            fl, csum = synth(csum, 100 + rep * iterations + i)
+        float(csum)                     # the one fetch: every iteration has run
+        ms.append(1e3 * (time.perf_counter() - t0) / iterations)
+    frames = int(fl.sum())
+    audio_seconds = frames * cfg.audio.hop_length / cfg.audio.sample_rate
+    med = statistics.median(ms)
+    log(f"fused: {med:.2f} ms a batch (median of {repeats} x {iterations}; "
+        f"{min(ms):.2f}..{max(ms):.2f})")
+    return {"audio_seconds": audio_seconds, "frames": frames, "ms_per_batch": ms,
+            "median_ms": med, "decode_steps": frames // cfg.model.decoder.reduction_factor}
+
+
+@torch.no_grad()
+def bench_reference_style(cfg: Config, model, sample, max_steps: int = 40
+                          ) -> Tuple[float, float]:
+    """(seconds a decode step, host Griffin-Lim seconds a frame) of the
+    reference-style emulation."""
+    from .dsp import ref as dsp_ref
+    from .ops.decode import decode_step, initial_decode_state, prenet_keep
+
+    dev = next(model.parameters()).device
+    tokens, lengths, ref_mel, ref_lengths = _inputs(sample, dev)
+    memory, _ = model.build_memory(tokens, lengths, ref_mel, ref_lengths)
+    dec = model.decoder
+    keys = dec.cell.precompute_keys(memory)
+    w = dec.cell.pack()
+    memory, keys = memory.float(), keys.float()
+    b, t, _ = memory.shape
+    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    valid[:, 0] = True
+    rate = float(dec.cfg.prenet_dropout)
+    kw = dict(attn_cfg=dec.attn_cfg, num_mels=dec.num_mels, rate=rate)
+    nm, r = dec.num_mels, dec.cfg.reduction_factor
+
+    def step(st, frame, i):
+        keep = prenet_keep(1, 1, b, w["pw1"].shape[1], w["pw2"].shape[1], rate, dev, i)
+        st, out, _ = decode_step(w, st, frame, memory, keys, valid,
+                                 keep=(keep[0][0], keep[1][0]), **kw)
+        return st, out
+
+    st, frame = initial_decode_state(w, memory), memory.new_zeros(b, nm)
+    st, out = step(st, frame, 0)                      # warm-up
+    out.cpu()
+    t0 = time.perf_counter()
+    for i in range(max_steps):
+        st, out = step(st, frame, i)
+        frame = out[:, (r - 1) * nm: r * nm]
+        out.cpu().numpy()                 # the reference copies each step's output
+    per_step = (time.perf_counter() - t0) / max_steps
+    gl_frames = 64
+    mag = np.abs(np.random.default_rng(0).standard_normal((gl_frames, cfg.model.num_freq)))
+    t0 = time.perf_counter()
+    dsp_ref.griffin_lim(mag, cfg.audio)
+    return per_step, (time.perf_counter() - t0) / gl_frames
+
+
+@torch.no_grad()
+def bench_config5(cfg: Config, model, sample, iterations: int = 3,
+                  vocoder_workdir: Optional[str] = None) -> Dict[str, Any]:
+    """gst_wavernn end to end (``bench.py::bench_config5``): style (K2, K1),
+    infer (K1, K4), then the WaveRNN sampler (K5) on the decoded mel, all B
+    rows; the checksum of the waveform chains the iterations."""
+    from .vocoder import load_wavernn_variables
+    from .weights import build_wavernn
+    from .ops.refenc import gst_style_from_params
+
+    vcfg = apply_overrides(cfg, {"model.vocoder.kind": "wavernn"})
+    dev = next(model.parameters()).device
+    if vocoder_workdir:
+        wmodel = build_wavernn(vcfg, flat=load_wavernn_variables(vocoder_workdir), device=dev)
+    else:
+        wmodel = build_wavernn(vcfg, seed=1, device=dev)
+    tokens, lengths, ref_mel, ref_lengths = _inputs(sample, dev)
+
+    def pipeline(acc, seed):
+        style, _ = gst_style_from_params(model.gst, ref_mel, ref_lengths)
+        out = model.infer(tokens, lengths, ref_mel, ref_lengths, precomputed_style=style,
+                          seed=seed)
+        wav = wmodel.sample(out["mel"], seed=seed + 104729)
+        return wav[:, ::997].sum() + acc * 1e-9
+
+    float(pipeline(torch.zeros((), device=dev), 7))
+    t0 = time.perf_counter()
+    acc = torch.zeros((), device=dev)
+    for i in range(iterations):
+        acc = pipeline(acc, 100 + i)
+    float(acc)
+    dt = (time.perf_counter() - t0) / iterations
+    b = sample["tokens"].shape[0]
+    frames = b * cfg.model.decoder.max_decode_steps * cfg.model.decoder.reduction_factor
+    audio_seconds = frames * cfg.audio.hop_length / cfg.audio.sample_rate
+    log(f"config5 (WaveRNN): {dt * 1e3:.1f} ms a batch, {audio_seconds / dt:.1f} audio-s/s")
+    return {"audio_seconds_per_sec_per_chip": audio_seconds / dt, "wall_s_per_batch": dt,
+            "batch": b, "wav_samples_per_batch": frames * cfg.audio.hop_length,
+            "vocoder": "wavernn (K5), " + ("trained" if vocoder_workdir else "seeded weights")}
+
+
+def run(args) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The result line and the details of one bench."""
+    from .synthesize import Synthesizer, benchmark_synthesis
+
+    cfg, model, sample, step = build(args.batch, args.checkpoint,
+                                     QUICK if args.quick else None)
+    dev = next(model.parameters()).device
+    fused = bench_fused(cfg, model, sample, iterations=5 if args.quick else 10,
+                        repeats=3 if args.quick else 5)
+    per_step, gl_per_frame = bench_reference_style(cfg, model, sample,
+                                                   max_steps=20 if args.quick else 40)
+    med_s = fused["median_ms"] / 1e3
+    tput = fused["audio_seconds"] / med_s
+    used = min(per_step, STEP_CAP_S)
+    ref_dt = used * fused["decode_steps"] + gl_per_frame * fused["frames"]
+    ref_tput = fused["audio_seconds"] / ref_dt
+    result = {"metric": "audio_seconds_per_sec_per_chip", "value": round(tput, 3),
+              "unit": "audio-s/s/chip", "vs_baseline": round(tput / ref_tput, 2)}
+    synth = Synthesizer(cfg, model, device=dev)
+    texts = [f"benchmark sentence number {i}." for i in range(sample["tokens"].shape[0])]
+    details = {
+        **result,
+        "ms_per_batch": fused["ms_per_batch"], "median_ms": fused["median_ms"],
+        "spread_ms": [min(fused["ms_per_batch"]), max(fused["ms_per_batch"])],
+        "audio_seconds": fused["audio_seconds"],
+        "decode_steps_per_sec": fused["decode_steps"] / med_s,
+        "emulated_reference_wall_s": ref_dt, "emulated_reference_tput": ref_tput,
+        "per_step_dispatch_s": per_step, "per_step_dispatch_used_s": used,
+        "gl_host_s_per_frame": gl_per_frame,
+        "benchmark_synthesis": benchmark_synthesis(synth, texts, iterations=3),
+        "synthesis_batch": sample["tokens"].shape[0],
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
+        "num_chips": 1,
+    }
+    if step is not None:
+        details["trained_checkpoint"] = {"workdir": args.checkpoint, "step": step,
+                                         "stop_threshold": cfg.model.decoder.stop_threshold}
+    if args.config5:
+        details["config5_wavernn_pipeline"] = bench_config5(
+            cfg, model, sample, vocoder_workdir=args.vocoder_workdir)
+    return result, details
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="Synthesis throughput of the PyTorch port")
+    p.add_argument("--quick", action="store_true", help="smaller workload (50 steps)")
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--checkpoint", help="a port trainer workdir: bench the trained model "
+                                        "with real stop-token termination")
+    p.add_argument("--config5", action="store_true",
+                   help="also time the WaveRNN pipeline (K5), into --details")
+    p.add_argument("--vocoder-workdir", help="vocoder_train workdir for --config5")
+    p.add_argument("--details", help="write the detailed JSON here")
+    args = p.parse_args(argv)
+    if args.batch < 1:
+        p.error(f"--batch {args.batch}: must be >= 1")
+    result, details = run(args)
+    if args.details:
+        with open(args.details, "w") as f:
+            json.dump(details, f, indent=2)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -66,6 +66,15 @@
 // atomic goes into any sum: a seed gives the same bits on every run. No
 // cooperative launch and no grid barrier: the launch boundaries order the
 // phases.
+//
+// Resuming (the chunked decode): a call runs steps [step0, step0 + nsteps)
+// of a decode of S steps, S the row stride of the outputs (B, S * r, M),
+// (B, S * r) and (B, S, T). The first call (prepared 0) zeroes the state,
+// transposes the keys and the weights into the workspace and seeds the
+// alignment; a continuation (prepared 1) finds all of that in the workspace
+// as the call before left it, and does none of it again. The dropout draw
+// is keyed by the global step, so a decode in chunks draws the masks of one
+// call and gives its bits.
 
 #include "common.cuh"
 
@@ -599,7 +608,8 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
                                   const int* dims,              // host array, decode_launch_ints
                                   float* mel_out, float* stop_out, float* align_out,
                                   float* work, unsigned long long seed, float rate,
-                                  int use_dropout, cudaStream_t stream) {
+                                  int use_dropout, int step0, int nsteps, int prepared,
+                                  cudaStream_t stream) {
   Ctx c;
   const float** wp = reinterpret_cast<const float**>(&c.w);
   for (int i = 0; i < (int)(sizeof(DecodeWeights) / sizeof(const float*)); ++i) wp[i] = weights[i];
@@ -619,11 +629,15 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
   c.seed = seed;
   c.rate = rate;
   c.use_dropout = use_dropout;
-  c.step = 0;
+  c.step = step0;
+  if (step0 < 0 || nsteps < 0 || step0 + nsteps > d.S) return (int)cudaErrorInvalidValue;
 
-  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)d.state_floats * sizeof(float), stream);
-  if (err != cudaSuccess) return (int)err;
-  decode_prep<<<264, 256, 0, stream>>>(c, keys);
+  cudaError_t err;
+  if (!prepared) {
+    err = cudaMemsetAsync(work, 0, (size_t)d.state_floats * sizeof(float), stream);
+    if (err != cudaSuccess) return (int)err;
+    decode_prep<<<264, 256, 0, stream>>>(c, keys);
+  }
 
   Phase ph[10] = {};
   for (int k = 0; k < NPROD; ++k) {
@@ -642,7 +656,9 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
     p.ld1 = q[11] >= 0 ? c.s.ld[q[11]] : 0;
     p.qpc = q[12];
     p.ncta = (p.n4 / 4 + p.qpc - 1) / p.qpc;
-    decode_prep_weights<<<132, 256, 0, stream>>>(p, weights[q[2]], q[3], q[6], q[7], q[8], q[9]);
+    if (!prepared)
+      decode_prep_weights<<<132, 256, 0, stream>>>(p, weights[q[2]], q[3], q[6], q[7], q[8],
+                                                   q[9]);
     Phase& f = ph[q[13]];
     f.p[f.n++] = p;
   }
@@ -660,7 +676,7 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const dim3 blk(DEC_THREADS);
-  for (int step = 0; step < d.S; ++step) {
+  for (int step = step0; step < step0 + nsteps; ++step) {
     c.step = step;
     decode_phase<1><<<dim3(grid[1], groups), blk, 0, stream>>>(ph[1], c);
     decode_phase<2><<<dim3(grid[2], groups), blk, 0, stream>>>(ph[2], c);

@@ -1,8 +1,10 @@
-"""Metrics logging (counterpart of ``gst_tacotron_tpu/metrics.py``).
+"""Metrics logging and synthesis metrics (counterpart of
+``gst_tacotron_tpu/metrics.py``).
 
 JSONL always (``metrics.jsonl``, one record a write). TensorBoard scalars,
 images and audio through ``torch.utils.tensorboard`` where it imports, else
-off: the JAX module's own fallback around ``clu``.
+off: the JAX module's own fallback around ``clu``. ``mel_cepstral_distortion``
+and ``synthesis_metrics`` are numpy copies of the JAX functions.
 """
 
 from __future__ import annotations
@@ -62,3 +64,32 @@ class MetricLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def mel_cepstral_distortion(mel_a: np.ndarray, mel_b: np.ndarray, num_coeffs: int = 13) -> float:
+    """MCD (dB) between two normalized mel sequences (T, M): DCT-II cepstra
+    c1..cK (c0, the energy, excluded), 10 * sqrt(2) / ln 10 times the mean
+    frame-wise L2 distance, over the shorter length; NaN for no frames."""
+    t = min(mel_a.shape[0], mel_b.shape[0])
+    if t == 0:
+        return float("nan")
+    a = np.asarray(mel_a[:t], np.float64)
+    b = np.asarray(mel_b[:t], np.float64)
+    m = a.shape[1]
+    n = np.arange(m)
+    k = np.arange(1, num_coeffs + 1)[:, None]
+    basis = np.cos(np.pi * k * (2 * n[None, :] + 1) / (2 * m))
+    const = 10.0 * np.sqrt(2.0) / np.log(10.0)
+    return float(const * np.mean(np.linalg.norm(a @ basis.T - b @ basis.T, axis=1)))
+
+
+def synthesis_metrics(num_audio_seconds: float, wall_seconds: float,
+                      decode_steps: int, num_chips: int) -> Dict[str, float]:
+    """Audio seconds a wall second a chip, decode steps a second, and the
+    wall seconds."""
+    return {
+        "audio_seconds_per_sec_per_chip": num_audio_seconds
+        / max(wall_seconds, 1e-9) / max(num_chips, 1),
+        "decode_steps_per_sec": decode_steps / max(wall_seconds, 1e-9),
+        "wall_seconds": wall_seconds,
+    }

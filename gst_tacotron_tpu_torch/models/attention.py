@@ -47,15 +47,22 @@ def attention_step(q: torch.Tensor, keys: torch.Tensor, memory: torch.Tensor,
         feats = torch.stack([prev, cum][:loc_c], -1)                # (B, T, c)
         fp = F.pad(feats, (0, 0, (loc_k - 1) // 2, loc_k // 2))
         arg = arg + torch.cat([fp[:, j: j + t] for j in range(loc_k)], -1) @ loca
-    scores = (torch.tanh(arg) * vvec).sum(-1)
+    scores = torch.tanh(arg) @ vvec
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, -1e9))
     m = scores.max(-1, keepdim=True).values
     e = torch.exp(scores - m)
     if valid is not None:
         e = e * valid
-    align = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-9)
-    ctx = torch.einsum("bt,btm->bm", align, memory)
+    denom = torch.clamp(e.sum(-1, keepdim=True), min=1e-9)
+    align = e / denom
+    # the context takes the promoted dtype of the alignment and the memory;
+    # where that is wider, the quotient is taken in it (XLA keeps a value
+    # it promotes at once unrounded), so a bf16 alignment over float32
+    # memory weighs with its float32 quotient
+    dt = torch.promote_types(align.dtype, memory.dtype)
+    weights = align if dt == align.dtype else e.to(dt) / denom.to(dt)
+    ctx = torch.einsum("bt,btm->bm", weights, memory.to(dt))
     return ctx, align, align, cum + align
 
 

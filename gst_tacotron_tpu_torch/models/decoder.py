@@ -9,6 +9,12 @@ its plain version on the CPU) with stop masking and zeroing of the frames
 past each stop. ``Decoder.teacher_forced`` drives the same step with the
 target frames (``ops.decode.teacher_forced_scan``) over a differentiable
 pack, on every device: the training forward.
+
+In the compute dtype (``modules.compute_dtype``) the teacher-forced step
+runs on the pack cast to it, as the JAX scan cell casts each operand; the
+AR decode stays float32 (K4 and its plain version, as the JAX Pallas decode
+kernel, whose products are float32 whatever the dtype), with memory and
+keys cast at its entry.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from ..config import AttentionConfig, DecoderConfig
 from ..ops.decode import (decode_scan, decode_scan_plain, pack_decoder_weights,
                           teacher_forced_scan)
 from .attention import make_attention
-from .modules import Dense, Prenet, length_mask
+from .modules import Dense, Prenet, compute_dtype, length_mask
 from .rnn import GRUCell
 
 
@@ -88,8 +94,9 @@ class Decoder(nn.Module):
         steps = max_steps if max_steps is not None else self.cfg.max_decode_steps
         keys = self.cell.precompute_keys(memory)
         run = decode_scan_plain if plain else decode_scan
+        f32 = torch.float32
         mel, stops, aligns = run(
-            self.cell.pack(), memory, keys, memory_lengths, dec_cfg=self.cfg,
+            self.cell.pack(), memory.to(f32), keys.to(f32), memory_lengths, dec_cfg=self.cfg,
             attn_cfg=self.attn_cfg, num_mels=self.num_mels, steps=steps,
             seed=seed, use_dropout=not deterministic_prenet)
         frame_lengths = stop_frame_lengths(stops, self.cfg)
@@ -105,7 +112,9 @@ class Decoder(nn.Module):
         if memory_lengths is None:
             memory_lengths = torch.full((memory.shape[0],), memory.shape[1],
                                         device=memory.device)
+        dt = compute_dtype(self)
+        packed = {k: v.to(dt) for k, v in self.cell.pack(differentiable=True).items()}
         return teacher_forced_scan(
-            self.cell.pack(differentiable=True), memory, keys, memory_lengths, mel_targets,
+            packed, memory, keys, memory_lengths, mel_targets,
             dec_cfg=self.cfg, attn_cfg=self.attn_cfg, num_mels=self.num_mels, seed=seed,
             use_dropout=not deterministic_prenet)

@@ -1,14 +1,17 @@
 """Global Style Tokens: reference encoder + style-token layer (counterparts of
 ``gst_tacotron_tpu/models/gst.py``).
 
-At inference the forward passes are the composition of
+At inference in float32 the forward passes are the composition of
 ``gst_tacotron_tpu/ops/refenc_pallas.py``, ported in ``ops/refenc.py``:
 masked, folded-BN conv stack (K2), then the reference GRU (K1), then the
-multi-head attention over the tanh tokens. In training (``train=True``) the
-reference encoder is the flax module's own composition: plain stride-2
-convs, BatchNorm with the batch's statistics, ReLU, then the masked GRU's
-plain scan, as the JAX package trains it. The style-token layer is the same
-in both.
+multi-head attention over the tanh tokens. In training (``train=True``),
+and at inference in another compute dtype, the reference encoder is the
+flax module's own composition in the compute dtype: plain stride-2 convs,
+BatchNorm (the batch's statistics in training, the running ones at
+inference), ReLU, then the masked GRU (its kernel route on the card at
+inference, in float32 with casts). K2 is a float32 kernel, and the JAX
+package runs its Pallas stack only where synthesis computes the style
+(``GSTTacotron.infer`` here), never inside the bf16 module.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from ..config import GSTConfig
 from ..ops import refenc
-from .modules import BatchNorm, Dense, MatmulConv2DStride2, mask_sequence
+from .modules import BatchNorm, Dense, MatmulConv2DStride2, compute_dtype, mask_sequence
 from .rnn import GRU
 
 
@@ -40,18 +43,18 @@ class ReferenceEncoder(nn.Module):
 
     def forward(self, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None,
                 *, plain: bool = False, train: bool = False) -> torch.Tensor:
-        if not train:
+        if not train and compute_dtype(self) == torch.float32:
             return refenc.ref_encoder(self, ref_mel, mel_lengths, plain=plain)
         x = mask_sequence(ref_mel, mel_lengths)[..., None]        # (B, T, F, 1)
         n = len(self.cfg.ref_conv_channels)
         for i in range(n):
             conv, bn = getattr(self, f"conv_{i}"), getattr(self, f"bn_{i}")
-            x = torch.relu(bn(conv(x), train=True))
+            x = torch.relu(bn(conv(x), train=train))
         b, t, f, c = x.shape
         gru_lengths = None
         if mel_lengths is not None:
             gru_lengths = torch.clamp((mel_lengths + 2 ** n - 1) // 2 ** n, min=1)
-        _, final = self.gru(x.reshape(b, t, f * c), gru_lengths, train=True)
+        _, final = self.gru(x.reshape(b, t, f * c), gru_lengths, plain=plain, train=train)
         return final
 
 
@@ -74,7 +77,8 @@ class StyleTokenLayer(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (style (B, style_dim), attention (B, heads, tokens)); explicit
         ``token_weights`` (B, tokens) replace the attention distribution."""
-        return refenc.style_attention(self, ref_embedding, token_weights)
+        return refenc.style_attention(self, ref_embedding, token_weights,
+                                      compute_dtype(self))
 
 
 class GST(nn.Module):
@@ -91,8 +95,15 @@ class GST(nn.Module):
                 token_weights: Optional[torch.Tensor] = None, *,
                 plain: bool = False, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not train or ref_mel is None:
+        dt = compute_dtype(self)
+        if not train and dt == torch.float32:
             return refenc.gst_style_from_params(self, ref_mel, mel_lengths,
                                                 token_weights, plain=plain)
-        ref = self.reference_encoder(ref_mel, mel_lengths, train=True)
+        if ref_mel is None:
+            if token_weights is None:
+                raise ValueError("GST needs ref_mel or token_weights")
+            ref = token_weights.new_zeros(token_weights.shape[0], self.cfg.ref_gru_dim,
+                                          dtype=dt)
+        else:
+            ref = self.reference_encoder(ref_mel, mel_lengths, plain=plain, train=train)
         return self.stl(ref, token_weights)

@@ -8,6 +8,10 @@ state-dict key one to one. Sequence tensors are (B, T, C). Padded positions
 are re-zeroed before every conv, as in the JAX package. ``train=True``
 normalizes with the batch's statistics and updates the running ones, as
 flax's ``BatchNorm(use_running_average=False)`` in a mutable step.
+
+``compute_dtype`` is flax's ``dtype`` field (``model.compute_dtype``): the
+parameters stay float32 and each module casts its operands to it where the
+flax module does (``set_compute_dtype`` sets it on a model's every module).
 """
 
 from __future__ import annotations
@@ -23,6 +27,28 @@ from torch import nn
 BN_EPS = 1e-3
 # flax's BatchNorm momentum: running = 0.99 * running + 0.01 * batch
 BN_MOMENTUM = 0.99
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every module of ``model`` compute in ``dtype``; parameters stay
+    float32 (flax's ``dtype`` against ``param_dtype``)."""
+    for m in model.modules():
+        m.compute_dtype = dtype
+    return model
+
+
+def compute_dtype(module: nn.Module) -> torch.dtype:
+    return getattr(module, "compute_dtype", torch.float32)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``. In float32 ``torch.sigmoid``; in a 16-bit dtype
+    XLA computes it as 1 / (1 + exp(-x)) with each operation rounded to that
+    dtype, and so does this (one rounding would part from it by an ulp at a
+    fifth of the values)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.sigmoid(x)
+    return 1.0 / (torch.exp(-x) + 1.0)
 
 
 def length_mask(lengths: torch.Tensor, time: int) -> torch.Tensor:
@@ -52,8 +78,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_dim)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        dt = compute_dtype(self)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Embed(nn.Module):
@@ -62,7 +89,7 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num, dim))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        return self.embedding.to(compute_dtype(self))[ids]
 
 
 class BatchNorm(nn.Module):
@@ -71,7 +98,9 @@ class BatchNorm(nn.Module):
     ``train=True`` takes the batch's, over every axis but the last (padded
     positions included, as flax), with flax 0.12's fast variance E[x^2] -
     E[x]^2 clipped at 0 (biased), and moves the running buffers by
-    ``BN_MOMENTUM``. Not ``nn.BatchNorm``: its momentum weighs the other way
+    ``BN_MOMENTUM``. Statistics and the normalization run in float32 (at
+    least); the result is cast to the compute dtype. Not ``nn.BatchNorm``:
+    its momentum weighs the other way
     and its running variance is unbiased."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
@@ -87,13 +116,14 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(compute_dtype(self))
 
 
 class Prenet(nn.Module):
@@ -127,7 +157,7 @@ class Highway(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.h(x))
-        t = torch.sigmoid(self.t(x))
+        t = sigmoid(self.t(x))
         return h * t + x * (1.0 - t)
 
 
@@ -143,14 +173,16 @@ class MatmulConv1D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel_size
         t = x.shape[1]
+        dt = compute_dtype(self)
         xp = F.pad(x, (0, 0, (k - 1) // 2, k // 2))
-        x_cat = torch.cat([xp[:, j: j + t] for j in range(k)], dim=-1)
-        return x_cat @ self.kernel.reshape(-1, self.kernel.shape[-1])
+        x_cat = torch.cat([xp[:, j: j + t] for j in range(k)], dim=-1).to(dt)
+        return x_cat @ self.kernel.reshape(-1, self.kernel.shape[-1]).to(dt)
 
 
-def conv2d_stride2_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+def conv2d_stride2_same(x: torch.Tensor, kernel: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """3x3 stride-2 TF-SAME conv2d of NHWC ``x`` with a (3, 3, in, out)
-    kernel, as 9 strided patch slices and one product."""
+    kernel, as 9 strided patch slices and one product in ``dtype``."""
     _, h, w, c = x.shape
     h_out, w_out = (h + 1) // 2, (w + 1) // 2
     pad_h = max(0, (h_out - 1) * 2 + 3 - h)
@@ -158,7 +190,8 @@ def conv2d_stride2_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     xp = F.pad(x, (0, 0, pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
     patches = [xp[:, di: di + 2 * h_out: 2, dj: dj + 2 * w_out: 2, :]
                for di in range(3) for dj in range(3)]
-    return torch.cat(patches, dim=-1) @ kernel.reshape(9 * c, kernel.shape[-1])
+    w = kernel.reshape(9 * c, kernel.shape[-1]).to(dtype)
+    return torch.cat(patches, dim=-1).to(dtype) @ w
 
 
 class MatmulConv2DStride2(nn.Module):
@@ -167,7 +200,7 @@ class MatmulConv2DStride2(nn.Module):
         self.kernel = nn.Parameter(torch.empty(3, 3, in_dim, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_stride2_same(x, self.kernel)
+        return conv2d_stride2_same(x, self.kernel, compute_dtype(self))
 
 
 def bank_tap_mask(bank_k: int, c_in: int, channels: int) -> np.ndarray:
@@ -202,8 +235,10 @@ class ConvBankBlock(nn.Module):
         t = x.shape[1]
         smin, smax = -((self.bank_k - 1) // 2), self.bank_k // 2
         xp = F.pad(x, (0, 0, -smin, smax))
-        x_cat = torch.cat([xp[:, s - smin: s - smin + t] for s in range(smin, smax + 1)], dim=-1)
-        y = x_cat @ (self.bank_kernel * self.tap_mask)
+        dt = compute_dtype(self)
+        x_cat = torch.cat([xp[:, s - smin: s - smin + t] for s in range(smin, smax + 1)],
+                          dim=-1).to(dt)
+        y = x_cat @ (self.bank_kernel * self.tap_mask).to(dt)
         return torch.relu(self.bn(y, train))
 
 

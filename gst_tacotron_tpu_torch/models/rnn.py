@@ -12,6 +12,13 @@ picks the plain version on any device.
 package's own choice (its GRU takes the Pallas kernel only when not
 training), not a fallback: the kernel has no backward, and the plain scan is
 autograd over torch ops.
+
+The compute dtype (``modules.compute_dtype``) splits the two routes as the
+JAX GRU splits them (``gst_tacotron_tpu/models/rnn.py:104-145``): the kernel
+route (inference on the card) is float32 whatever the dtype, with casts at
+its entry and exit; the scan (training, ``plain``, and inference on the CPU,
+where JAX's GRU takes its scan too) runs in the compute dtype. In float32
+the two are the same function.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.gru import bigru_scan, gru_scan, gru_scan_plain, gru_update
+from .modules import compute_dtype
 
 
 class _GRUParams(nn.Module):
@@ -38,9 +46,18 @@ class GRUCell(_GRUParams):
     """One Keras-v2 GRU step: (h, x) -> (h', h')."""
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        h_new = gru_update(x @ self.kernel + self.bias,
-                           h @ self.recurrent_kernel + self.recurrent_bias, h)
+        dt = compute_dtype(self)
+        x, h = x.to(dt), h.to(dt)
+        h_new = gru_update(x @ self.kernel.to(dt) + self.bias.to(dt),
+                           h @ self.recurrent_kernel.to(dt) + self.recurrent_bias.to(dt), h)
         return h_new, h_new
+
+
+def kernel_route(xs: torch.Tensor, plain: bool, train: bool) -> bool:
+    """Whether a GRU at inference takes K1: on the card unless ``plain`` or
+    ``train`` (the JAX GRU's gate: its kernel unless training or on the
+    CPU)."""
+    return not (plain or train) and xs.device.type != "cpu"
 
 
 class GRU(_GRUParams):
@@ -55,12 +72,19 @@ class GRU(_GRUParams):
                 initial_state: Optional[torch.Tensor] = None, *,
                 plain: bool = False, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = compute_dtype(self)
         h0 = initial_state
         if h0 is None:
-            h0 = xs.new_zeros(xs.shape[0], self.features)
-        scan = gru_scan_plain if plain or train else gru_scan
-        return scan(xs, h0, self.kernel, self.bias, self.recurrent_kernel,
-                    self.recurrent_bias, lengths=lengths, reverse=self.reverse)
+            h0 = xs.new_zeros(xs.shape[0], self.features, dtype=dt)
+        if not kernel_route(xs, plain, train):
+            return gru_scan_plain(xs.to(dt), h0.to(dt), self.kernel.to(dt), self.bias.to(dt),
+                                  self.recurrent_kernel.to(dt), self.recurrent_bias.to(dt),
+                                  lengths=lengths, reverse=self.reverse)
+        f32 = torch.float32
+        ys, final = gru_scan(xs.to(f32), h0.to(f32), self.kernel, self.bias,
+                             self.recurrent_kernel, self.recurrent_bias, lengths=lengths,
+                             reverse=self.reverse)
+        return ys.to(dt), final.to(dt)
 
 
 class BiGRU(nn.Module):
@@ -75,11 +99,13 @@ class BiGRU(nn.Module):
 
     def forward(self, xs: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 *, plain: bool = False, train: bool = False):
-        if plain or train:
+        if not kernel_route(xs, plain, train):
             f, f_final = self.fwd(xs, lengths, plain=True)
             b, b_final = self.bwd(xs, lengths, plain=True)
             return torch.cat([f, b], dim=-1), (f_final, b_final)
-        h0 = xs.new_zeros(xs.shape[0], self.fwd.features)
+        dt = compute_dtype(self)
+        h0 = xs.new_zeros(xs.shape[0], self.fwd.features, dtype=torch.float32)
         fwd, bwd = ((h0, g.kernel, g.bias, g.recurrent_kernel, g.recurrent_bias)
                     for g in (self.fwd, self.bwd))
-        return bigru_scan(xs, fwd, bwd, lengths=lengths)
+        ys, (f_final, b_final) = bigru_scan(xs.to(torch.float32), fwd, bwd, lengths=lengths)
+        return ys.to(dt), (f_final.to(dt), b_final.to(dt))

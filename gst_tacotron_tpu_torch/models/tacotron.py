@@ -8,8 +8,12 @@ memory -> Decoder (teacher-forced | AR decode, K4) -> mel, stops, alignments
 mel -> PostCBHG -> linear
 
 ``forward`` is the teacher-forced pass of training and eval (the JAX
-``__call__``); ``infer`` is synthesis. The Taco2 encoder is not ported;
-configs that need it are refused.
+``__call__``); ``infer`` is synthesis, the composition of the JAX
+``Synthesizer``'s kernel stages (``use_pallas_decoder``, with its fused
+style path): the style from ``ops/refenc.py::gst_style_from_params`` (K2 and
+K1, float32), the decode through K4 (float32), the rest of the model in the
+compute dtype. The Taco2 encoder is not ported; configs that need it are
+refused.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..decode import chunked_decode
+from ..ops.refenc import gst_style_from_params
 from .decoder import Decoder
 from .encoder import Taco1Encoder
 from .gst import GST
-from .modules import Embed
+from .modules import Embed, set_compute_dtype
 from .postnet import PostCBHG
 
 
@@ -36,7 +42,11 @@ def _generator(seed: int, device, deterministic: bool) -> Optional[torch.Generat
 
 
 class GSTTacotron(nn.Module):
-    def __init__(self, cfg: ModelConfig, num_symbols: int):
+    """``dtype`` is the compute dtype of every module (the JAX model's
+    ``dtype``); the parameters stay float32."""
+
+    def __init__(self, cfg: ModelConfig, num_symbols: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.encoder.kind != "taco1":
             raise NotImplementedError("only the taco1 encoder is ported")
@@ -47,6 +57,7 @@ class GSTTacotron(nn.Module):
                                   if cfg.num_speakers > 1 else None)
         self.decoder = Decoder(cfg.decoder, cfg.attention, cfg.num_mels, self.memory_dim)
         self.postnet = PostCBHG(cfg.postnet, cfg.num_mels, cfg.num_freq)
+        set_compute_dtype(self, dtype)
 
     @property
     def memory_dim(self) -> int:
@@ -121,17 +132,35 @@ class GSTTacotron(nn.Module):
               speaker_ids: Optional[torch.Tensor] = None,
               max_steps: Optional[int] = None, deterministic_prenet: bool = False,
               seed: int = 0, precomputed_style: Optional[torch.Tensor] = None,
-              plain: bool = False) -> Dict[str, torch.Tensor]:
+              plain: bool = False, chunk_steps: Optional[int] = None
+              ) -> Dict[str, torch.Tensor]:
         """Autoregressive synthesis: encode (prenet dropout from ``seed``),
-        decode (dropout stream ``seed + 1``), post-net."""
+        decode (dropout stream ``seed + 1``), post-net. ``chunk_steps``
+        decodes in chunks with early exit (``decode.chunked_decode``; the
+        result then has ``chunks_run``)."""
         gen = _generator(seed, tokens.device, deterministic_prenet)
+        style_attn = None
+        if self.gst is not None and precomputed_style is None:
+            precomputed_style, style_attn = gst_style_from_params(
+                self.gst, ref_mel, ref_mel_lengths, token_weights, plain=plain)
         memory, aux = self.build_memory(
             tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
             speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,
             generator=gen, precomputed_style=precomputed_style, plain=plain)
-        mel, stops, aligns, frame_lengths = self.decoder.decode(
-            memory, token_lengths, max_steps=max_steps,
-            deterministic_prenet=deterministic_prenet, seed=seed + 1, plain=plain)
+        if chunk_steps is None:
+            mel, stops, aligns, frame_lengths = self.decoder.decode(
+                memory, token_lengths, max_steps=max_steps,
+                deterministic_prenet=deterministic_prenet, seed=seed + 1, plain=plain)
+        else:
+            dec = chunked_decode(self, memory, token_lengths, chunk_steps=chunk_steps,
+                                 max_steps=max_steps,
+                                 deterministic_prenet=deterministic_prenet, seed=seed + 1,
+                                 plain=plain)
+            mel, stops, aligns, frame_lengths = (
+                dec["mel"], dec["stop_logits"], dec["alignments"], dec["frame_lengths"])
+            aux["chunks_run"] = dec["chunks_run"]
         linear = self.postnet(mel, frame_lengths, plain=plain)
+        if style_attn is not None:
+            aux["style_attention"] = style_attn
         return {"mel": mel, "linear": linear, "stop_logits": stops,
                 "alignments": aligns, "frame_lengths": frame_lengths, **aux}

@@ -30,12 +30,22 @@ products, ``decode_phase_plan`` gives each phase's CTAs their slices of
 columns, and ``decode_workspace_layout`` places every buffer; the launcher
 takes all three as integers (``decode_launch_ints``) and derives none of
 them itself.
+
+A decode resumes through a ``DecodeCarry``: the output buffers of all its
+steps, the steps done, and the state (the kernel's workspace, or the plain
+version's ``DecodeState`` and last frame). ``decode_scan(..., carry=c)``
+runs the next ``steps`` steps into ``c``'s buffers at its step offset and
+advances it; on a continuation the kernel skips its prologue (the state's
+zeroing, the keys' and weights' transposes), and the Philox draw takes the
+global step, so any split into calls gives the bits of one call. Every call
+of one carry takes the same weights, memory, keys, lengths and seed.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +59,7 @@ from .gru import gru_update
 from .philox import stream_uniforms
 
 KERNEL = CudaKernel("decode_scan.cu", "decode_scan_launch",
-                    [P, P, P, P, P, P, P, P, P, U64, F, I, P],
+                    [P, P, P, P, P, P, P, P, P, U64, F, I, I, I, I, P],
                     branches=("location_sensitive",))
 
 LANE = 128
@@ -134,21 +144,22 @@ class DecodeState(NamedTuple):
 
 
 def initial_decode_state(packed: Dict[str, torch.Tensor], memory: torch.Tensor) -> DecodeState:
-    """Zero GRU states and context; the alignment a delta at position 0."""
+    """Zero GRU states and context; the alignment a delta at position 0; in
+    the packed weights' dtype (the step's compute dtype)."""
     b, t, m_dim = memory.shape
-    prev = memory.new_zeros(b, t)
+    zeros = lambda n: memory.new_zeros(b, n, dtype=packed["pw1"].dtype)
+    prev = zeros(t)
     prev[:, 0] = 1.0
-    return DecodeState(memory.new_zeros(b, packed["awh"].shape[0]),
-                       memory.new_zeros(b, packed["g1wh"].shape[0]),
-                       memory.new_zeros(b, packed["g2wh"].shape[0]),
-                       memory.new_zeros(b, m_dim), prev, memory.new_zeros(b, t))
+    return DecodeState(zeros(packed["awh"].shape[0]), zeros(packed["g1wh"].shape[0]),
+                       zeros(packed["g2wh"].shape[0]), zeros(m_dim), prev, zeros(t))
 
 
 def prenet_keep(seed: int, steps: int, batch: int, p1: int, p2: int, rate: float,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(steps, batch, P) keep masks of the two prenet layers: the kernel's
-    Philox draw (``dropout_uniforms``), made on ``device``."""
-    idx = torch.arange(steps, device=device)
+                device, step0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(steps, batch, P) keep masks of the two prenet layers at steps
+    ``step0`` on: the kernel's Philox draw (``dropout_uniforms``), made on
+    ``device``."""
+    idx = torch.arange(step0, step0 + steps, device=device)
     return tuple(stream_uniforms(seed, idx, layer, batch, units) >= rate
                  for layer, units in ((0, p1), (1, p2)))
 
@@ -162,7 +173,11 @@ def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor
     prenet of ``frame`` (B, num_mels) -> attention GRU -> attention -> input
     projection -> two residual GRUs -> packed frame and stop projection.
     ``keep`` holds this step's prenet keep masks (None: no dropout).
+    Every product runs in the packed weights' dtype, the input frame and the
+    context cast to it (the JAX cell's casts); the context itself is taken
+    in the promoted dtype of the alignment and ``memory``.
     Returns (state, out (B, 256): r frames then r stop logits, alignment)."""
+    frame = frame.to(w["pw1"].dtype)
     h1 = torch.relu(frame @ w["pw1"][:num_mels] + w["pb1"])
     if keep is not None:
         h1 = torch.where(keep[0], h1 / (1.0 - rate), torch.zeros_like(h1))
@@ -175,6 +190,7 @@ def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor
     loca = w["loca"] if attn_cfg.kind == "location_sensitive" else None
     ctx, align, prev, cum = attention_step(h_attn @ w["qproj"], keys, memory, valid,
                                            st.prev, st.cum, w["vvec"], loca, loc_k, loc_c)
+    ctx = ctx.to(w["pw1"].dtype)
     h = torch.cat([h_attn, ctx], -1) @ w["dwi"] + w["dbi"]
     h_d1 = _gru(h, st.h_d1, w["g1wi"], w["g1bi"], w["g1wh"], w["g1bh"])
     h = h + h_d1
@@ -184,11 +200,52 @@ def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor
     return DecodeState(h_attn, h_d1, h_d2, ctx, prev, cum), out, align
 
 
+@dataclass
+class DecodeCarry:
+    """A decode that can be resumed: its output buffers over all ``total``
+    steps (zeros where no step has written), the ``step``s done, and the
+    state the next call starts from (None before the first: the kernel's
+    workspace, or the plain version's (``DecodeState``, last frame))."""
+    mel: torch.Tensor             # (B, total * r, num_mels)
+    stop_logits: torch.Tensor     # (B, total * r)
+    aligns: torch.Tensor          # (B, total, T)
+    total: int
+    step: int = 0
+    state: Any = None
+
+
+def decode_carry(memory: torch.Tensor, *, dec_cfg: DecoderConfig, num_mels: int,
+                 total_steps: int) -> DecodeCarry:
+    """A fresh carry for a decode of ``total_steps`` steps over ``memory``."""
+    b, t, _ = memory.shape
+    r = dec_cfg.reduction_factor
+    z = lambda *shape: torch.zeros(*shape, device=memory.device)
+    return DecodeCarry(z(b, total_steps * r, num_mels), z(b, total_steps * r),
+                       z(b, total_steps, t), total_steps)
+
+
+def _run_carried(carry: Optional[DecodeCarry], memory, steps, dec_cfg, num_mels, run):
+    """Run ``run(carry)`` for ``steps`` steps of ``carry`` (a fresh one of
+    ``steps`` steps when None), advance it, return its buffers."""
+    if carry is None:
+        carry = decode_carry(memory, dec_cfg=dec_cfg, num_mels=num_mels, total_steps=steps)
+    if carry.step + steps > carry.total:
+        raise ValueError(f"decode: steps {carry.step}..{carry.step + steps} past the "
+                         f"carry's {carry.total}")
+    if steps > 0 and memory.shape[0] > 0:
+        run(carry)
+    carry.step += steps
+    return carry.mel, carry.stop_logits, carry.aligns
+
+
 def _plain_decode(packed, memory, keys, lengths, inputs, *, dec_cfg, attn_cfg,
-                  num_mels, steps, seed, use_dropout):
-    """Drive ``decode_step`` for ``steps`` steps: each step's input frame is
-    ``inputs[:, s]`` (teacher forcing) or, with ``inputs`` None, the last
-    frame of the step before (autoregressive, the go frame zeros)."""
+                  num_mels, steps, seed, use_dropout, step0=0, state=None):
+    """Drive ``decode_step`` for ``steps`` steps from global step ``step0``
+    and ``state`` (None: the initial state, go frame zeros): each step's
+    input frame is ``inputs[:, s]`` (teacher forcing) or, with ``inputs``
+    None, the last frame of the step before (autoregressive). Returns (mel,
+    stop logits, alignments) of these steps and the (state, last frame)
+    after them."""
     if attn_cfg.kind not in _KINDS:
         raise ValueError(f"unknown attention kind {attn_cfg.kind!r}")
     w = packed
@@ -200,9 +257,12 @@ def _plain_decode(packed, memory, keys, lengths, inputs, *, dec_cfg, attn_cfg,
     valid[:, 0] = True
     keep = None
     if use_dropout:
-        keep = prenet_keep(seed, steps, b, w["pw1"].shape[1], w["pw2"].shape[1], rate, dev)
-    st = initial_decode_state(w, memory)
-    last = memory.new_zeros(b, num_mels)
+        keep = prenet_keep(seed, steps, b, w["pw1"].shape[1], w["pw2"].shape[1], rate, dev,
+                           step0)
+    if state is None:
+        state = (initial_decode_state(w, memory),
+                 memory.new_zeros(b, num_mels, dtype=w["pw1"].dtype))
+    st, last = state
     frames, stops, aligns = [], [], []
     for s in range(steps):
         frame = last if inputs is None else inputs[:, s]
@@ -215,20 +275,30 @@ def _plain_decode(packed, memory, keys, lengths, inputs, *, dec_cfg, attn_cfg,
         last = out[:, (r - 1) * num_mels: r * num_mels]
     mel = torch.stack(frames, 1).reshape(b, steps * r, num_mels)
     stop_logits = torch.stack(stops, 1).reshape(b, steps * r)
-    return mel, stop_logits, torch.stack(aligns, 1)
+    return mel, stop_logits, torch.stack(aligns, 1), (st, last)
 
 
 def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                       keys: torch.Tensor, lengths: torch.Tensor, *,
                       dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
                       num_mels: int, steps: int, seed: int = 0,
-                      use_dropout: bool = False
+                      use_dropout: bool = False, carry: Optional[DecodeCarry] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same decode in plain PyTorch, one ``decode_step`` per loop
-    iteration, each fed the last frame of the step before."""
-    return _plain_decode(packed, memory, keys, lengths, None, dec_cfg=dec_cfg,
-                         attn_cfg=attn_cfg, num_mels=num_mels, steps=steps, seed=seed,
-                         use_dropout=use_dropout)
+    iteration, each fed the last frame of the step before; with ``carry``
+    the next ``steps`` steps of that decode (see ``DecodeCarry``)."""
+    r = dec_cfg.reduction_factor
+
+    def run(c: DecodeCarry) -> None:
+        mel, stops, aligns, c.state = _plain_decode(
+            packed, memory, keys, lengths, None, dec_cfg=dec_cfg, attn_cfg=attn_cfg,
+            num_mels=num_mels, steps=steps, seed=seed, use_dropout=use_dropout,
+            step0=c.step, state=c.state)
+        c.mel[:, c.step * r: (c.step + steps) * r] = mel
+        c.stop_logits[:, c.step * r: (c.step + steps) * r] = stops
+        c.aligns[:, c.step: c.step + steps] = aligns
+
+    return _run_carried(carry, memory, steps, dec_cfg, num_mels, run)
 
 
 def teacher_forced_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
@@ -252,7 +322,7 @@ def teacher_forced_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     inputs = torch.cat([go, mel_targets[:, r - 1:: r][:, :-1]], 1)
     return _plain_decode(packed, memory, keys, lengths, inputs, dec_cfg=dec_cfg,
                          attn_cfg=attn_cfg, num_mels=num_mels, steps=steps, seed=seed,
-                         use_dropout=use_dropout)
+                         use_dropout=use_dropout)[:3]
 
 
 # --- the kernel's phases, plan and workspace ---------------------------------
@@ -455,14 +525,17 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                 keys: torch.Tensor, lengths: torch.Tensor, *,
                 dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
                 num_mels: int, steps: int, seed: int = 0,
-                use_dropout: bool = False
+                use_dropout: bool = False, carry: Optional[DecodeCarry] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fixed-length decode: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; with ``carry`` the next ``steps`` steps of that
+    decode, written into its buffers (one launcher call, the kernel's
+    outputs strided by the carry's total steps)."""
     if memory.device.type == "cpu":
         return decode_scan_plain(packed, memory, keys, lengths, dec_cfg=dec_cfg,
                                  attn_cfg=attn_cfg, num_mels=num_mels,
-                                 steps=steps, seed=seed, use_dropout=use_dropout)
+                                 steps=steps, seed=seed, use_dropout=use_dropout,
+                                 carry=carry)
     refuse_grad("decode_scan", memory, keys, *packed.values())
     if attn_cfg.kind not in _KINDS:
         raise ValueError(f"unknown attention kind {attn_cfg.kind!r}")
@@ -476,21 +549,22 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     lens = lengths.to(memory.device, torch.int32).contiguous()
     ws = [packed[k] for k in _WEIGHT_ORDER]
     check_cuda("decode_scan", memory, keys, lens, *ws)
-    mel = torch.empty(b, steps * r, num_mels, device=memory.device)
-    stop_logits = torch.empty(b, steps * r, device=memory.device)
-    aligns = torch.empty(b, steps, t, device=memory.device)
-    if b == 0 or steps == 0:
-        return mel, stop_logits, aligns
-    d = decode_dims(packed, memory, keys, r=r, num_mels=num_mels, steps=steps,
-                    attn_cfg=attn_cfg)
-    plan = decode_phase_plan(d, sm_count(memory.device.index))
-    ints = decode_launch_ints(d, plan)
-    work = torch.empty(decode_workspace_floats(d, plan), device=memory.device)
-    wptrs = (ctypes.c_void_p * len(ws))(*[x.data_ptr() for x in ws])
-    dptrs = (ctypes.c_int * len(ints))(*ints)
-    KERNEL(ptr(memory), ptr(keys), ptr(lens), wptrs, dptrs, ptr(mel),
-           ptr(stop_logits), ptr(aligns), ptr(work), seed & 0xFFFFFFFFFFFFFFFF,
-           float(dec_cfg.prenet_dropout), int(use_dropout),
-           stream_ptr(memory.device),
-           branch="location_sensitive" if attn_cfg.kind == "location_sensitive" else None)
-    return mel, stop_logits, aligns
+
+    def run(c: DecodeCarry) -> None:
+        check_cuda("decode_scan", c.mel, c.stop_logits, c.aligns)
+        d = decode_dims(packed, memory, keys, r=r, num_mels=num_mels, steps=c.total,
+                        attn_cfg=attn_cfg)
+        plan = decode_phase_plan(d, sm_count(memory.device.index))
+        ints = decode_launch_ints(d, plan)
+        prepared = c.state is not None
+        if not prepared:
+            c.state = torch.empty(decode_workspace_floats(d, plan), device=memory.device)
+        wptrs = (ctypes.c_void_p * len(ws))(*[x.data_ptr() for x in ws])
+        dptrs = (ctypes.c_int * len(ints))(*ints)
+        KERNEL(ptr(memory), ptr(keys), ptr(lens), wptrs, dptrs, ptr(c.mel),
+               ptr(c.stop_logits), ptr(c.aligns), ptr(c.state), seed & 0xFFFFFFFFFFFFFFFF,
+               float(dec_cfg.prenet_dropout), int(use_dropout), c.step, steps, int(prepared),
+               stream_ptr(memory.device),
+               branch="location_sensitive" if attn_cfg.kind == "location_sensitive" else None)
+
+    return _run_carried(carry, memory, steps, dec_cfg, num_mels, run)

@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.modules import sigmoid
 from .build import I, P, CudaKernel, check_cuda, ptr, refuse_grad, stream_ptr
 
 KERNEL = CudaKernel("gru_scan.cu", "gru_scan_launch",
@@ -85,8 +86,8 @@ def gru_update(gx: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Ten
     pre-activations ``gx``, ``gh`` (..., 3H) and the state ``h`` (..., H)."""
     xz, xr, xn = gx.chunk(3, dim=-1)
     hz, hr, hn = gh.chunk(3, dim=-1)
-    z = torch.sigmoid(xz + hz)
-    r = torch.sigmoid(xr + hr)
+    z = sigmoid(xz + hz)
+    r = sigmoid(xr + hr)
     n = torch.tanh(xn + r * hn)
     return z * h + (1.0 - z) * n
 

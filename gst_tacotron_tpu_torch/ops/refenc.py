@@ -152,26 +152,32 @@ def ref_encoder(enc, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor],
 
 
 def style_attention(stl, ref: torch.Tensor,
-                    token_weights: Optional[torch.Tensor] = None
+                    token_weights: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Style-token multi-head attention of ``ref`` (B, D) over the tanh
     tokens; ``token_weights`` (B, N) replaces the attention distribution.
-    ``stl`` is a ``models.gst.StyleTokenLayer``."""
+    ``stl`` is a ``models.gst.StyleTokenLayer``. The projections and the
+    scores' product run in ``dtype``; the scores are then divided in float32
+    (at least), as the JAX layer's numpy-scalar division promotes them, so
+    the attention and the style are float32 there too."""
     c = stl.cfg
     head_dim = c.style_dim // c.num_heads
-    keys_base = torch.tanh(stl.tokens)
-    q = ref @ stl.query_proj.kernel
-    k = keys_base @ stl.key_proj.kernel
-    v = keys_base @ stl.value_proj.kernel
+    wide = torch.promote_types(dtype, torch.float32)
+    keys_base = torch.tanh(stl.tokens).to(dtype)
+    q = ref.to(dtype) @ stl.query_proj.kernel.to(dtype)
+    k = keys_base @ stl.key_proj.kernel.to(dtype)
+    v = keys_base @ stl.value_proj.kernel.to(dtype)
     b = q.shape[0]
     q = q.reshape(b, c.num_heads, head_dim)
     k = k.reshape(c.num_tokens, c.num_heads, head_dim)
     v = v.reshape(c.num_tokens, c.num_heads, head_dim)
-    scores = torch.einsum("bhd,nhd->bhn", q, k) / np.sqrt(head_dim)
-    attn = torch.softmax(scores, dim=-1)
+    scores = torch.einsum("bhd,nhd->bhn", q, k).to(wide) / np.sqrt(head_dim)
+    e = torch.exp(scores - scores.max(-1, keepdim=True).values)
+    attn = e / e.sum(-1, keepdim=True)                        # jax.nn.softmax
     if token_weights is not None:
         attn = token_weights[:, None, :].to(attn.dtype).expand_as(attn)
-    style = torch.einsum("bhn,nhd->bhd", attn, v).reshape(b, c.style_dim)
+    style = torch.einsum("bhn,nhd->bhd", attn, v.to(wide)).reshape(b, c.style_dim)
     return style, attn
 
 

@@ -18,12 +18,17 @@ On the card every kernel launches; with ``device="cpu"`` the same math runs
 through the kernels' plain versions. ``plain=True`` picks the plain versions
 on the card too, as the reference the kernels are held against.
 ``save_outputs`` writes the eval artifacts: 16-bit wavs, and alignment PNGs
-where matplotlib imports.
+where matplotlib imports. ``benchmark_synthesis`` times a ``Synthesizer``;
+``main`` is the command line (``python -m gst_tacotron_tpu_torch.synthesize``),
+restoring a checkpoint of the port's trainer.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import re
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,6 +39,7 @@ from .config import Config
 from .device import resolve_device
 from .dsp.device_features import DeviceFeatureExtractor
 from .dsp.torch_dsp import TorchDSP
+from .metrics import synthesis_metrics
 from .models.attention import alignment_diagonality
 from .models.tacotron import GSTTacotron
 from .text import batch_text_to_ids
@@ -51,10 +57,15 @@ class Synthesizer:
 
     def __init__(self, cfg: Config, model: GSTTacotron, *, device=None,
                  text_pad_multiple: int = 32, deterministic_prenet: bool = False,
-                 plain: bool = False, vocoder=None):
+                 plain: bool = False, vocoder=None, use_chunked_decoder: bool = False,
+                 chunk_steps: int = 64):
         """deterministic_prenet: turn off the prenet dropout that otherwise
         stays on at inference, in both prenets; synthesis is then a
         deterministic function of (text, style).
+
+        use_chunked_decoder: decode in ``chunk_steps`` chunks and stop once
+        every row's stop token fired (``decode.chunked_decode``, each chunk
+        one resumed K4 call on the card); the result has ``chunks_run``.
 
         vocoder: a ``vocoder.make_vocoder`` object. None or a
         ``GriffinLimVocoder`` keeps Griffin-Lim inline; a ``WaveRNNVocoder``
@@ -67,6 +78,7 @@ class Synthesizer:
         self.text_pad_multiple = text_pad_multiple
         self.deterministic_prenet = deterministic_prenet
         self.plain = plain
+        self.chunk_steps = chunk_steps if use_chunked_decoder else None
         self.dsp = TorchDSP(cfg.audio, self.device)
         self._ref_extractor: Optional[DeviceFeatureExtractor] = None
 
@@ -121,15 +133,16 @@ class Synthesizer:
         out = self.model.infer(
             tok, tok_len, ref_mel, ref_lengths, tw, speaker_ids=spk, max_steps=steps,
             deterministic_prenet=self.deterministic_prenet, seed=seed,
-            plain=self.plain)
+            plain=self.plain, chunk_steps=self.chunk_steps)
         if self._inline_gl:
-            wav = self.dsp.inv_linear_spectrogram(out["linear"])
+            wav = self.dsp.inv_linear_spectrogram(out["linear"].float())
         else:
             wav = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET, plain=self.plain)
         r = cfg.model.decoder.reduction_factor
         out["diagonality"] = alignment_diagonality(
             out["alignments"], tok_len, torch.clamp(out["frame_lengths"] // r, min=1))
-        result = {k: v.cpu().numpy() for k, v in out.items()}
+        result = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                  if torch.is_tensor(v) else v for k, v in out.items()}
         result["wav"] = wav.cpu().numpy()
         result["wav_lengths"] = result["frame_lengths"] * cfg.audio.hop_length
         return result
@@ -173,3 +186,132 @@ def save_alignment_png(alignment: np.ndarray, out_dir: str, name: str) -> Option
     fig.savefig(path, dpi=80)
     plt.close(fig)
     return path
+
+
+def benchmark_synthesis(synth: Synthesizer, texts: Sequence[str], iterations: int = 3,
+                        **kwargs) -> Dict[str, float]:
+    """``synthesis_metrics`` of ``synth(texts, **kwargs)``: one untimed call
+    (it builds the kernels), then the mean host wall time of ``iterations``
+    calls, each ending with its results on the host and one synchronize. One
+    card: the ``Synthesizer`` runs on one device."""
+    def call():
+        out = synth(texts, **kwargs)
+        if synth.device.type == "cuda":
+            torch.cuda.synchronize(synth.device)
+        return out
+
+    out = call()
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        out = call()
+    dt = (time.perf_counter() - t0) / iterations
+    audio_seconds = float(np.sum(out["wav_lengths"])) / synth.cfg.audio.sample_rate
+    decode_steps = int(np.sum(out["frame_lengths"]) // synth.cfg.model.decoder.reduction_factor)
+    return synthesis_metrics(audio_seconds, dt, decode_steps, num_chips=1)
+
+
+def main(argv=None):
+    """Restore a checkpoint of the port's trainer, synthesize texts, write
+    wavs and alignment PNGs."""
+    from .checkpoint import CheckpointManager
+    from .config import apply_overrides, get_preset, load_config, parse_cli_overrides
+    from .vocoder import make_vocoder
+    from .weights import build_model
+
+    p = argparse.ArgumentParser(description="Synthesize speech (PyTorch port)")
+    p.add_argument("--preset", default="taco1_lj")
+    p.add_argument("--config")
+    p.add_argument("--workdir", required=True,
+                   help="the port's training workdir: config.json and checkpoints/")
+    p.add_argument("--out", required=True, help="output directory")
+    p.add_argument("--texts", nargs="+", required=True)
+    p.add_argument("--reference-wavs", nargs="*", help="style reference wavs (GST configs)")
+    p.add_argument("--token-weights",
+                   help="direct style control: comma-separated token weights "
+                        "(model.gst.num_tokens of them) for every utterance; mutually "
+                        "exclusive with --reference-wavs")
+    p.add_argument("--speaker-ids", nargs="*", type=int)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="default cuda; 'cpu' runs the plain path on the CPU")
+    p.add_argument("--pallas-decoder", action="store_true",
+                   help="accepted for the JAX CLI's sake: the decode kernel (K4) is the "
+                        "port's default route on the card")
+    p.add_argument("--chunked-decoder", action="store_true",
+                   help="decode in chunks with early exit (each chunk a resumed K4 call)")
+    p.add_argument("--vocoder", choices=["config", "griffin_lim", "wavernn"],
+                   default="config", help="waveform stage; 'config' uses model.vocoder.kind")
+    p.add_argument("--vocoder-workdir",
+                   help="vocoder_train workdir with vocoder_ckpt/ (wavernn; defaults to "
+                        "--workdir)")
+    p.add_argument("--profile",
+                   help="trace the synthesis call into this directory (torch.profiler)")
+    p.add_argument("overrides", nargs="*")
+    args = p.parse_args(argv)
+    # a trailing key.path=value goes to the greedy --texts
+    for t in args.texts:
+        if re.fullmatch(r"[A-Za-z_][\w.]*=[^\s=]+", t):
+            p.error(f"{t!r} looks like a config override but was captured by --texts; "
+                    f"put overrides BEFORE --texts")
+
+    workdir_cfg = os.path.join(args.workdir, "config.json")
+    if args.config:
+        cfg = load_config(args.config)
+    elif os.path.exists(workdir_cfg):
+        cfg = load_config(workdir_cfg)
+    else:
+        cfg = get_preset(args.preset)
+    if args.overrides:
+        cfg = apply_overrides(cfg, parse_cli_overrides(args.overrides))
+    ckpt_dir = os.path.join(args.workdir, cfg.train.checkpoint_dir)
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoint directory at {ckpt_dir}")
+
+    token_weights = None
+    if args.token_weights:
+        if args.reference_wavs:
+            p.error("--token-weights and --reference-wavs are mutually exclusive "
+                    "(two style sources)")
+        w = np.array([float(x) for x in args.token_weights.split(",")], np.float32)
+        if w.shape[0] != cfg.model.gst.num_tokens:
+            p.error(f"--token-weights needs {cfg.model.gst.num_tokens} values "
+                    f"(model.gst.num_tokens), got {w.shape[0]}")
+        if not cfg.model.gst.enabled:
+            p.error("--token-weights requires a GST config (model.gst.enabled)")
+        token_weights = np.tile(w[None, :], (len(args.texts), 1))
+
+    device = resolve_device(args.device)
+    model = build_model(cfg, seed=cfg.train.seed, device=device)
+    ckpt = CheckpointManager(ckpt_dir)
+    saved = ckpt.restore(map_location=device)
+    model.load_state_dict(saved["model"])
+    print(f"restored checkpoint at step {int(saved['step'])}")
+
+    vocoder = None
+    kind = cfg.model.vocoder.kind if args.vocoder == "config" else args.vocoder
+    if kind == "wavernn":
+        vworkdir = args.vocoder_workdir or args.workdir
+        vocoder = make_vocoder(apply_overrides(cfg, {"model.vocoder.kind": "wavernn"}),
+                               vocoder_workdir=vworkdir, device=device)
+        print(f"restored wavernn vocoder from {vworkdir}")
+
+    synth = Synthesizer(cfg, model, device=device, vocoder=vocoder,
+                        use_chunked_decoder=args.chunked_decoder)
+    ref_wavs = None
+    if args.reference_wavs:
+        from .data.pattern import load_wav
+
+        ref_wavs = [load_wav(w, cfg.audio.sample_rate) for w in args.reference_wavs]
+    from .utils.profiling import profile_trace
+
+    with profile_trace(args.profile, enabled=args.profile is not None):
+        out = synth(args.texts, reference_wavs=ref_wavs, token_weights=token_weights,
+                    speaker_ids=args.speaker_ids, seed=args.seed)
+    paths = synth.save_outputs(out, args.out)
+    for pth, d in zip([x for x in paths if x.endswith(".wav")], out["diagonality"]):
+        print(f"{pth}  (alignment diagonality {float(d):.3f})")
+    return paths
+
+
+if __name__ == "__main__":
+    main()

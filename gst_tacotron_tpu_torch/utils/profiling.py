@@ -1,10 +1,37 @@
-"""Step-window tracing (counterpart of ``gst_tacotron_tpu/utils/profiling.py``)
-on ``torch.profiler``."""
+"""Tracing (counterpart of ``gst_tacotron_tpu/utils/profiling.py``) on
+``torch.profiler``: ``profile_trace`` around one call, ``StepWindowProfiler``
+over a window of loop steps. Each writes a Chrome/Perfetto ``trace.json``."""
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional
+from typing import Iterator, Optional
+
+
+def _activities():
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str], enabled: bool = True) -> Iterator[None]:
+    """Trace the body (host and, on the card, CUDA activity) into
+    ``log_dir/trace.json``; a no-op unless ``enabled``."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=_activities()) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StepWindowProfiler:
@@ -29,14 +56,10 @@ class StepWindowProfiler:
         if self._done:
             return
         if self._n == self.warmup:
-            import torch
-            from torch.profiler import ProfilerActivity, profile
+            from torch.profiler import profile
 
             os.makedirs(self.log_dir, exist_ok=True)
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=acts)
+            self._prof = profile(activities=_activities())
             self._prof.__enter__()
         elif self._n == self.warmup + self.active:
             self.stop()

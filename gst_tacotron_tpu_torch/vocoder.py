@@ -6,13 +6,15 @@ vocoder(outputs, seed) -> waveform (B, S):
     the sampling kernel (K5) on the card.
 
 ``make_vocoder`` builds the configured one. WaveRNN variables come as the
-flat ``params/...`` mapping of ``weights.load_flat``; restoring them from a
-vocoder training workdir (the JAX ``load_wavernn_variables``, an orbax
-checkpoint) waits for the checkpoint exporter and is not ported.
+flat ``params/...`` mapping of ``weights.load_flat``, or from the port's
+vocoder training workdir (``load_wavernn_variables``: the latest
+``vocoder_ckpt/`` checkpoint of ``vocoder_train.VocoderTrainer``). The JAX
+package's orbax vocoder checkpoints are not read.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -69,10 +71,24 @@ class WaveRNNVocoder:
                                  plain=plain)
 
 
+def load_wavernn_variables(vocoder_workdir: str, ckpt_dirname: str = "vocoder_ckpt"
+                           ) -> Dict[str, np.ndarray]:
+    """The flat ``params/...`` variables of the latest WaveRNN checkpoint
+    that ``vocoder_train.VocoderTrainer`` saved under ``vocoder_workdir``."""
+    from .checkpoint import CheckpointManager
+    from .weights import state_key_to_flat
+
+    directory = os.path.join(vocoder_workdir, ckpt_dirname)
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"no vocoder checkpoint directory at {directory}")
+    saved = CheckpointManager(directory).restore(map_location="cpu")
+    return {state_key_to_flat(k): v.numpy() for k, v in saved["model"].items()}
+
+
 def make_vocoder(cfg: Config, wavernn_variables: Optional[Mapping[str, np.ndarray]] = None,
-                 *, device=None):
+                 *, vocoder_workdir: Optional[str] = None, device=None):
     """The vocoder of ``cfg.model.vocoder.kind``; a WaveRNN takes its flat
-    variables."""
+    variables, or restores them from ``vocoder_workdir``."""
     from .weights import build_wavernn
 
     kind = cfg.model.vocoder.kind
@@ -80,8 +96,10 @@ def make_vocoder(cfg: Config, wavernn_variables: Optional[Mapping[str, np.ndarra
         return GriffinLimVocoder(cfg, device=device)
     if kind == "wavernn":
         if wavernn_variables is None:
-            raise ValueError("the wavernn vocoder needs its variables (restoring a "
-                             "vocoder workdir is not ported)")
+            if vocoder_workdir is None:
+                raise ValueError("the wavernn vocoder needs its variables or a vocoder "
+                                 "workdir to restore them from")
+            wavernn_variables = load_wavernn_variables(vocoder_workdir)
         return WaveRNNVocoder(cfg, build_wavernn(cfg, flat=wavernn_variables, device=device),
                               device=device)
     raise ValueError(f"unknown vocoder kind {kind!r}")

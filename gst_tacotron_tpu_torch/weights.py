@@ -130,8 +130,9 @@ def build_model(cfg: Config, *, seed: Optional[int] = None,
                 device=None) -> GSTTacotron:
     """A GSTTacotron for ``cfg`` with weights from ``flat`` (JAX variables)
     or from a seeded init, on ``device`` (``cuda`` unless named), in eval
-    mode."""
-    return _built(GSTTacotron(cfg.model, cfg.model.num_symbols or NUM_SYMBOLS),
+    mode, computing in ``model.compute_dtype`` (parameters float32)."""
+    return _built(GSTTacotron(cfg.model, cfg.model.num_symbols or NUM_SYMBOLS,
+                              dtype=getattr(torch, cfg.model.compute_dtype)),
                   seed, flat, device)
 
 

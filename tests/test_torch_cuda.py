@@ -491,6 +491,61 @@ def test_decode_scan_phases_at_ragged_widths(dev, kind, r, use_dropout):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
 
 
+# K4 resumed from a carried workspace: chunks of 1, 7 and 64 steps over 150
+# steps (7 and 64 do not divide them), B = 1, 32 and 33 (two row groups)
+@pytest.mark.parametrize("config,b", [("gst_lj", 32), ("gst_lj", 1), ("gst_r1_location", 33)])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_decode_scan_resumes_in_chunks(dev, config, b, chunk):
+    """One launcher call a chunk, each resuming where the one before left the
+    workspace, gives the bits of one call over the same steps, dropout on;
+    the chunked decode with early exit as well, at stop threshold 1.0."""
+    import math
+
+    import numpy as np
+
+    from gst_tacotron_tpu_torch.config import apply_overrides, load_config
+    from gst_tacotron_tpu_torch.decode import chunked_decode
+    from gst_tacotron_tpu_torch.ops.decode import KERNEL, decode_carry, decode_scan
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    cfg = apply_overrides(load_config(f"configs/{config}.json"),
+                          {"model.decoder.stop_threshold": 1.0})
+    model = build_model(cfg, seed=b, device=dev)
+    dec = model.decoder
+    steps, t = 150, 64
+    rng = np.random.default_rng(b + chunk)
+    memory = torch.from_numpy(rng.normal(0, 0.5, (b, t, model.memory_dim)).astype(
+        np.float32)).to(dev)
+    lengths = torch.tensor(([t, 0, 1] + list(rng.integers(1, t + 1, b)))[:b], device=dev)
+    with torch.no_grad():
+        keys = dec.cell.precompute_keys(memory).contiguous()
+        packed = dec.cell.pack()
+        kw = dict(dec_cfg=dec.cfg, attn_cfg=dec.attn_cfg, num_mels=dec.num_mels, seed=9,
+                  use_dropout=True)
+        one = decode_scan(packed, memory, keys, lengths, steps=steps, **kw)
+        carry = decode_carry(memory, dec_cfg=dec.cfg, num_mels=dec.num_mels,
+                             total_steps=steps)
+        before = KERNEL.launches
+        s = 0
+        while s < steps:
+            n = min(chunk, steps - s)
+            decode_scan(packed, memory, keys, lengths, steps=n, carry=carry, **kw)
+            s += n
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + math.ceil(steps / chunk)
+        for x, y in zip((carry.mel, carry.stop_logits, carry.aligns), one):
+            assert torch.equal(x, y)
+        before = KERNEL.launches
+        out = chunked_decode(model, memory, lengths, chunk_steps=chunk, max_steps=steps,
+                             seed=9)
+        torch.cuda.synchronize()
+        assert out["chunks_run"] == math.ceil(steps / chunk)
+        assert KERNEL.launches == before + out["chunks_run"]
+        n = one[0].shape[1]
+        assert torch.equal(out["stop_logits"][:, :n], one[1])
+        assert torch.equal(out["alignments"][:, :steps], one[2])
+
+
 @pytest.mark.parametrize("b,t,c,h,bits", [(3, 5, 16, 16, 8), (2, 4, 12, 13, 5), (2, 0, 8, 8, 3),
                                           (33, 3, 20, 37, 6)])  # 33 rows: two launches
 @pytest.mark.parametrize("greedy", [True, False])

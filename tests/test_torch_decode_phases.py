@@ -18,7 +18,10 @@ card:
   1e-5 for both branches, dropout on and off, with lengths 0 and 1, at the
   odd and the ragged widths, and
   gives the same result with the CTAs of each launch run in reverse order
-  (no CTA reads what another CTA of its launch writes).
+  (no CTA reads what another CTA of its launch writes);
+- resuming: two emulated launcher calls on one carried workspace (the
+  second skipping the prologue, its dropout keyed by the global step) give
+  the bits of one call, both branches, dropout on and off.
 """
 
 import numpy as np
@@ -174,16 +177,25 @@ def test_workspace_layout(name, b):
 
 
 def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps, seed=0,
-            use_dropout=False, sms=132, reverse=False):
-    """P1-P9 CTA by CTA on the workspace, as csrc/decode_scan.cu runs them."""
+            use_dropout=False, sms=132, reverse=False, carry=None):
+    """P1-P9 CTA by CTA on the workspace, as csrc/decode_scan.cu runs them.
+    ``carry`` (a dict from ``new_carry``) resumes a decode as the launcher
+    does: its workspace, its outputs of ``total`` steps and its step
+    offset; the prologue runs only on its first call."""
     r = dec_cfg.reduction_factor
     rate = float(dec_cfg.prenet_dropout)
-    d = D.decode_dims(packed, memory, keys, r=r, num_mels=num_mels, steps=steps,
+    if carry is None:
+        carry = new_carry(steps)
+    total, step0 = carry["total"], carry["step"]
+    d = D.decode_dims(packed, memory, keys, r=r, num_mels=num_mels, steps=total,
                       attn_cfg=attn_cfg)
     plan = D.decode_phase_plan(d, sms)
     lay = D.decode_workspace_layout(d, plan)
-    ws = torch.full((D.decode_workspace_floats(d, plan),), float("nan"))
-    ws[: lay["state"][2]] = 0.0                    # the launcher's memset
+    prepared = carry["ws"] is not None
+    if not prepared:
+        carry["ws"] = torch.full((D.decode_workspace_floats(d, plan),), float("nan"))
+        carry["ws"][: lay["state"][2]] = 0.0          # the launcher's memset
+    ws = carry["ws"]
 
     def buf(name):
         off, rows, ld = lay[name]
@@ -191,14 +203,15 @@ def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps
 
     B, T, A = d.B, d.T, d.A
     prods = {p.kind: p for p in D.decode_products(d)}
-    # decode_prep and decode_prep_weights
-    buf("keys_t").view(B, A, T)[:] = keys.transpose(1, 2)
-    buf("prev")[:, 0] = 1.0
-    for name, bias, h in (("gha", "abh", d.Ha), ("gxc", "abi", d.Ha), ("gh1", "g1bh", d.Hd),
-                          ("gh2", "g2bh", d.Hd)):
-        for g in range(3):            # the state products of the zero state
-            buf(name)[:, g * r4(h): g * r4(h) + h] = packed[bias][g * h: (g + 1) * h]
-    for p in prods.values():
+    # decode_prep and decode_prep_weights, on the first call only
+    if not prepared:
+        buf("keys_t").view(B, A, T)[:] = keys.transpose(1, 2)
+        buf("prev")[:, 0] = 1.0
+        for name, bias, h in (("gha", "abh", d.Ha), ("gxc", "abi", d.Ha), ("gh1", "g1bh", d.Hd),
+                              ("gh2", "g2bh", d.Hd)):
+            for g in range(3):            # the state products of the zero state
+                buf(name)[:, g * r4(h): g * r4(h) + h] = packed[bias][g * h: (g + 1) * h]
+    for p in (prods.values() if not prepared else ()):
         n4, kp = r4(p.n), D.product_kp(p)
         wt = buf(f"wt_{p.kind}").view(p.gates, n4, kp)
         wt.zero_()
@@ -211,11 +224,13 @@ def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps
     keep = {}
     if use_dropout:
         for layer, width in ((0, d.P1), (1, d.P2)):
-            u = torch.from_numpy(D.dropout_uniforms(seed, steps, layer, B, width))
+            u = torch.from_numpy(D.dropout_uniforms(seed, total, layer, B, width))
             keep[layer] = u >= np.float32(rate)
-    mel = torch.full((B, steps * r, d.NM), float("nan"))
-    stop = torch.full((B, steps * r), float("nan"))
-    align = torch.full((B, steps, T), float("nan"))
+    for name, shape in (("mel", (B, total * r, d.NM)), ("stop", (B, total * r)),
+                        ("align", (B, total, T))):
+        if carry[name] is None:
+            carry[name] = torch.full(shape, float("nan"))
+    mel, stop, align = carry["mel"], carry["stop"], carry["align"]
 
     def product(p, q0, q1, rows):
         xs = [buf(x)[rows, : r4(n)] for x, (_, n) in zip(p.inputs, p.segs)]
@@ -324,13 +339,18 @@ def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps
             m0, m1 = s * w, min(d.Md, (s + 1) * w)
             buf("ctx")[b, m0:m1] = al @ memory[b, :, m0:m1]
 
-    for step in range(steps):
+    for step in range(step0, step0 + steps):
         for phase in (1, 2, 3, 4):
             run_jobs(phase, step)
         attend(step)
         for phase in (6, 7, 8, 9):
             run_jobs(phase, step)
+    carry["step"] = step0 + steps
     return mel, stop, align
+
+
+def new_carry(total):
+    return {"total": total, "step": 0, "ws": None, "mel": None, "stop": None, "align": None}
 
 
 # (prenet, Ha, Hd, A, num_mels, memory width): the card tests' odd widths, and
@@ -388,3 +408,21 @@ def test_emulation_row_groups_and_launch_order(b, sms):
     for x, y, z in zip(got, ref, back):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
         torch.testing.assert_close(z, x, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kind,r,cumulative", [("bahdanau", 2, False),
+                                               ("location_sensitive", 3, True)])
+@pytest.mark.parametrize("use_dropout", [False, True])
+def test_emulation_resumes_from_a_carried_workspace(kind, r, cumulative, use_dropout):
+    """Two emulated launcher calls on one carried workspace (4 steps, then
+    2: the second skips the prologue and draws its dropout at the global
+    step) give the bits of one 6-step call, at the ragged widths."""
+    packed, memory, keys, lengths, dec, attn, nm = odd_case(kind, r, cumulative, 5, "ragged")
+    kw = dict(dec_cfg=dec, attn_cfg=attn, num_mels=nm, seed=11, use_dropout=use_dropout, sms=7)
+    one = emulate(packed, memory, keys, lengths, steps=6, **kw)
+    carry = new_carry(6)
+    emulate(packed, memory, keys, lengths, steps=4, carry=carry, **kw)
+    two = emulate(packed, memory, keys, lengths, steps=2, carry=carry, **kw)
+    assert carry["step"] == 6
+    for x, y in zip(two, one):
+        torch.testing.assert_close(x, y, atol=0, rtol=0)

@@ -1,8 +1,10 @@
 """The port imports and runs with ``jax`` blocked (the gst_lj slice, the
 location-sensitive decode, the WaveRNN vocoder, the training-corpus path: a
 pattern run and a loader batch in both transports, and the trainers: a
-seq2seq step with its checkpoint and a vocoder step), and no file of the
-port (nor chip_smoke.py) imports jax or the JAX package."""
+seq2seq step with its checkpoint and a vocoder step; the synthesis entry
+points: the chunked decode, the bench's workload, the parity harness and
+the synthesize CLI on the trainers' workdirs), and no file of the port (nor
+chip_smoke.py) imports jax or the JAX package."""
 
 import ast
 import os
@@ -84,6 +86,16 @@ def test_port_imports_and_runs_with_jax_blocked():
         "                              audio_cfg=wd.audio).epoch(0)))\n"
         "mat = _materialize_features(wd, {k: torch.from_numpy(v) for k, v in wb.items()})\n"
         "assert mat['mel'].shape == (2, 1024, 80), mat['mel'].shape\n"
+        "one = apply_overrides(cfg, {'model.decoder.stop_threshold': 1.0})\n"
+        "out = Synthesizer(one, build_model(one, seed=0, device='cpu'), device='cpu',\n"
+        "                  use_chunked_decoder=True, chunk_steps=2)(['blocked jax.'], max_steps=3)\n"
+        "assert out['chunks_run'] == 2 and out['alignments'].shape[1] == 4\n"
+        "from gst_tacotron_tpu_torch import bench, parity\n"
+        "assert bench.workload(2)[1]['tokens'].shape == (2, 64)\n"
+        "pd = tempfile.mkdtemp()\n"
+        "parity.save_fixture(pd + '/f.npz', 'blocked jax.', out['mel'][0])\n"
+        "assert len(parity.run_parity(Synthesizer(one, build_model(one, seed=0, device='cpu'),\n"
+        "    device='cpu'), pd)) == 1\n"
         "assert 'gst_tacotron_tpu' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -117,6 +129,11 @@ def test_port_trains_with_jax_blocked(tmp_path):
         "v = VocoderTrainer(cfg, d + '/p', d + '/v', device='cpu', segment_frames=4,\n"
         "                   batch_size=2)\n"
         "assert v.train(1).step == 1\n"
+        "from gst_tacotron_tpu_torch.synthesize import main\n"
+        "paths = main(['--workdir', d + '/w', '--out', d + '/o', '--device', 'cpu',\n"
+        "    '--chunked-decoder', '--vocoder', 'wavernn', '--vocoder-workdir', d + '/v',\n"
+        "    '--texts', 'blocked jax.'])\n"
+        "assert paths[0].endswith('synth_000.wav'), paths\n"
         "assert 'gst_tacotron_tpu' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
