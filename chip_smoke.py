@@ -20,7 +20,8 @@ Phases, each of which exits non-zero on failure:
    least possible time on an H100 (device time from torch.profiler for K1's
    two phases, K2, the STFT kernels, K5 and K4, K4 also by phase kernel with
    its launches and microseconds a step; K5 also at width 8, where its
-   samples are its grid barriers alone);
+   samples are its grid barriers alone; K4 and K5 also on rows 16-31 alone
+   at ``row0`` 16, a data-parallel rank's rows, against the plain version);
 3. paths: three configurations synthesize through ``Synthesizer`` on the
    card with seeded random weights, B=32 texts of 64 tokens and 32
    reference wavs of 128 frames, stop threshold 1.0 (every step decodes):
@@ -68,10 +69,20 @@ Phases, each of which exits non-zero on failure:
    on the vocoder's workdir: each writes its wavs, and the three runs'
    launch counters show K1-K5;
 9. bench: ``gst_tacotron_tpu_torch.bench``'s functions at its workload;
-   its JSON line (informational) with the card, and its details.
+   its JSON line (informational) with the card, and its details;
+10. parallel (after the chunked phase): ``gst_tacotron_tpu_torch.parallel``
+   at gst_lj's widths, B=32, 200 steps, reference wavs through K3 (see
+   ``run_parallel``): world size 1 over NCCL (``DistributedSynthesizer`` and
+   a meshed train step give the single-process bits), two ranks on the one
+   card over gloo (dp=2 synthesis within 1e-5, the chunked path's
+   ``chunks_run`` agreed, dp=2 and tp=2 train steps within 1e-5 relative,
+   the tp=2 ranks' replicated parameters and buffers bit-equal after 4
+   steps, K5 at dp=2 the single-process classes, each rank's launch counts), and
+   the dp=2 checks over NCCL where there are two cards.
 
 It prints one JSON line per kernel check, per path and per training run
-(``{"train": ...}``), per chunked, bf16 and CLI run, the bench's two lines,
+(``{"train": ...}``), per chunked, bf16 and CLI run, the parallel phase's
+``{"parallel": ...}``, the bench's two lines,
 one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``.
 
@@ -85,6 +96,11 @@ microseconds a step) and the card.
 
 builds every kernel and runs the train phase alone, on a fresh corpus of
 the corpus phase's kind (patterns through K3), then prints the card.
+
+    python3 chip_smoke.py --parallel-only
+
+builds every kernel and runs the parallel phase alone, then prints the
+card.
 """
 
 from __future__ import annotations
@@ -789,6 +805,14 @@ def check_decode(torch, rng, dev, cfg, init_seed=7):
     if max_err(d1[:1], d2[:1]) == 0.0:
         fail("decode_scan with dropout: two seeds gave the same mel")
     err_dropout = max_err(d1, p1)
+    # a data-parallel rank's rows: the last 16 at row0 16 draw those rows'
+    # dropout of the whole batch
+    half = B // 2
+    shard = (memory[half:].contiguous(), keys[half:].contiguous(), lengths[half:])
+    dr = decode_scan(packed, *shard, seed=1, use_dropout=True, row0=half, **kw)
+    err_row0 = max_err(dr, decode_scan_plain(packed, *shard, seed=1, use_dropout=True,
+                                             row0=half, **kw))
+    err_row0_vs_batch = max_err(dr, tuple(x[half:] for x in d1))
 
     full = torch.full((B,), TEXT_TOKENS, device=dev, dtype=torch.int64)
     ms = time_ms(torch, lambda: decode_scan(packed, memory, keys, full, seed=3,
@@ -829,7 +853,8 @@ def check_decode(torch, rng, dev, cfg, init_seed=7):
     return dict(name="decode_scan:location_sensitive" if lsa else "decode_scan", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/decode_scan.cu",
                 replaces="gst_tacotron_tpu/ops/decode_pallas.py:328", max_err=err, tol=1e-3,
-                max_err_dropout=err_dropout,
+                max_err_dropout=err_dropout, max_err_row0=err_row0,
+                max_err_row0_vs_whole_batch=err_row0_vs_batch,
                 tol_reason=f"float32 GEMV sums in another order, fed back through {steps} "
                            "autoregressive steps (the last frame re-enters the prenet"
                            + (", the alignment the location taps)" if lsa else ")"),
@@ -839,7 +864,9 @@ def check_decode(torch, rng, dev, cfg, init_seed=7):
                 device_us_per_step=1e3 * device_ms / steps,
                 library="none: no single PyTorch call runs an autoregressive decode",
                 work=f"one {steps}-step decode of 32 utterances at r={r}, "
-                     f"{m.attention.kind} attention, dropout on")
+                     f"{m.attention.kind} attention, dropout on; max_err_row0: rows 16-31 "
+                     "alone at row0 16 against the plain version, and (vs_whole_batch) "
+                     "against those rows of the 32-row launch")
 
 
 # ---------------------------------------------------------------------------
@@ -889,9 +916,14 @@ def check_wavernn(torch, rng, dev, cfg, frames=128):
         fail("wavernn_sample: the same seed gave different classes")
     if torch.equal(c1b, c2):
         fail("wavernn_sample: two seeds gave the same classes")
+    # a data-parallel rank's rows: the last 16 at row0 16 sample with those
+    # rows' noise of the whole batch
+    half = B // 2
+    c_row0 = wavernn_sample(packed, cond[half:].contiguous(), hop=hop, seed=1, row0=half)
     with torch.no_grad():
         gaps_greedy = score_gaps(packed, cond, greedy, hop=hop, greedy=True)
         gaps = score_gaps(packed, cond, c1, hop=hop, seed=1)
+        gaps_row0 = score_gaps(packed, cond[half:], c_row0, hop=hop, seed=1, row0=half)
     plain = time_ms(torch, lambda: wavernn_sample_plain(packed, cond, hop=hop, seed=1),
                     iters=1, warmup=0)
     device = {}
@@ -922,6 +954,8 @@ def check_wavernn(torch, rng, dev, cfg, frames=128):
                 replaces="gst_tacotron_tpu/ops/wavernn_pallas.py:119",
                 max_err=max(float(gaps_greedy.max()), float(gaps.max())), tol=1e-3,
                 max_err_greedy=float(gaps_greedy.max()), max_err_sampled=float(gaps.max()),
+                max_err_row0=float(gaps_row0.max()),
+                row0_classes_equal_whole_batch_rows=bool(torch.equal(c_row0, c1[half:])),
                 share_plain_argmax=float((gaps == 0).float().mean()),
                 share_plain_argmax_greedy=float((gaps_greedy == 0).float().mean()),
                 err_unit="score (logit / temperature + Gumbel noise) below the plain "
@@ -1751,6 +1785,323 @@ def run_chunked(torch, dev, cfg, cfg3):
                  f"{counts0[counter]} launches")
 
 
+# ---------------------------------------------------------------------------
+# the parallel phase: torch.distributed, data and tensor parallel
+# ---------------------------------------------------------------------------
+
+PARALLEL_TOL = 1e-5
+PARALLEL_TRAIN_FRAMES = 128
+PARALLEL_CHUNK = 64
+PARALLEL_TP_STEPS = 4
+
+
+def parallel_inputs(cfg, cfg5):
+    """The phase's inputs, the same in every process: 32 texts and reference
+    wavs, a train batch of 32 rows at gst_lj's widths (128 frames), and a
+    (32, 128, 80) mel for K5."""
+    rng = np.random.default_rng(21)
+    texts, wavs = make_inputs(rng, cfg.audio.sample_rate)
+    batch = small_train_batch(rng, cfg, b=B, t_text=TEXT_TOKENS, t_mel=PARALLEL_TRAIN_FRAMES)
+    mel5 = rng.uniform(0, 1, (B, PARALLEL_TRAIN_FRAMES, cfg5.model.num_mels)).astype(np.float32)
+    return texts, wavs, batch, mel5
+
+
+def with_threshold(torch, model, cfg, threshold):
+    """``model``'s weights in a model whose decoder stops at ``threshold``."""
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.models.tacotron import GSTTacotron
+    from gst_tacotron_tpu_torch.text import NUM_SYMBOLS
+
+    c = apply_overrides(cfg, {"model.decoder.stop_threshold": threshold})
+    m = GSTTacotron(c.model, c.model.num_symbols or NUM_SYMBOLS).to(next(model.parameters()).device)
+    m.load_state_dict(model.state_dict())
+    return c, m.eval()
+
+
+def parallel_train_state(torch, cfg, dev, batch, mesh=None, steps=1):
+    """The loss of the first of ``steps`` train steps from the seeded init on
+    ``batch`` (this rank's rows under ``mesh``), and the state after them."""
+    from gst_tacotron_tpu_torch.parallel import place_state, shard_batch
+    from gst_tacotron_tpu_torch.train import init_state, make_optimizer, train_step
+
+    _, state = init_state(cfg, dev)
+    rows = batch
+    if mesh is not None:
+        place_state(state, mesh)
+        rows = shard_batch(batch, mesh)
+    tx = make_optimizer(cfg.optimizer)
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    losses = [train_step(tx, cfg, state, rows)["loss"] for _ in range(steps)]
+    return float(losses[0]), state
+
+
+def replicated_digests(state):
+    """sha256 of the state's replicated parameters and of its buffers, each
+    over the tensors' bytes in key order: on every rank of a model group
+    they must be equal."""
+    import hashlib
+
+    from gst_tacotron_tpu_torch.parallel.sharding import named_parameters
+
+    def digest(tree):
+        h = hashlib.sha256()
+        for k in sorted(tree):
+            h.update(k.encode())
+            h.update(tree[k].detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    params = {k: p for k, p in named_parameters(state.model).items() if k not in state.sharded}
+    return {"params": digest(params), "buffers": digest(dict(state.model.named_buffers())),
+            "params_count": len(params)}
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parallel_rank_checks(torch, dev, cfg, cfg5):
+    """What each rank of a two-rank group runs: DistributedSynthesizer at
+    dp=2 (fixed, dropout on, and timed; chunked at stop thresholds 1.0 and
+    0.0), one dp=2 train step and four tp=2 steps (the first one's loss,
+    the digests of the replicated copies after the four), K5 sampling at
+    dp=2."""
+    from gst_tacotron_tpu_torch.models.modules import data_parallel
+    from gst_tacotron_tpu_torch.parallel import DistributedSynthesizer, make_mesh, shard_batch
+    from gst_tacotron_tpu_torch.parallel.mesh import all_gather
+    from gst_tacotron_tpu_torch.weights import build_model, build_wavernn
+
+    texts, wavs, batch, mel5 = parallel_inputs(cfg, cfg5)
+    mesh = make_mesh(1)
+    model = build_model(cfg, seed=0, device=dev)
+    ds = DistributedSynthesizer(cfg, model, mesh, device=dev)
+    out = ds.synthesize(texts, reference_wavs=wavs, seed=5)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    ds.synthesize(texts, reference_wavs=wavs, seed=6)
+    sync(torch, dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    chunks = {}
+    for t in (1.0, 0.0):
+        c, m = with_threshold(torch, model, cfg, t)
+        chunks[t] = DistributedSynthesizer(c, m, mesh, device=dev).synthesize(
+            texts, reference_wavs=wavs, seed=5, chunked=True,
+            chunk_steps=PARALLEL_CHUNK)["chunks_run"]
+    tp_loss, tp_state = parallel_train_state(torch, cfg, dev, batch, make_mesh(2),
+                                             steps=PARALLEL_TP_STEPS)
+    losses = {"dp2": parallel_train_state(torch, cfg, dev, batch, mesh)[0], "tp2": tp_loss}
+    wmodel = build_wavernn(cfg5, seed=1, device=dev)
+    local = shard_batch({"mel": torch.from_numpy(mel5).to(dev)}, mesh)["mel"]
+    with torch.no_grad(), data_parallel(wmodel, mesh.data_shard()):
+        classes = all_gather(wmodel.sample_classes(local, seed=9), mesh.data_group)
+    return {"mel": out["mel"], "chunks_run": chunks, "losses": losses,
+            "tp2_digests": replicated_digests(tp_state),
+            "classes": classes.cpu().numpy(), "ms_per_batch": ms}
+
+
+def parallel_rank(rank, world, port, backend, device, out):
+    """One rank of the phase's two-rank group (a spawned process) on
+    ``device``: joins the group, loads the built kernels, runs
+    ``parallel_rank_checks`` with every launch counter at 0 before it, and
+    puts (rank, ok, result or traceback) on ``out``."""
+    import traceback
+
+    import torch
+
+    try:
+        from gst_tacotron_tpu_torch import ops
+        from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+        from gst_tacotron_tpu_torch.ops.build import build_all
+        from gst_tacotron_tpu_torch.parallel import initialize_distributed
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            build_all(ops.all_kernels())     # built by the parent: loads them
+        initialize_distributed(f"localhost:{port}", world, rank, backend=backend)
+        cfg, cfg5 = parallel_configs(apply_overrides, get_preset)
+        ops.reset_launch_counts()
+        res = parallel_rank_checks(torch, dev, cfg, cfg5)
+        sync(torch, dev)
+        res["launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+        out.put((rank, True, res))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_configs(apply_overrides, get_preset):
+    """gst_lj as the paths run it (200 steps, Griffin-Lim 15 iterations,
+    stop threshold 1.0) and gst_wavernn's vocoder widths."""
+    cfg = apply_overrides(get_preset("gst_lj"), {
+        "model.decoder.max_decode_steps": 200, "audio.griffin_lim_iters": 15,
+        "audio.griffin_lim_momentum": 0.99, "model.decoder.stop_threshold": 1.0})
+    return cfg, get_preset("gst_wavernn")
+
+
+def run_two_ranks(torch, backend, devices):
+    """``parallel_rank`` on two spawned processes, rank r on ``devices[r]``;
+    their results by rank."""
+    import multiprocessing
+
+    from gst_tacotron_tpu_torch.parallel.mesh import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, 2, port, backend, devices[r], out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, ok, value = out.get(timeout=600)
+            if not ok:
+                fail(f"parallel rank {rank} ({backend}) failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return [results[0], results[1]]
+
+
+def run_parallel(torch, dev):
+    """The parallel phase (``gst_tacotron_tpu_torch.parallel``) at gst_lj's
+    widths, B=32, 200 steps, the reference wavs through K3:
+
+    1. one rank over NCCL (world size 1, mesh (1, 1)): ``DistributedSynthesizer``
+       gives the ``Synthesizer``'s mel bit for bit, and one ``train_step``
+       under the mesh the unmeshed step's loss bit for bit;
+    2. two ranks on this one card over gloo (NCCL refuses two ranks on one
+       device): ``DistributedSynthesizer`` at dp=2 (16 rows a rank, dropout
+       on) within 1e-5 of the single-process mel; the chunked path's
+       ``chunks_run`` equal on both ranks and to the single-process chunked
+       call's at stop thresholds 1.0 and 0.0; one dp=2 and one tp=2 train
+       step within 1e-5 relative of the single-process loss; after four
+       tp=2 steps the two ranks' replicated parameters and buffers bit-equal
+       (``sharding.step_gradients`` keeps them so); K5 at dp=2,
+       gst_wavernn's widths, 128 frames, the single-process classes; each
+       rank's launch counts;
+    3. with two cards or more, the dp=2 checks of 2 over NCCL, one rank a card.
+    """
+    import torch.distributed as dist
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+    from gst_tacotron_tpu_torch.parallel import DistributedSynthesizer, make_mesh
+    from gst_tacotron_tpu_torch.parallel.mesh import free_port
+    from gst_tacotron_tpu_torch.synthesize import Synthesizer
+    from gst_tacotron_tpu_torch.weights import build_model, build_wavernn
+
+    t_phase = time.perf_counter()
+    cfg, cfg5 = parallel_configs(apply_overrides, get_preset)
+    texts, wavs, batch, mel5 = parallel_inputs(cfg, cfg5)
+    model = build_model(cfg, seed=0, device=dev)
+    ops.reset_launch_counts()
+    ref = Synthesizer(cfg, model, device=dev)(texts, reference_wavs=wavs, seed=5)
+    ref_chunks = {}
+    for t in (1.0, 0.0):
+        c, m = with_threshold(torch, model, cfg, t)
+        ref_chunks[t] = Synthesizer(c, m, device=dev, use_chunked_decoder=True,
+                                    chunk_steps=PARALLEL_CHUNK)(
+            texts, reference_wavs=wavs, seed=5)["chunks_run"]
+    ref_loss = parallel_train_state(torch, cfg, dev, batch)[0]
+    with torch.no_grad():
+        ref_classes = build_wavernn(cfg5, seed=1, device=dev).sample_classes(
+            torch.from_numpy(mel5).to(dev), seed=9).cpu().numpy()
+    sync(torch, dev)
+    single_launches = {k: n for k, n in ops.launch_counts().items() if n}
+
+    # 1. world size 1 over NCCL
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        ops.reset_launch_counts()
+        got = DistributedSynthesizer(cfg, model, mesh, device=dev).synthesize(
+            texts, reference_wavs=wavs, seed=5)
+        sync(torch, dev)
+        ws1_launches = {k: n for k, n in ops.launch_counts().items() if n}
+        ws1_loss = parallel_train_state(torch, cfg, dev, batch, mesh)[0]
+    finally:
+        dist.destroy_process_group()
+    ws1 = {"backend": backend, "mesh": [1, 1],
+           "synth_bits_equal": all(np.array_equal(got[k], ref[k]) for k in
+                                   ("mel", "linear", "stop_logits", "alignments", "wav")),
+           "train_loss_bits_equal": ws1_loss == ref_loss, "train_loss": ws1_loss,
+           "launches": ws1_launches}
+
+    # 2. (and 3.) two ranks
+    def two(backend, devices):
+        ranks = run_two_ranks(torch, backend, devices)
+        errs = [float(np.abs(r["mel"] - ref["mel"]).max()) for r in ranks]
+        return {"backend": backend, "devices": devices,
+                "mesh": {"synth": [2, 1], "train": {"dp2": [2, 1], "tp2": [1, 2]}},
+                "mel_max_abs_err": max(errs), "mel_tol": PARALLEL_TOL,
+                "mel_bits_equal": [bool(np.array_equal(r["mel"], ref["mel"])) for r in ranks],
+                "chunks_run": {str(t): [r["chunks_run"][t] for r in ranks] for t in ref_chunks},
+                "chunks_run_single": {str(t): n for t, n in ref_chunks.items()},
+                "train_loss": {k: [r["losses"][k] for r in ranks] for k in ("dp2", "tp2")},
+                "train_loss_single": ref_loss,
+                "train_loss_max_rel_err": max(abs(r["losses"][k] - ref_loss) / abs(ref_loss)
+                                              for r in ranks for k in ("dp2", "tp2")),
+                "tp2_steps": PARALLEL_TP_STEPS,
+                "tp2_replicated_params": ranks[0]["tp2_digests"]["params_count"],
+                "tp2_replicated_bits_equal": {
+                    k: ranks[0]["tp2_digests"][k] == ranks[1]["tp2_digests"][k]
+                    for k in ("params", "buffers")},
+                "k5_classes_equal": [bool(np.array_equal(r["classes"], ref_classes))
+                                     for r in ranks],
+                "ms_per_batch": [r["ms_per_batch"] for r in ranks],
+                "launches": [r["launches"] for r in ranks]}
+
+    gloo = two("gloo", [str(dev)] * 2)
+    gloo["note"] = ("two ranks share one card (time-sliced), so ms_per_batch is not a "
+                    "scaling number")
+    cards = torch.cuda.device_count()
+    nccl2 = (two("nccl", ["cuda:0", "cuda:1"]) if dev.type == "cuda" and cards >= 2 else
+             f"not run: {cards} card(s); needs 2")
+    info = {"world_size_1": ws1, "two_ranks_gloo": gloo, "two_ranks_nccl": nccl2,
+            "single_process_launches": single_launches, "batch": B,
+            "decode_steps": cfg.model.decoder.max_decode_steps,
+            "train_frames": PARALLEL_TRAIN_FRAMES, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"parallel": info}), flush=True)
+    if not ws1["synth_bits_equal"]:
+        fail("parallel: DistributedSynthesizer at world size 1 is not the Synthesizer's bits")
+    if not ws1["train_loss_bits_equal"]:
+        fail(f"parallel: the (1, 1) mesh's step loss {ws1_loss} is not the unmeshed "
+             f"{ref_loss}")
+    for part in [gloo] + ([nccl2] if isinstance(nccl2, dict) else []):
+        tag = f"parallel ({part['backend']})"
+        if not part["mel_max_abs_err"] <= PARALLEL_TOL:
+            fail(f"{tag}: dp=2 mel differs by {part['mel_max_abs_err']} > {PARALLEL_TOL}")
+        for t, n in part["chunks_run"].items():
+            if n != [ref_chunks[float(t)]] * 2:
+                fail(f"{tag}: chunks_run {n} at threshold {t}, single {ref_chunks[float(t)]}")
+        if not part["train_loss_max_rel_err"] <= PARALLEL_TOL:
+            fail(f"{tag}: train loss {part['train_loss']} vs single {ref_loss}")
+        if not all(part["tp2_replicated_bits_equal"].values()):
+            fail(f"{tag}: after {PARALLEL_TP_STEPS} tp=2 steps the model ranks' replicated "
+                 f"copies differ: {part['tp2_replicated_bits_equal']}")
+        if not all(part["k5_classes_equal"]):
+            fail(f"{tag}: K5 at dp=2 gave other classes than the single-process call")
+        for rank, launches in enumerate(part["launches"]):
+            missing = [k for k in ("gru_scan", "refenc_stack", "stft_features", "decode_scan",
+                                   "wavernn_sample") if not launches.get(k)]
+            if missing:
+                fail(f"{tag}: rank {rank} launched no {missing}")
+
+
 def run_bf16(torch, dev, cfg, corpus_dir, work):
     """``model.compute_dtype="bfloat16"`` on the card: gst_lj synthesis
     (B=32 with reference wavs, decoder dropout off on both) finite, apart
@@ -1916,8 +2267,11 @@ def main() -> None:
 
     decode_only = sys.argv[1:] == ["--decode-only"]
     train_only = sys.argv[1:] == ["--train-only"]
+    parallel_only = sys.argv[1:] == ["--parallel-only"]
     t0 = time.perf_counter()
-    build_all([ops.decode.KERNEL] if decode_only else ops.all_kernels())
+    from gst_tacotron_tpu_torch.ops import decode as decode_ops
+
+    build_all([decode_ops.KERNEL] if decode_only else ops.all_kernels())
     log(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
 
     cfg = apply_overrides(get_preset("gst_lj"), {
@@ -1935,6 +2289,10 @@ def main() -> None:
         for c, seed in ((cfg, 7), (cfg3, 8)):
             row = check_decode(torch, np.random.default_rng(seed), dev, c, init_seed=seed)
             print(json.dumps({"kernel_check": row}), flush=True)
+        print(card)
+        return
+    if parallel_only:   # the parallel phase alone, then stop
+        run_parallel(torch, dev)
         print(card)
         return
     if train_only:   # the train phase alone, on a fresh corpus, then stop
@@ -1968,6 +2326,9 @@ def main() -> None:
         if not res.get("max_err_dropout", 0.0) <= res["tol"]:
             fail(f"{res['name']} with dropout differs from its plain version by "
                  f"{res['max_err_dropout']} > {res['tol']}")
+        if not res.get("max_err_row0", 0.0) <= res["tol"]:
+            fail(f"{res['name']} at row0 {B // 2} differs from its plain version by "
+                 f"{res['max_err_row0']} > {res['tol']}")
         kernels.append(res)
 
     # gru_scan: the encoder and post-net BiGRUs (one launch each, both
@@ -1991,6 +2352,9 @@ def main() -> None:
     t0 = time.perf_counter()
     run_chunked(torch, dev, cfg, apply_overrides(cfg3, {"model.decoder.max_decode_steps": 256}))
     log(f"chunked phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_parallel(torch, dev)
+    log(f"parallel phase done in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as corpus_dir, tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
         counts = run_corpus(torch, dev, get_preset("gst_lj"), corpus_dir)

@@ -33,6 +33,19 @@ capped at 2 ms, as ``bench.py`` caps it), then the host numpy Griffin-Lim
 the details. ``benchmark_synthesis`` (the ``Synthesizer`` with its host
 copies) is reported there too; it is not the headline. The bench needs the
 card: without one it raises "CUDA is not available".
+
+    python -m gst_tacotron_tpu_torch.bench --scaling [--device cpu]
+
+measures instead the weak scaling of the data-parallel GST train step
+(``bench.py::bench_scaling``'s curve): a fixed batch per rank, one
+process a rank (``parallel``'s mesh, ``train.train_step``), over 1 ..
+``torch.cuda.device_count()`` cards on NCCL, one rank a card, at gst_lj's
+own training batch a rank (``configs/gst_lj.json``: ``data.batch_size``
+32 rows at its first bucket, 64 tokens and 400 frames); with ``--device
+cpu`` over 1, 2 and 4 gloo processes at the JAX bench's fake-mesh widths
+(2 rows of 16 frames a rank). It prints one JSON line of rows (ranks, ms a step, global
+samples a second, efficiency against one rank); on one card, its one
+point, and says so.
 """
 
 from __future__ import annotations
@@ -43,7 +56,8 @@ import os
 import statistics
 import sys
 import time
-from typing import Any, Dict, Optional, Tuple
+import traceback
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -289,6 +303,142 @@ def run(args) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return result, details
 
 
+# the JAX bench's fake-mesh widths (``__graft_entry__._tiny_overrides``)
+TINY = {"audio.n_fft": 512, "audio.hop_length": 128, "audio.win_length": 512,
+        "model.num_freq": 257, "model.encoder.embedding_dim": 64,
+        "model.encoder.prenet_dims": [64, 32], "model.encoder.cbhg_bank_k": 4,
+        "model.encoder.cbhg_bank_channels": 32, "model.encoder.cbhg_proj_channels": [32, 32],
+        "model.encoder.cbhg_highway_layers": 2, "model.encoder.cbhg_highway_dim": 32,
+        "model.encoder.cbhg_gru_dim": 32, "model.gst.ref_conv_channels": [8, 16, 32],
+        "model.gst.ref_gru_dim": 32, "model.gst.style_dim": 32, "model.attention.dim": 32,
+        "model.decoder.prenet_dims": [64, 32], "model.decoder.attention_rnn_dim": 32,
+        "model.decoder.decoder_rnn_dim": 32, "model.postnet.cbhg_bank_k": 2,
+        "model.postnet.cbhg_bank_channels": 16, "model.postnet.cbhg_proj_channels": [32, 80],
+        "model.postnet.cbhg_highway_layers": 1, "model.postnet.cbhg_highway_dim": 32,
+        "model.postnet.cbhg_gru_dim": 32}
+def scaling_shape(cfg: Config, cpu: bool) -> Tuple[int, int, int]:
+    """(rows, tokens, frames) a rank of the weak-scaling step: on the card
+    the config's training batch (``data.batch_size`` rows at its first
+    bucket's text and frame lengths); on the CPU the JAX bench's fake-mesh
+    size (2 rows, 32 tokens, 16 frames)."""
+    if cpu:
+        return 2, 32, 16
+    t_text, frames = cfg.data.buckets[0]
+    return cfg.data.batch_size, t_text, frames
+
+
+def scaling_batch(cfg: Config, rows: int, t_text: int, frames: int, seed: int = 0
+                  ) -> Dict[str, np.ndarray]:
+    """A seeded global feature batch of ``rows`` rows (the same on every
+    rank): texts of ``t_text // 2 .. t_text`` tokens, even mel lengths of
+    ``frames // 2 .. frames``."""
+    rng = np.random.default_rng(seed)
+    tl = rng.integers(t_text // 2, t_text + 1, rows)
+    ml = 2 * rng.integers(frames // 4, frames // 2 + 1, rows)
+    fmask = (np.arange(frames)[None] < ml[:, None])[..., None]
+    return {"tokens": rng.integers(2, 40, (rows, t_text)) * (np.arange(t_text)[None] < tl[:, None]),
+            "token_lengths": tl, "mel_lengths": ml, "speaker_ids": np.zeros(rows, np.int64),
+            "mel": (rng.random((rows, frames, cfg.model.num_mels)) * fmask).astype(np.float32),
+            "linear": (rng.random((rows, frames, cfg.model.num_freq)) * fmask
+                       ).astype(np.float32)}
+
+
+def scaling_rank(rank: int, world: int, port: int, device: str, steps: int, out) -> None:
+    """One rank of a weak-scaling point (a spawned process): the data-parallel
+    step from the seeded init on its rows of a global batch of ``world``
+    times the per-rank rows; puts (rank, ok, ms a step or traceback)."""
+    from .parallel import initialize_distributed, make_mesh, place_state, shard_batch
+    from .parallel.mesh import rank_device
+    from .train import init_state, make_optimizer, train_step
+
+    cpu = device == "cpu"
+    try:
+        if cpu:
+            torch.set_num_threads(1)
+        initialize_distributed(f"localhost:{port}", world, rank,
+                               backend="gloo" if cpu else "nccl")
+        dev = rank_device("cpu" if cpu else None)
+        cfg = apply_overrides(get_preset("gst_lj"), TINY if cpu else {})
+        rows, t_text, frames = scaling_shape(cfg, cpu)
+        mesh = make_mesh(1)
+        _, state = init_state(cfg, dev)
+        place_state(state, mesh)
+        batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+                 shard_batch(scaling_batch(cfg, rows * world, t_text, frames), mesh).items()}
+        tx = make_optimizer(cfg.optimizer)
+        float(train_step(tx, cfg, state, batch)["loss"])      # warm-up
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = train_step(tx, cfg, state, batch)["loss"]
+        float(loss)                                          # the sync point
+        out.put((rank, True, 1e3 * (time.perf_counter() - t0) / steps))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def bench_scaling(device: str = "cuda", counts: Optional[Sequence[int]] = None,
+                  steps: int = 3) -> List[Dict[str, Any]]:
+    """The weak-scaling rows: for each rank count, ``scaling_rank`` on that
+    many spawned processes; ms a step is the slowest rank's, efficiency the
+    global samples a second a rank over one rank's."""
+    import multiprocessing
+
+    from .parallel.mesh import free_port
+
+    if counts is None:
+        counts = (1, 2, 4) if device == "cpu" else range(1, torch.cuda.device_count() + 1)
+    rows_per_rank, t_text, frames = scaling_shape(get_preset("gst_lj"), device == "cpu")
+    ctx = multiprocessing.get_context("spawn")
+    out_rows = []
+    for n in counts:
+        q = ctx.Queue()
+        port = free_port()
+        procs = [ctx.Process(target=scaling_rank, args=(r, n, port, device, steps, q))
+                 for r in range(n)]
+        for proc in procs:
+            proc.start()
+        ms = []
+        try:
+            for _ in procs:
+                rank, ok, value = q.get(timeout=900)
+                if not ok:
+                    raise RuntimeError(f"scaling rank {rank} of {n} failed:\n{value}")
+                ms.append(value)
+        finally:
+            for proc in procs:
+                proc.join(timeout=60)
+                if proc.is_alive():
+                    proc.kill()
+        step_ms = max(ms)
+        out_rows.append({"ranks": n, "ms_per_step": step_ms, "rows_per_rank": rows_per_rank,
+                         "tokens": t_text, "frames": frames,
+                         "global_samples_per_sec": rows_per_rank * n / (step_ms / 1e3)})
+        log(f"scaling {n} rank(s): {step_ms:.1f} ms a step")
+    base = out_rows[0]["global_samples_per_sec"] / out_rows[0]["ranks"]
+    for r in out_rows:
+        r["weak_scaling_efficiency"] = r["global_samples_per_sec"] / r["ranks"] / base
+    return out_rows
+
+
+def scaling_line(device: str, steps: int) -> Dict[str, Any]:
+    """The ``--scaling`` result line."""
+    if device != "cpu":
+        resolve_device(None)
+    rows = bench_scaling(device, steps=steps)
+    kind = "cpu (gloo processes)" if device == "cpu" else torch.cuda.get_device_name(0)
+    note = ("weak scaling of the data-parallel GST train step, a fixed batch per rank; "
+            + ("gloo processes on the host's cores (the curve's shape, not a device rate)"
+               if device == "cpu" else "NCCL, one rank a card"))
+    if device != "cpu" and len(rows) == 1:
+        note += "; one card: one point, no curve"
+    return {"metric": "weak_scaling_efficiency", "rows": rows, "device": kind, "note": note}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Synthesis throughput of the PyTorch port")
     p.add_argument("--quick", action="store_true", help="smaller workload (50 steps)")
@@ -299,9 +449,17 @@ def main(argv=None) -> None:
                    help="also time the WaveRNN pipeline (K5), into --details")
     p.add_argument("--vocoder-workdir", help="vocoder_train workdir for --config5")
     p.add_argument("--details", help="write the detailed JSON here")
+    p.add_argument("--scaling", action="store_true",
+                   help="measure the weak scaling of the data-parallel train step instead")
+    p.add_argument("--device", default=None,
+                   help="with --scaling: 'cpu' runs gloo processes on the CPU")
+    p.add_argument("--steps", type=int, default=3, help="with --scaling: timed steps")
     args = p.parse_args(argv)
     if args.batch < 1:
         p.error(f"--batch {args.batch}: must be >= 1")
+    if args.scaling:
+        print(json.dumps(scaling_line(args.device or "cuda", args.steps)))
+        return
     result, details = run(args)
     if args.details:
         with open(args.details, "w") as f:

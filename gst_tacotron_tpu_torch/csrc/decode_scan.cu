@@ -22,9 +22,11 @@
 // runs the same score code with one zero tap (k = c_n = 1).
 //
 // Dropout draws one Philox4x32-10 number per prenet unit, keyed by the seed
-// and counted by (unit >> 2, step, layer, row), as a uniform strictly inside
+// and counted by (unit >> 2, step, layer, row0 + row), as a uniform strictly inside
 // (0, 1); a unit is kept when the draw is >= rate and then scaled by
-// 1 / (1 - rate). The stream differs from jax.random's and the TPU's.
+// 1 / (1 - rate). row0 is the first row's index in a global batch, so a
+// data-parallel shard draws the rows the whole batch would (0 otherwise).
+// The stream differs from jax.random's and the TPU's.
 //
 // Bound on the H100 at the main-path shape (B=32, T=64, memory 512, keys
 // 256, 200 steps at r=2; ~1.9 M weights): about 3.9 MFLOP a step and row,
@@ -136,7 +138,7 @@ struct Ctx {
   float *mel, *stop, *align;
   unsigned long long seed;
   float rate;
-  int use_dropout, step;
+  int use_dropout, step, row0;
 };
 
 __device__ float block_reduce(float v, bool is_max, float* scratch32) {
@@ -354,7 +356,8 @@ __device__ __forceinline__ void epilogue(const Ctx& c, int kind, int b, int j, c
     case K_PRE2: {
       const int layer = kind == K_PRE1 ? 0 : 1, buf = layer ? P2B : P1B;
       s.buf[buf][(size_t)b * s.ld[buf] + j] =
-          prenet_unit(v[0] + e.a[0], j, c.step, layer, b, c.seed, c.rate, c.use_dropout);
+          prenet_unit(v[0] + e.a[0], j, c.step, layer, c.row0 + b, c.seed, c.rate,
+                      c.use_dropout);
       break;
     }
     case K_GHA:
@@ -609,7 +612,7 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
                                   float* mel_out, float* stop_out, float* align_out,
                                   float* work, unsigned long long seed, float rate,
                                   int use_dropout, int step0, int nsteps, int prepared,
-                                  cudaStream_t stream) {
+                                  int row0, cudaStream_t stream) {
   Ctx c;
   const float** wp = reinterpret_cast<const float**>(&c.w);
   for (int i = 0; i < (int)(sizeof(DecodeWeights) / sizeof(const float*)); ++i) wp[i] = weights[i];
@@ -630,7 +633,9 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
   c.rate = rate;
   c.use_dropout = use_dropout;
   c.step = step0;
-  if (step0 < 0 || nsteps < 0 || step0 + nsteps > d.S) return (int)cudaErrorInvalidValue;
+  c.row0 = row0;
+  if (row0 < 0 || step0 < 0 || nsteps < 0 || step0 + nsteps > d.S)
+    return (int)cudaErrorInvalidValue;
 
   cudaError_t err;
   if (!prepared) {

@@ -15,9 +15,10 @@
 // Ties take the lowest index, as torch.argmax and jnp.argmax do.
 //
 // Gumbel noise: one Philox4x32-10 call per quad of classes, keyed by the
-// seed and counted by (class >> 2, sample, stream 2, row) -- stream ids 0
-// and 1 are the decode kernel's prenet layers -- giving a uniform strictly
-// inside (0, 1) and g = -log(-log(u)). ops/philox.py draws the same stream.
+// seed and counted by (class >> 2, sample, stream 2, row0 + row) -- stream
+// ids 0 and 1 are the decode kernel's prenet layers; row0 is the launch's
+// first row in the global batch -- giving a uniform strictly inside (0, 1)
+// and g = -log(-log(u)). ops/philox.py draws the same stream.
 //
 // Bound on the H100 at config 5 (C = F = H = 512, K = 256, 32 rows of
 // 32,768 samples): the function as the TPU kernel computes it, with the

@@ -2,7 +2,13 @@
 on mel, masked L1 on linear with low-frequency emphasis, stop-token BCE
 (masked to the real frames plus ``stop_mask_extra`` when
 ``loss.stop_masked``) and the optional guided-attention prior. Every term
-accumulates in float32."""
+accumulates in float32.
+
+With a ``DataShard`` (``models.modules``) of a data-parallel step each term
+is this rank's numerator over the global batch's denominator (all-reduced,
+differentiably, over the data axis): the ranks' terms sum to the term of the
+single-process step on the global batch, and so do their gradients. Without
+one every term is computed as it is alone."""
 
 from __future__ import annotations
 
@@ -11,6 +17,27 @@ from typing import Dict, Optional
 import torch
 
 from .config import AudioConfig, LossConfig
+from .models.modules import DataShard
+
+
+def _global(den: torch.Tensor, shard: Optional[DataShard]) -> torch.Tensor:
+    """A denominator summed over the data axis (as it is without a shard)."""
+    return den if shard is None else shard.all_reduce(den)
+
+
+def _mean(x: torch.Tensor, shard: Optional[DataShard]) -> torch.Tensor:
+    """The mean of ``x`` over the global batch, this rank's share of it."""
+    return x.mean() if shard is None else x.sum() / (x.numel() * shard.count)
+
+
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                shard: Optional[DataShard] = None) -> torch.Tensor:
+    """The mean of ``x`` over the cells where ``mask`` (of ``x``'s shape)
+    is 1, or over every cell; with ``shard`` this rank's share of the global
+    batch's mean."""
+    if mask is None:
+        return _mean(x, shard)
+    return (x * mask).sum() / torch.clamp(_global(mask.sum(), shard), min=1.0)
 
 
 def sequence_mask(lengths: torch.Tensor, time: int) -> torch.Tensor:
@@ -19,12 +46,12 @@ def sequence_mask(lengths: torch.Tensor, time: int) -> torch.Tensor:
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor,
-              mask: Optional[torch.Tensor]) -> torch.Tensor:
+              mask: Optional[torch.Tensor], shard: Optional[DataShard] = None) -> torch.Tensor:
     err = torch.abs(pred - target)
     if mask is None:
-        return err.mean()
+        return _mean(err, shard)
     m = mask[..., None]
-    return (err * m).sum() / torch.clamp(m.sum() * err.shape[-1], min=1.0)
+    return (err * m).sum() / torch.clamp(_global(m.sum() * err.shape[-1], shard), min=1.0)
 
 
 def linear_loss_weights(loss_cfg: LossConfig, audio_cfg: AudioConfig,
@@ -51,7 +78,7 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def guided_attention_loss(alignments: torch.Tensor, token_lengths: torch.Tensor,
                           mel_lengths: torch.Tensor, reduction_factor: int,
-                          sigma: float) -> torch.Tensor:
+                          sigma: float, shard: Optional[DataShard] = None) -> torch.Tensor:
     """W-weighted share of attention mass off the diagonal over (B, S, T)
     alignments: W = 1 - exp(-(t/T_b - s/S_b)^2 / (2 sigma^2)) on the valid
     cells (s < ceil(mel_len / r), t < token_len); sum(A * W) / sum(A)."""
@@ -64,38 +91,41 @@ def guided_attention_loss(alignments: torch.Tensor, token_lengths: torch.Tensor,
     t = torch.arange(t_dim, dtype=torch.float32, device=dev)[None, None, :]
     w = 1.0 - torch.exp(-torch.square(t / enc_len - s / dec_len) / (2.0 * sigma * sigma))
     valid = ((s < dec_len) & (t < enc_len)).to(torch.float32)
-    return (a * w * valid).sum() / torch.clamp((a * valid).sum(), min=1e-6)
+    return (a * w * valid).sum() / torch.clamp(_global((a * valid).sum(), shard), min=1e-6)
 
 
 def compute_losses(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                    loss_cfg: LossConfig, audio_cfg: AudioConfig,
-                   reduction_factor: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                   reduction_factor: Optional[int] = None,
+                   shard: Optional[DataShard] = None) -> Dict[str, torch.Tensor]:
     """{"loss", "mel_loss", "linear_loss", "stop_loss"} and, with guided
-    attention on, "guided_loss"."""
+    attention on, "guided_loss"; with ``shard``, this rank's shares of
+    them."""
     outputs = {k: v.to(torch.float32) if torch.is_tensor(v) else v
                for k, v in outputs.items()}
     mel_lengths = batch.get("mel_lengths")
     time = outputs["mel"].shape[1]
     mask = sequence_mask(mel_lengths, time) if mel_lengths is not None else None
 
-    mel_loss = masked_l1(outputs["mel"], batch["mel"], mask)
+    mel_loss = masked_l1(outputs["mel"], batch["mel"], mask, shard)
 
     wbins = linear_loss_weights(loss_cfg, audio_cfg, outputs["linear"].shape[-1],
                                 outputs["linear"].device)
     lin_err = torch.abs(outputs["linear"] - batch["linear"]) * wbins[None, None, :]
     if mask is not None:
         m = mask[..., None]
-        linear_loss = (lin_err * m).sum() / torch.clamp(m.sum() * lin_err.shape[-1], min=1.0)
+        linear_loss = (lin_err * m).sum() / torch.clamp(
+            _global(m.sum() * lin_err.shape[-1], shard), min=1.0)
     else:
-        linear_loss = lin_err.mean()
+        linear_loss = _mean(lin_err, shard)
 
     if "stop_logits" in outputs and mel_lengths is not None:
         bce = sigmoid_bce(outputs["stop_logits"], stop_token_targets(mel_lengths, time))
         if loss_cfg.stop_masked:
             smask = sequence_mask(mel_lengths + loss_cfg.stop_mask_extra, time)
-            stop_loss = (bce * smask).sum() / torch.clamp(smask.sum(), min=1.0)
+            stop_loss = masked_mean(bce, smask, shard)
         else:
-            stop_loss = bce.mean()
+            stop_loss = masked_mean(bce, None, shard)
     else:
         stop_loss = outputs["mel"].new_zeros(())
 
@@ -109,7 +139,7 @@ def compute_losses(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tens
             reduction_factor = max(time // outputs["alignments"].shape[1], 1)
         ga = guided_attention_loss(outputs["alignments"], batch["token_lengths"],
                                    mel_lengths, reduction_factor=reduction_factor,
-                                   sigma=loss_cfg.guided_attention_sigma)
+                                   sigma=loss_cfg.guided_attention_sigma, shard=shard)
         out["guided_loss"] = ga
         out["loss"] = loss + loss_cfg.guided_attention_weight * ga
     return out

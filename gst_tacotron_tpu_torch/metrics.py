@@ -12,17 +12,22 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str, use_tensorboard: bool = True):
+    """``log_dir`` None writes nothing (the ranks of a parallel run other
+    than rank 0)."""
+
+    def __init__(self, log_dir: Optional[str], use_tensorboard: bool = True):
+        self._jsonl = self._tb = None
+        if log_dir is None:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.jsonl_path = os.path.join(log_dir, "metrics.jsonl")
         self._jsonl = open(self.jsonl_path, "a")
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -33,6 +38,8 @@ class MetricLogger:
 
     def write(self, step: int, metrics: Dict[str, float], prefix: str = "") -> None:
         scalars = {(f"{prefix}/{k}" if prefix else k): float(v) for k, v in metrics.items()}
+        if self._jsonl is None:
+            return
         rec = {"step": int(step), "time": time.time(), **scalars}
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
@@ -61,7 +68,8 @@ class MetricLogger:
                                step, sample_rate=sample_rate)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
 

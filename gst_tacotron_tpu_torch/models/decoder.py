@@ -15,6 +15,9 @@ runs on the pack cast to it, as the JAX scan cell casts each operand; the
 AR decode stays float32 (K4 and its plain version, as the JAX Pallas decode
 kernel, whose products are float32 whatever the dtype), with memory and
 keys cast at its entry.
+
+Under ``modules.data_parallel`` both decodes draw their prenet dropout as
+the shard's rows of the global batch (the Philox streams' ``row0``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..config import AttentionConfig, DecoderConfig
 from ..ops.decode import (decode_scan, decode_scan_plain, pack_decoder_weights,
                           teacher_forced_scan)
 from .attention import make_attention
-from .modules import Dense, Prenet, compute_dtype, length_mask
+from .modules import Dense, Prenet, compute_dtype, length_mask, shard_row0
 from .rnn import GRUCell
 
 
@@ -98,7 +101,8 @@ class Decoder(nn.Module):
         mel, stops, aligns = run(
             self.cell.pack(), memory.to(f32), keys.to(f32), memory_lengths, dec_cfg=self.cfg,
             attn_cfg=self.attn_cfg, num_mels=self.num_mels, steps=steps,
-            seed=seed, use_dropout=not deterministic_prenet)
+            seed=seed, use_dropout=not deterministic_prenet,
+            row0=shard_row0(self, memory.shape[0]))
         frame_lengths = stop_frame_lengths(stops, self.cfg)
         return mask_frames(mel, frame_lengths), stops, aligns, frame_lengths
 
@@ -117,4 +121,4 @@ class Decoder(nn.Module):
         return teacher_forced_scan(
             packed, memory, keys, memory_lengths, mel_targets,
             dec_cfg=self.cfg, attn_cfg=self.attn_cfg, num_mels=self.num_mels, seed=seed,
-            use_dropout=not deterministic_prenet)
+            use_dropout=not deterministic_prenet, row0=shard_row0(self, memory.shape[0]))

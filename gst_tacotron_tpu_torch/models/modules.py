@@ -12,11 +12,21 @@ flax's ``BatchNorm(use_running_average=False)`` in a mutable step.
 ``compute_dtype`` is flax's ``dtype`` field (``model.compute_dtype``): the
 parameters stay float32 and each module casts its operands to it where the
 flax module does (``set_compute_dtype`` sets it on a model's every module).
+
+``data_parallel(model, shard)`` makes a model's modules compute one rank's
+share of a global batch (``DataShard``) as the single-process model computes
+the whole batch: BatchNorm takes the global batch's statistics (the sums
+all-reduced over the data axis, differentiably), and dropout draws the mask
+of the global batch's shape and keeps the rank's rows. The decoder and the
+WaveRNN sampler read the shard for their Philox streams' first row. With no
+shard, or a data axis of one rank, every module computes what it computes
+alone.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +51,48 @@ def compute_dtype(module: nn.Module) -> torch.dtype:
     return getattr(module, "compute_dtype", torch.float32)
 
 
+class DataShard(NamedTuple):
+    """Shard ``index`` of ``count`` equal shards of a global batch, and the
+    differentiable sum over the ranks that hold them (``parallel.Mesh
+    .data_shard``)."""
+    index: int
+    count: int
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]
+
+    def row0(self, rows: int) -> int:
+        """The global index of the first of this shard's ``rows`` rows."""
+        return self.index * rows
+
+
+@contextlib.contextmanager
+def data_parallel(model: nn.Module, shard: Optional[DataShard]) -> Iterator[nn.Module]:
+    """Within the block, ``model``'s modules compute ``shard``'s rows of a
+    global batch (see the module docstring); None changes nothing."""
+    if shard is None:
+        yield model
+        return
+    for m in model.modules():
+        m.data_shard = shard
+    try:
+        yield model
+    finally:
+        for m in model.modules():
+            del m.data_shard
+
+
+def data_shard(module: nn.Module) -> Optional[DataShard]:
+    """The shard ``module`` computes under ``data_parallel``; None when it
+    computes the whole batch."""
+    return getattr(module, "data_shard", None)
+
+
+def shard_row0(module: nn.Module, rows: int) -> int:
+    """The global index of the first of ``rows`` rows that ``module``
+    computes (0 outside ``data_parallel``)."""
+    shard = data_shard(module)
+    return 0 if shard is None else shard.row0(rows)
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid``. In float32 ``torch.sigmoid``; in a 16-bit dtype
     XLA computes it as 1 / (1 + exp(-x)) with each operation rounded to that
@@ -62,10 +114,18 @@ def mask_sequence(xs: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Te
     return xs * length_mask(lengths.to(xs.device), xs.shape[1])[..., None].to(xs.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-            ) -> torch.Tensor:
-    """Inverted dropout drawn from ``generator`` (flax ``nn.Dropout``)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard: Optional[DataShard] = None) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (flax ``nn.Dropout``); a
+    ``shard`` of a global batch draws the global batch's mask and keeps its
+    rows."""
+    if shard is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        b = x.shape[0]
+        u = torch.rand((shard.count * b,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)[shard.row0(b): shard.row0(b) + b]
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -98,10 +158,13 @@ class BatchNorm(nn.Module):
     ``train=True`` takes the batch's, over every axis but the last (padded
     positions included, as flax), with flax 0.12's fast variance E[x^2] -
     E[x]^2 clipped at 0 (biased), and moves the running buffers by
-    ``BN_MOMENTUM``. Statistics and the normalization run in float32 (at
-    least); the result is cast to the compute dtype. Not ``nn.BatchNorm``:
-    its momentum weighs the other way
-    and its running variance is unbiased."""
+    ``BN_MOMENTUM``. Under ``data_parallel`` the statistics are the global
+    batch's: the per-channel sums of x and x^2 all-reduced over the data
+    axis before the division (the backward passes through the sum), so
+    every rank moves its buffers alike. Statistics and the normalization run
+    in float32 (at least); the result is cast to the compute dtype. Not
+    ``nn.BatchNorm`` (nor ``nn.SyncBatchNorm``): its momentum weighs the
+    other way and its running variance is unbiased."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -117,8 +180,16 @@ class BatchNorm(nn.Module):
         else:
             axes = tuple(range(x.dim() - 1))
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            shard = data_shard(self)
+            if shard is None:
+                mean = xf.mean(axes)
+                var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            else:
+                c = xf.shape[-1]
+                n = xf.numel() // c * shard.count
+                sums = shard.all_reduce(torch.cat([xf.sum(axes), (xf * xf).sum(axes)]))
+                mean = sums[:c] / n
+                var = torch.clamp(sums[c:] / n - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
@@ -143,7 +214,7 @@ class Prenet(nn.Module):
         for i in range(self.num_layers):
             x = torch.relu(getattr(self, f"dense_{i}")(x))
             if not deterministic:
-                x = dropout(x, self.dropout_rate, generator)
+                x = dropout(x, self.dropout_rate, generator, data_shard(self))
         return x
 
 

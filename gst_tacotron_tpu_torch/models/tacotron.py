@@ -132,12 +132,13 @@ class GSTTacotron(nn.Module):
               speaker_ids: Optional[torch.Tensor] = None,
               max_steps: Optional[int] = None, deterministic_prenet: bool = False,
               seed: int = 0, precomputed_style: Optional[torch.Tensor] = None,
-              plain: bool = False, chunk_steps: Optional[int] = None
-              ) -> Dict[str, torch.Tensor]:
+              plain: bool = False, chunk_steps: Optional[int] = None,
+              stop_all_reduce=None) -> Dict[str, torch.Tensor]:
         """Autoregressive synthesis: encode (prenet dropout from ``seed``),
         decode (dropout stream ``seed + 1``), post-net. ``chunk_steps``
-        decodes in chunks with early exit (``decode.chunked_decode``; the
-        result then has ``chunks_run``)."""
+        decodes in chunks with early exit (``decode.chunked_decode``, whose
+        ``all_reduce`` is ``stop_all_reduce``; the result then has
+        ``chunks_run``)."""
         gen = _generator(seed, tokens.device, deterministic_prenet)
         style_attn = None
         if self.gst is not None and precomputed_style is None:
@@ -153,7 +154,7 @@ class GSTTacotron(nn.Module):
                 deterministic_prenet=deterministic_prenet, seed=seed + 1, plain=plain)
         else:
             dec = chunked_decode(self, memory, token_lengths, chunk_steps=chunk_steps,
-                                 max_steps=max_steps,
+                                 max_steps=max_steps, all_reduce=stop_all_reduce,
                                  deterministic_prenet=deterministic_prenet, seed=seed + 1,
                                  plain=plain)
             mel, stops, aligns, frame_lengths = (

@@ -12,6 +12,9 @@ plain version on the CPU. ``forward`` is the teacher-forced pass of training
 and ``loss`` its mu-law cross-entropy: plain PyTorch on every device, over
 the parameters themselves, with the input product over all samples one
 GEMM, the output layers one GEMM each, and only ``h @ wh`` in the loop.
+Under ``modules.data_parallel`` the loss is the rank's share of the global
+batch's mean (its sum over the global count), and sampling draws the
+shard's rows of the global Gumbel stream.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ from torch import nn
 
 from ..config import VocoderConfig
 from ..dsp.mulaw import mulaw_decode, mulaw_encode
+from ..losses import masked_mean
 from ..ops.wavernn import (pack_wavernn_weights, teacher_forced_logits,
                            wavernn_sample, wavernn_sample_plain)
-from .modules import Dense, Embed
+from .modules import Dense, Embed, data_shard, shard_row0
 from .rnn import GRUCell
 
 
@@ -79,9 +83,7 @@ class WaveRNN(nn.Module):
         logp = torch.log_softmax(self(mel, wav), dim=-1)
         targets = mulaw_encode(wav, self.cfg.wavernn_bits).long()
         nll = -logp.gather(-1, targets[..., None])[..., 0]
-        if sample_mask is None:
-            return nll.mean()
-        return (nll * sample_mask).sum() / torch.clamp(sample_mask.sum(), min=1.0)
+        return masked_mean(nll, sample_mask, data_shard(self))
 
     # -- sampling -----------------------------------------------------------
 
@@ -90,7 +92,8 @@ class WaveRNN(nn.Module):
         """mel (B, T, M) -> mu-law classes (B, T*hop) int32."""
         run = wavernn_sample_plain if plain else wavernn_sample
         return run(self.pack(), self.cond_frames(mel), hop=self.cfg.wavernn_hop,
-                   seed=seed, temperature=temperature, greedy=greedy)
+                   seed=seed, temperature=temperature, greedy=greedy,
+                   row0=shard_row0(self, mel.shape[0]))
 
     def sample(self, mel: torch.Tensor, *, seed: int = 0, temperature: float = 1.0,
                greedy: bool = False, plain: bool = False) -> torch.Tensor:

@@ -59,7 +59,7 @@ from .gru import gru_update
 from .philox import stream_uniforms
 
 KERNEL = CudaKernel("decode_scan.cu", "decode_scan_launch",
-                    [P, P, P, P, P, P, P, P, P, U64, F, I, I, I, I, P],
+                    [P, P, P, P, P, P, P, P, P, U64, F, I, I, I, I, I, P],
                     branches=("location_sensitive",))
 
 LANE = 128
@@ -122,10 +122,11 @@ def pack_decoder_weights(cell, num_mels: int, r: int, *,
 
 
 def dropout_uniforms(seed: int, steps: int, layer: int, batch: int,
-                     units: int) -> np.ndarray:
+                     units: int, row0: int = 0) -> np.ndarray:
     """(steps, batch, units) float32 uniforms strictly inside (0, 1): the draw
-    the decode kernel makes for prenet ``layer`` at each (step, row, unit)."""
-    return stream_uniforms(seed, np.arange(steps), layer, batch, units)
+    the decode kernel makes for prenet ``layer`` at each (step, row, unit),
+    the rows counted from ``row0`` (a data-parallel shard's first row)."""
+    return stream_uniforms(seed, np.arange(steps), layer, batch, units, row0)
 
 
 def _gru(x, h, wi, bi, wh, bh):
@@ -155,12 +156,12 @@ def initial_decode_state(packed: Dict[str, torch.Tensor], memory: torch.Tensor) 
 
 
 def prenet_keep(seed: int, steps: int, batch: int, p1: int, p2: int, rate: float,
-                device, step0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                device, step0: int = 0, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(steps, batch, P) keep masks of the two prenet layers at steps
-    ``step0`` on: the kernel's Philox draw (``dropout_uniforms``), made on
-    ``device``."""
+    ``step0`` on, rows ``row0`` on: the kernel's Philox draw
+    (``dropout_uniforms``), made on ``device``."""
     idx = torch.arange(step0, step0 + steps, device=device)
-    return tuple(stream_uniforms(seed, idx, layer, batch, units) >= rate
+    return tuple(stream_uniforms(seed, idx, layer, batch, units, row0) >= rate
                  for layer, units in ((0, p1), (1, p2)))
 
 
@@ -239,9 +240,10 @@ def _run_carried(carry: Optional[DecodeCarry], memory, steps, dec_cfg, num_mels,
 
 
 def _plain_decode(packed, memory, keys, lengths, inputs, *, dec_cfg, attn_cfg,
-                  num_mels, steps, seed, use_dropout, step0=0, state=None):
+                  num_mels, steps, seed, use_dropout, step0=0, state=None, row0=0):
     """Drive ``decode_step`` for ``steps`` steps from global step ``step0``
-    and ``state`` (None: the initial state, go frame zeros): each step's
+    and ``state`` (None: the initial state, go frame zeros), the dropout
+    rows counted from ``row0``: each step's
     input frame is ``inputs[:, s]`` (teacher forcing) or, with ``inputs``
     None, the last frame of the step before (autoregressive). Returns (mel,
     stop logits, alignments) of these steps and the (state, last frame)
@@ -258,7 +260,7 @@ def _plain_decode(packed, memory, keys, lengths, inputs, *, dec_cfg, attn_cfg,
     keep = None
     if use_dropout:
         keep = prenet_keep(seed, steps, b, w["pw1"].shape[1], w["pw2"].shape[1], rate, dev,
-                           step0)
+                           step0, row0)
     if state is None:
         state = (initial_decode_state(w, memory),
                  memory.new_zeros(b, num_mels, dtype=w["pw1"].dtype))
@@ -282,8 +284,8 @@ def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                       keys: torch.Tensor, lengths: torch.Tensor, *,
                       dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
                       num_mels: int, steps: int, seed: int = 0,
-                      use_dropout: bool = False, carry: Optional[DecodeCarry] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      use_dropout: bool = False, carry: Optional[DecodeCarry] = None,
+                      row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same decode in plain PyTorch, one ``decode_step`` per loop
     iteration, each fed the last frame of the step before; with ``carry``
     the next ``steps`` steps of that decode (see ``DecodeCarry``)."""
@@ -293,7 +295,7 @@ def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
         mel, stops, aligns, c.state = _plain_decode(
             packed, memory, keys, lengths, None, dec_cfg=dec_cfg, attn_cfg=attn_cfg,
             num_mels=num_mels, steps=steps, seed=seed, use_dropout=use_dropout,
-            step0=c.step, state=c.state)
+            step0=c.step, state=c.state, row0=row0)
         c.mel[:, c.step * r: (c.step + steps) * r] = mel
         c.stop_logits[:, c.step * r: (c.step + steps) * r] = stops
         c.aligns[:, c.step: c.step + steps] = aligns
@@ -305,7 +307,7 @@ def teacher_forced_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                         keys: torch.Tensor, lengths: torch.Tensor,
                         mel_targets: torch.Tensor, *, dec_cfg: DecoderConfig,
                         attn_cfg: AttentionConfig, num_mels: int, seed: int = 0,
-                        use_dropout: bool = False
+                        use_dropout: bool = False, row0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The teacher-forced decode (the JAX ``Decoder.teacher_forced``): step i
     takes the target's last frame of group i - 1, the go frame (zeros)
@@ -322,7 +324,7 @@ def teacher_forced_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
     inputs = torch.cat([go, mel_targets[:, r - 1:: r][:, :-1]], 1)
     return _plain_decode(packed, memory, keys, lengths, inputs, dec_cfg=dec_cfg,
                          attn_cfg=attn_cfg, num_mels=num_mels, steps=steps, seed=seed,
-                         use_dropout=use_dropout)[:3]
+                         use_dropout=use_dropout, row0=row0)[:3]
 
 
 # --- the kernel's phases, plan and workspace ---------------------------------
@@ -525,17 +527,18 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                 keys: torch.Tensor, lengths: torch.Tensor, *,
                 dec_cfg: DecoderConfig, attn_cfg: AttentionConfig,
                 num_mels: int, steps: int, seed: int = 0,
-                use_dropout: bool = False, carry: Optional[DecodeCarry] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                use_dropout: bool = False, carry: Optional[DecodeCarry] = None,
+                row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fixed-length decode: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors; with ``carry`` the next ``steps`` steps of that
     decode, written into its buffers (one launcher call, the kernel's
-    outputs strided by the carry's total steps)."""
+    outputs strided by the carry's total steps). The prenet dropout of row
+    ``b`` draws as row ``row0 + b`` of a global batch."""
     if memory.device.type == "cpu":
         return decode_scan_plain(packed, memory, keys, lengths, dec_cfg=dec_cfg,
                                  attn_cfg=attn_cfg, num_mels=num_mels,
                                  steps=steps, seed=seed, use_dropout=use_dropout,
-                                 carry=carry)
+                                 carry=carry, row0=row0)
     refuse_grad("decode_scan", memory, keys, *packed.values())
     if attn_cfg.kind not in _KINDS:
         raise ValueError(f"unknown attention kind {attn_cfg.kind!r}")
@@ -564,7 +567,7 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
         KERNEL(ptr(memory), ptr(keys), ptr(lens), wptrs, dptrs, ptr(c.mel),
                ptr(c.stop_logits), ptr(c.aligns), ptr(c.state), seed & 0xFFFFFFFFFFFFFFFF,
                float(dec_cfg.prenet_dropout), int(use_dropout), c.step, steps, int(prepared),
-               stream_ptr(memory.device),
+               row0, stream_ptr(memory.device),
                branch="location_sensitive" if attn_cfg.kind == "location_sensitive" else None)
 
     return _run_carried(carry, memory, steps, dec_cfg, num_mels, run)

@@ -62,12 +62,13 @@ def uniform_open01(bits):
     return (top.astype(np.float32) + np.float32(0.5)) * np.float32(1.0 / 8388608.0)
 
 
-def stream_uniforms(seed: int, steps, stream: int, batch: int, n: int):
+def stream_uniforms(seed: int, steps, stream: int, batch: int, n: int, row0: int = 0):
     """(len(steps), batch, n) float32 uniforms: the kernels' draw for item
     ``i`` of row ``b`` at step ``s`` of ``stream``, counted by (i >> 2, s,
-    stream, b) and taking output word i & 3. ``steps`` is a numpy array or a
-    torch tensor of step indices; the result is of the same kind, on the
-    same device."""
+    stream, row0 + b) and taking output word i & 3. ``row0`` is the first
+    row's index in the global batch (a data-parallel rank's shard draws the
+    rows the whole batch would). ``steps`` is a numpy array or a torch tensor
+    of step indices; the result is of the same kind, on the same device."""
     quads = (n + 3) // 4
     if isinstance(steps, torch.Tensor):
         dev = steps.device
@@ -75,13 +76,14 @@ def stream_uniforms(seed: int, steps, stream: int, batch: int, n: int):
         ctr = (torch.arange(quads, device=dev)[None, None, :].expand(shape),
                steps.to(torch.int64)[:, None, None].expand(shape),
                torch.full(shape, stream, dtype=torch.int64, device=dev),
-               torch.arange(batch, device=dev)[None, :, None].expand(shape))
+               torch.arange(row0, row0 + batch, device=dev)[None, :, None].expand(shape))
         words = torch.stack(philox4x32_10(ctr, seed_key(seed)), dim=-1)
     else:
         shape = (len(steps), batch, quads)
         ctr = (np.broadcast_to(np.arange(quads, dtype=np.uint64)[None, None, :], shape),
                np.broadcast_to(np.asarray(steps, np.uint64)[:, None, None], shape),
                np.full(shape, stream, np.uint64),
-               np.broadcast_to(np.arange(batch, dtype=np.uint64)[None, :, None], shape))
+               np.broadcast_to(np.arange(row0, row0 + batch, dtype=np.uint64)[None, :, None],
+                               shape))
         words = np.stack(philox4x32_10(ctr, seed_key(seed)), axis=-1)
     return uniform_open01(words.reshape(shape[0], batch, 4 * quads)[..., :n])

@@ -88,11 +88,12 @@ def sample_smem(c: int, h: int, f: int, k: int, grid: int) -> int:
     return 4 * max(floats, 16 * (2 * GEMM_TILE + 4))
 
 
-def gumbel_uniforms(seed: int, steps, batch: int, num_classes: int):
+def gumbel_uniforms(seed: int, steps, batch: int, num_classes: int, row0: int = 0):
     """(len(steps), batch, num_classes) float32 uniforms strictly inside
-    (0, 1): the kernel's draw for (sample, row, class). ``steps`` is a numpy
-    array (the numpy twin) or a torch tensor of sample indices."""
-    return stream_uniforms(seed, steps, STREAM_GUMBEL, batch, num_classes)
+    (0, 1): the kernel's draw for (sample, row, class), the rows counted from
+    ``row0``. ``steps`` is a numpy array (the numpy twin) or a torch tensor
+    of sample indices."""
+    return stream_uniforms(seed, steps, STREAM_GUMBEL, batch, num_classes, row0)
 
 
 def gumbel(u: torch.Tensor) -> torch.Tensor:
@@ -101,7 +102,7 @@ def gumbel(u: torch.Tensor) -> torch.Tensor:
 
 def wavernn_sample_plain(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
                          hop: int, seed: int = 0, temperature: float = 1.0,
-                         greedy: bool = False) -> torch.Tensor:
+                         greedy: bool = False, row0: int = 0) -> torch.Tensor:
     """The same sampler in plain PyTorch, one sample per loop iteration."""
     w = packed
     b, t, _ = cond.shape
@@ -115,7 +116,7 @@ def wavernn_sample_plain(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
     for s in range(n):
         if not greedy and s % _NOISE_CHUNK == 0:
             steps = torch.arange(s, min(n, s + _NOISE_CHUNK), device=dev)
-            noise = gumbel(gumbel_uniforms(seed, steps, b, k))
+            noise = gumbel(gumbel_uniforms(seed, steps, b, k, row0))
         x = w["embed"][prev] + cond[:, s // hop]
         h = gru_update(x @ w["wi"] + w["bi"], h @ w["wh"] + w["bh"], h)
         logits = torch.relu(h @ w["fc1"] + w["fb1"]) @ w["fc2"] + w["fb2"]
@@ -144,7 +145,8 @@ def teacher_forced_logits(packed: Dict[str, torch.Tensor], cond: torch.Tensor,
 
 def score_gaps(packed: Dict[str, torch.Tensor], cond: torch.Tensor,
                classes: torch.Tensor, *, hop: int, seed: int = 0,
-               temperature: float = 1.0, greedy: bool = False) -> torch.Tensor:
+               temperature: float = 1.0, greedy: bool = False, row0: int = 0
+               ) -> torch.Tensor:
     """(B, T*hop): how far each sampled class scores below the best class of
     its step, with the plain teacher-forced pass run on those same classes
     (0 where the class is the plain argmax). This holds a sampler whose sums
@@ -157,7 +159,7 @@ def score_gaps(packed: Dict[str, torch.Tensor], cond: torch.Tensor,
         sc = logits[:, s0: s0 + _GAP_CHUNK]
         if not greedy:
             steps = torch.arange(s0, s0 + sc.shape[1], device=cond.device)
-            noise = gumbel(gumbel_uniforms(seed, steps, b, k)).transpose(0, 1)
+            noise = gumbel(gumbel_uniforms(seed, steps, b, k, row0)).transpose(0, 1)
             sc = sc / temperature + noise
         chosen = sc.gather(-1, classes[:, s0: s0 + sc.shape[1], None].to(torch.int64))
         gaps.append(sc.max(-1).values - chosen[..., 0])
@@ -166,12 +168,14 @@ def score_gaps(packed: Dict[str, torch.Tensor], cond: torch.Tensor,
 
 def wavernn_sample(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
                    hop: int, seed: int = 0, temperature: float = 1.0,
-                   greedy: bool = False) -> torch.Tensor:
+                   greedy: bool = False, row0: int = 0) -> torch.Tensor:
     """WaveRNN sampling: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors. Row ``b``'s Gumbel noise is row ``row0 + b``'s of a
+    global batch (a data-parallel shard samples the rows the whole batch
+    would)."""
     if cond.device.type == "cpu":
         return wavernn_sample_plain(packed, cond, hop=hop, seed=seed,
-                                    temperature=temperature, greedy=greedy)
+                                    temperature=temperature, greedy=greedy, row0=row0)
     refuse_grad("wavernn_sample", cond, *packed.values())
     w = packed
     b, t, c = cond.shape
@@ -182,8 +186,9 @@ def wavernn_sample(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
         if tuple(w[name].shape) != shape:
             raise ValueError(f"wavernn_sample: {name} has shape {tuple(w[name].shape)}, "
                              f"expected {shape}")
-    if hop < 1 or (not greedy and not temperature > 0):
-        raise ValueError(f"wavernn_sample: hop={hop}, temperature={temperature}")
+    if hop < 1 or row0 < 0 or (not greedy and not temperature > 0):
+        raise ValueError(f"wavernn_sample: hop={hop}, row0={row0}, "
+                         f"temperature={temperature}")
     cond = cond.contiguous()
     ws = [w[name] for name in _WEIGHT_ORDER]
     check_cuda("wavernn_sample", cond, *ws)
@@ -206,7 +211,7 @@ def wavernn_sample(packed: Dict[str, torch.Tensor], cond: torch.Tensor, *,
         keys = torch.zeros(3, LAUNCH_ROWS, device=dev, dtype=torch.int64)
         count = torch.zeros(1, device=dev, dtype=torch.int32)
         KERNEL(ptr(cond[b0:]), wptrs, dims, ptr(table), ptr(hg), ptr(fg), ptr(keys), ptr(count),
-               ptr(classes[b0:]), rows, b0, t * hop, grid, seed & 0xFFFFFFFFFFFFFFFF,
+               ptr(classes[b0:]), rows, row0 + b0, t * hop, grid, seed & 0xFFFFFFFFFFFFFFFF,
                float(temperature), int(greedy), stream_ptr(dev))
     return classes
 

@@ -82,21 +82,75 @@ class Synthesizer:
         self.dsp = TorchDSP(cfg.audio, self.device)
         self._ref_extractor: Optional[DeviceFeatureExtractor] = None
 
-    def _reference_mels(self, reference_wavs: Sequence[np.ndarray]):
+    def _reference_mels(self, reference_wavs: Sequence[np.ndarray],
+                        frames: Optional[int] = None):
         """Reference wavs -> (ref_mel (B, T, M) padded to a multiple of 64
-        frames, lengths (B,))."""
+        frames, at least ``frames``, lengths (B,))."""
         if self._ref_extractor is None:
             self._ref_extractor = DeviceFeatureExtractor(
                 self.cfg.audio, self.device, plain=self.plain)
         mels = [m for m, _ in self._ref_extractor.extract(
             [np.asarray(w, np.float32) for w in reference_wavs])]
-        t_max = _round_up(max(m.shape[0] for m in mels), 64)
+        t_max = _round_up(max([m.shape[0] for m in mels] + [frames or 0]), 64)
         ref_mel = np.zeros((len(mels), t_max, self.cfg.model.num_mels), np.float32)
         for i, m in enumerate(mels):
             ref_mel[i, : m.shape[0]] = m
         lengths = np.array([m.shape[0] for m in mels], np.int64)
         return (torch.from_numpy(ref_mel).to(self.device),
                 torch.from_numpy(lengths).to(self.device))
+
+    def text_inputs(self, texts: Sequence[str], style_from_wavs: bool,
+                    token_weights: Optional[np.ndarray] = None,
+                    speaker_ids: Optional[Sequence[int]] = None
+                    ) -> Dict[str, Optional[np.ndarray]]:
+        """The host front end of ``texts``: {tokens (B, L) padded to a
+        multiple of ``text_pad_multiple``, token_lengths, token_weights
+        (uniform, the neutral style, for a GST config without a style
+        source), speaker_ids (0 by default, multi-speaker configs)}."""
+        cfg = self.cfg
+        tokens, lengths = batch_text_to_ids(texts)
+        pad_to = _round_up(tokens.shape[1], self.text_pad_multiple)
+        tokens = np.pad(tokens, ((0, 0), (0, pad_to - tokens.shape[1])))
+        if cfg.model.gst.enabled and not style_from_wavs and token_weights is None:
+            token_weights = np.full((len(texts), cfg.model.gst.num_tokens),
+                                    1.0 / cfg.model.gst.num_tokens, np.float32)
+        spk = None
+        if cfg.model.num_speakers > 1:
+            spk = np.asarray(speaker_ids if speaker_ids is not None else [0] * len(texts),
+                             np.int64)
+        return {"tokens": tokens.astype(np.int64), "token_lengths": lengths.astype(np.int64),
+                "token_weights": None if token_weights is None
+                else np.asarray(token_weights, np.float32), "speaker_ids": spk}
+
+    @torch.no_grad()
+    def infer(self, tok: torch.Tensor, tok_len: torch.Tensor,
+              ref_mel: Optional[torch.Tensor], ref_lengths: Optional[torch.Tensor],
+              token_weights: Optional[torch.Tensor], speaker_ids: Optional[torch.Tensor], *,
+              max_steps: int, seed: int, deterministic_prenet: bool,
+              chunk_steps: Optional[int], stop_all_reduce=None) -> Dict[str, torch.Tensor]:
+        """The model's ``infer`` on device inputs, then the waveform
+        (``wav``): every output on the device."""
+        out = self.model.infer(
+            tok, tok_len, ref_mel, ref_lengths, token_weights, speaker_ids=speaker_ids,
+            max_steps=max_steps, deterministic_prenet=deterministic_prenet, seed=seed,
+            plain=self.plain, chunk_steps=chunk_steps, stop_all_reduce=stop_all_reduce)
+        if self._inline_gl:
+            out["wav"] = self.dsp.inv_linear_spectrogram(out["linear"].float())
+        else:
+            out["wav"] = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET, plain=self.plain)
+        return out
+
+    def to_host(self, out: Dict[str, torch.Tensor], tok_len: torch.Tensor
+                ) -> Dict[str, np.ndarray]:
+        """Outputs -> host arrays, with the alignments' diagonality and the
+        waveforms' lengths."""
+        r = self.cfg.model.decoder.reduction_factor
+        out["diagonality"] = alignment_diagonality(
+            out["alignments"], tok_len, torch.clamp(out["frame_lengths"] // r, min=1))
+        result = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                  if torch.is_tensor(v) else v for k, v in out.items()}
+        result["wav_lengths"] = result["frame_lengths"] * self.cfg.audio.hop_length
+        return result
 
     @torch.no_grad()
     def __call__(self, texts: Sequence[str],
@@ -107,45 +161,20 @@ class Synthesizer:
                  seed: int = 0) -> Dict[str, np.ndarray]:
         """``speaker_ids`` (a multi-speaker config) default to speaker 0."""
         cfg = self.cfg
-        tokens, lengths = batch_text_to_ids(texts)
-        pad_to = _round_up(tokens.shape[1], self.text_pad_multiple)
-        tokens = np.pad(tokens, ((0, 0), (0, pad_to - tokens.shape[1])))
         dev = self.device
-
+        from_wavs = cfg.model.gst.enabled and reference_wavs is not None
+        host = self.text_inputs(texts, from_wavs, token_weights, speaker_ids)
         ref_mel = ref_lengths = None
-        if cfg.model.gst.enabled and reference_wavs is not None:
+        if from_wavs:
             ref_mel, ref_lengths = self._reference_mels(reference_wavs)
-        elif cfg.model.gst.enabled and token_weights is None:
-            # neutral style: uniform token weights
-            token_weights = np.full((len(texts), cfg.model.gst.num_tokens),
-                                    1.0 / cfg.model.gst.num_tokens, np.float32)
-        tw = None if token_weights is None else torch.as_tensor(
-            np.asarray(token_weights, np.float32), device=dev)
-
-        spk = None
-        if cfg.model.num_speakers > 1:
-            spk = torch.as_tensor(np.asarray(
-                speaker_ids if speaker_ids is not None else [0] * len(texts), np.int64),
-                device=dev)
-        tok = torch.from_numpy(tokens.astype(np.int64)).to(dev)
-        tok_len = torch.from_numpy(lengths.astype(np.int64)).to(dev)
-        steps = max_steps or cfg.model.decoder.max_decode_steps
-        out = self.model.infer(
-            tok, tok_len, ref_mel, ref_lengths, tw, speaker_ids=spk, max_steps=steps,
-            deterministic_prenet=self.deterministic_prenet, seed=seed,
-            plain=self.plain, chunk_steps=self.chunk_steps)
-        if self._inline_gl:
-            wav = self.dsp.inv_linear_spectrogram(out["linear"].float())
-        else:
-            wav = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET, plain=self.plain)
-        r = cfg.model.decoder.reduction_factor
-        out["diagonality"] = alignment_diagonality(
-            out["alignments"], tok_len, torch.clamp(out["frame_lengths"] // r, min=1))
-        result = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-                  if torch.is_tensor(v) else v for k, v in out.items()}
-        result["wav"] = wav.cpu().numpy()
-        result["wav_lengths"] = result["frame_lengths"] * cfg.audio.hop_length
-        return result
+        put = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+        tok_len = put(host["token_lengths"])
+        out = self.infer(put(host["tokens"]), tok_len, ref_mel, ref_lengths,
+                         put(host["token_weights"]), put(host["speaker_ids"]),
+                         max_steps=max_steps or cfg.model.decoder.max_decode_steps, seed=seed,
+                         deterministic_prenet=self.deterministic_prenet,
+                         chunk_steps=self.chunk_steps)
+        return self.to_host(out, tok_len)
 
     # -- artifacts ----------------------------------------------------------
 

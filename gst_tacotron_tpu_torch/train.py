@@ -19,10 +19,23 @@ reference encoder, under ``torch.no_grad()``.
 Dropout is a pure function of (``train.seed``, step): the encoder prenet
 draws from a generator seeded with ``dropout_seed``, the decoder prenet from
 the decode kernel's Philox stream keyed by it plus one, so a resumed run
-replays the same masks. Mesh-free: data and tensor parallelism are not
-ported.
+replays the same masks.
+
+Under a mesh (``parallel.make_mesh``; ``Trainer(..., mesh=)``) a step is
+the single-device step on the global batch, as GSPMD computes the JAX step:
+each rank loads its rows (``parallel.process_data_shard``), its losses are
+its numerators over the global denominators, BatchNorm takes the global
+statistics and dropout draws the global batch's masks
+(``models.modules.data_parallel``); the gradients are summed over the data
+axis; the ruled kernels are stored sharded over the model axis
+(``parallel.sharding``) and the global norm sums their blocks' squares over
+it. Rank 0 writes the logs and the checkpoints (the whole state, shards
+gathered: any mesh restores it).
 
     python -m gst_tacotron_tpu_torch.train --preset gst_lj --patterns P --workdir W
+    # N processes (N cards, or the CPU with --device cpu), rank i:
+    python -m gst_tacotron_tpu_torch.train ... --coordinator HOST:PORT \
+        --num-processes N --process-id i [--model-parallelism M]
 """
 
 from __future__ import annotations
@@ -31,8 +44,8 @@ import argparse
 import os
 import time
 import traceback
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, FrozenSet, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +54,12 @@ from .checkpoint import CheckpointManager
 from .config import (Config, OptimizerConfig, apply_overrides, get_preset, load_config,
                      parse_cli_overrides, save_config)
 from .data import BucketedLoader, PatternDataset
-from .device import resolve_device
 from .dsp.torch_dsp import TorchDSP
 from .losses import compute_losses
 from .metrics import MetricLogger
 from .models.tacotron import GSTTacotron
+from .parallel import mesh as pmesh
+from .parallel import sharding
 from .utils.profiling import StepWindowProfiler
 from .weights import build_model
 
@@ -116,11 +130,21 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-               state: OptState) -> torch.Tensor:
+               state: OptState, sharded: FrozenSet[str] = frozenset(),
+               model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+               ) -> torch.Tensor:
         """Apply one update to ``params`` in place and advance ``state``;
-        returns the gradients' global norm before clipping."""
+        returns the gradients' global norm before clipping. ``sharded`` keys
+        hold one model rank's column block each: their squares are summed
+        over the model axis by ``model_sum`` (Adam works element by element
+        on the block)."""
         c = self.cfg
-        norm = global_norm(grads.values())
+        if not sharded:
+            norm = global_norm(grads.values())
+        else:
+            sq = lambda keys: sum((grads[k] * grads[k]).sum() for k in keys)
+            norm = torch.sqrt(sq([k for k in grads if k not in sharded])
+                              + model_sum(sq(sorted(sharded))))
         keep = norm < c.grad_clip_norm
         count = state.count + 1
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
@@ -152,11 +176,19 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
 @dataclass
 class TrainState:
     """The model (parameters and BatchNorm buffers), Adam's state, the steps
-    taken and the root of the dropout streams."""
+    taken and the root of the dropout streams; under a mesh
+    (``parallel.place_state``) the mesh and the keys of the parameters
+    stored sharded over its model axis."""
     step: int
     model: torch.nn.Module
     opt: OptState
     seed: int
+    mesh: Optional[pmesh.Mesh] = None
+    sharded: FrozenSet[str] = field(default_factory=frozenset)
+
+    def data_shard(self):
+        """The modules' ``DataShard`` of this rank (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.data_shard()
 
 
 def dropout_seed(seed: int, step: int) -> int:
@@ -211,11 +243,12 @@ def _model_kwargs(cfg: Config, batch: Dict[str, Any]) -> Dict[str, Any]:
     return kwargs
 
 
-def _forward_losses(cfg: Config, model: torch.nn.Module, batch, *, train: bool, seed: int):
+def _forward_losses(cfg: Config, model: torch.nn.Module, batch, *, train: bool, seed: int,
+                    shard=None):
     outputs = model(batch["tokens"], batch["token_lengths"], batch["mel"], train=train,
                     seed=seed, **_model_kwargs(cfg, batch))
     return compute_losses(outputs, batch, cfg.loss, cfg.audio,
-                          reduction_factor=cfg.model.decoder.reduction_factor)
+                          reduction_factor=cfg.model.decoder.reduction_factor, shard=shard)
 
 
 def train_step(tx: Optimizer, cfg: Config, state: TrainState,
@@ -227,17 +260,27 @@ def train_step(tx: Optimizer, cfg: Config, state: TrainState,
     stay in the parameters' ``.grad`` until the next step."""
     batch = _materialize_features(cfg, batch)
     model = state.model
-    params = dict(model.named_parameters())
+    params = sharding.named_parameters(model)
     for p in params.values():
         p.grad = None
-    with torch.enable_grad():
+    with torch.enable_grad(), sharding.on_mesh(model, state.mesh):
         losses = _forward_losses(cfg, model, batch, train=True,
-                                 seed=dropout_seed(state.seed, state.step))
+                                 seed=dropout_seed(state.seed, state.step),
+                                 shard=state.data_shard())
         losses["loss"].backward()
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in params.items()}
     metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["grad_norm"] = tx.update(params, grads, state.opt)
+    mesh = state.mesh
+    if mesh is not None:
+        # the global gradient (this rank's block of a sharded kernel's) stays
+        # in .grad, as the single-device step leaves it
+        grads = sharding.step_gradients(mesh, grads, state.sharded)
+        for k, p in params.items():
+            p.grad = grads[k]
+        metrics = pmesh.sum_over_data(mesh, metrics)
+    metrics["grad_norm"] = tx.update(params, grads, state.opt, state.sharded,
+                                     None if mesh is None else mesh.model_sum)
     state.step += 1
     return metrics
 
@@ -269,26 +312,52 @@ def eval_step(cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor]
     stays on, on its own stream. On the card the GRUs and the reference
     encoder launch their kernels (no grad here)."""
     batch = _materialize_features(cfg, batch)
-    losses = _forward_losses(cfg, state.model, batch, train=False,
-                             seed=dropout_seed(state.seed, EVAL_STREAM))
-    return {f"eval_{k}": v for k, v in losses.items()}
+    with sharding.on_mesh(state.model, state.mesh):
+        losses = _forward_losses(cfg, state.model, batch, train=False,
+                                 seed=dropout_seed(state.seed, EVAL_STREAM),
+                                 shard=state.data_shard())
+    return {f"eval_{k}": v for k, v in pmesh.sum_over_data(state.mesh, losses).items()}
 
 
 def state_dict(state: TrainState) -> Dict[str, Any]:
-    """What a checkpoint holds, copied to the host."""
+    """What a checkpoint holds, copied to the host: under a mesh the whole
+    state, the sharded kernels and their moments gathered (a collective:
+    every rank calls it)."""
     cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
-    return {"step": state.step, "model": cpu(state.model.state_dict()),
-            "opt": {"count": state.opt.count, "mu": cpu(state.opt.mu),
-                    "nu": cpu(state.opt.nu)},
+    if state.mesh is None:
+        model, mu, nu = state.model.state_dict(), state.opt.mu, state.opt.nu
+    else:
+        model = sharding.full_model_state(state.model, state.sharded, state.mesh)
+        mu, nu = (sharding.gather_tree(m, state.sharded, state.mesh)
+                  for m in (state.opt.mu, state.opt.nu))
+    return {"step": state.step, "model": cpu(model),
+            "opt": {"count": state.opt.count, "mu": cpu(mu), "nu": cpu(nu)},
             "rng": {"seed": state.seed}}
 
 
+def save_checkpoint(ckpt: CheckpointManager, state: TrainState) -> None:
+    """Rank 0 writes the whole state (``state_dict``, which every rank
+    calls); the other ranks wait for it."""
+    saved = state_dict(state)
+    if pmesh.world()[0] == 0:
+        ckpt.save(state.step, saved)
+    pmesh.barrier()
+
+
 def load_state_dict(state: TrainState, saved: Dict[str, Any]) -> None:
-    """Restore ``saved`` into ``state``'s tensors, in place."""
-    state.model.load_state_dict(saved["model"])
+    """Restore ``saved`` (a whole state, from any mesh) into ``state``'s
+    tensors, in place; under a mesh each sharded kernel and its moments
+    take this rank's block."""
+    if state.mesh is None:
+        state.model.load_state_dict(saved["model"])
+    else:
+        sharding.load_model_state(state.model, saved["model"], state.sharded, state.mesh)
     for name in ("mu", "nu"):
         mine = getattr(state.opt, name)
-        for k, v in saved["opt"][name].items():
+        theirs = saved["opt"][name]
+        if state.mesh is not None:
+            theirs = sharding.local_blocks(theirs, state.sharded, state.mesh)
+        for k, v in theirs.items():
             mine[k].copy_(v)
     state.opt.count = int(saved["opt"]["count"])
     state.step = int(saved["step"])
@@ -301,15 +370,23 @@ def load_state_dict(state: TrainState, saved: Dict[str, Any]) -> None:
 
 
 class Trainer:
-    """Single-device trainer over a pattern directory. ``device`` is ``cuda``
-    unless named; with no card and no device it raises."""
+    """Trainer over a pattern directory, on one device or, with ``mesh``, as
+    this rank of a data- and tensor-parallel run (every rank constructs its
+    ``Trainer`` and steps together). ``device`` is ``cuda`` unless named
+    (under a process group, card ``rank % device_count``); with no card and
+    no device it raises."""
 
-    def __init__(self, cfg: Config, pattern_dir: str, work_dir: str, device=None):
+    def __init__(self, cfg: Config, pattern_dir: str, work_dir: str, device=None,
+                 mesh: Optional[pmesh.Mesh] = None):
         self.cfg = cfg
         self.work_dir = work_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = pmesh.rank_device(device)
+        # rank 0 writes the config, the logs and the checkpoints
+        self.chief = pmesh.world()[0] == 0
         os.makedirs(work_dir, exist_ok=True)
-        save_config(cfg, os.path.join(work_dir, "config.json"))
+        if self.chief:
+            save_config(cfg, os.path.join(work_dir, "config.json"))
         if cfg.train.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
@@ -324,13 +401,19 @@ class Trainer:
                     f"pattern corpus was extracted with audio.{key}={theirs} but the "
                     f"training config has {ours}; regenerate patterns or align the config")
         r = cfg.model.decoder.reduction_factor
+        shard_index, num_shards = ((0, 1) if mesh is None else
+                                   pmesh.process_data_shard(mesh))
+        if cfg.data.batch_size % num_shards:
+            raise ValueError(f"data.batch_size={cfg.data.batch_size} does not divide over the "
+                             f"mesh's data axis of {num_shards} ranks")
+        shards = dict(shard_index=shard_index, num_shards=num_shards)
         self.loader = BucketedLoader(self.dataset, cfg.data, r, seed=cfg.train.seed,
-                                     audio_cfg=cfg.audio)
+                                     audio_cfg=cfg.audio, **shards)
         # held-out eval: teacher-forced losses on a deterministic holdout
         self.val_loader = None
         if cfg.data.val_fraction > 0.0:
             val = BucketedLoader(self.dataset, cfg.data, r, seed=cfg.train.seed, split="val",
-                                 drop_remainder=False, audio_cfg=cfg.audio)
+                                 drop_remainder=False, audio_cfg=cfg.audio, **shards)
             if any(val.bucket_members):
                 self.val_loader = val
         if not self.loader.batches_per_epoch():
@@ -340,6 +423,14 @@ class Trainer:
                 f"{cfg.data.buckets} (batch_size={self.loader.batch_size}); check bucket "
                 "bounds vs corpus lengths")
         self.model, self.state = init_state(cfg, self.device)
+        if mesh is not None:
+            sharding.place_state(self.state, mesh)
+            if mesh.shape[pmesh.MODEL_AXIS] > 1:
+                tp = {k: v for k, v in sharding.describe_sharding(
+                    dict(self.model.named_parameters())).items() if pmesh.MODEL_AXIS in v}
+                head = "; ".join(f"{k} -> {v}" for k, v in list(tp.items())[:3])
+                print(f"[trainer] tensor-parallel: {len(tp)} param kernels sharded over "
+                      f"'model' ({head}; ...)")
         self.tx = make_optimizer(cfg.optimizer)
         self.corpus = None
         if cfg.data.device_corpus:
@@ -352,6 +443,7 @@ class Trainer:
                     f"prepped corpus is {gb:.2f} GB > data.device_corpus_max_gb="
                     f"{cfg.data.device_corpus_max_gb}; lower bucket bounds or disable "
                     "device_corpus")
+            # the whole corpus on every rank; each rank's batches index its rows
             self.corpus = {b: (torch.from_numpy(w).to(self.device),
                                torch.from_numpy(i).to(self.device))
                            for b, (w, i) in corpora.items()}
@@ -361,7 +453,7 @@ class Trainer:
             self.device_corpus_gb = gb
         self.ckpt = CheckpointManager(os.path.join(work_dir, cfg.train.checkpoint_dir),
                                       keep=cfg.train.keep_checkpoints)
-        self.logger = MetricLogger(os.path.join(work_dir, "logs"))
+        self.logger = MetricLogger(os.path.join(work_dir, "logs") if self.chief else None)
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
@@ -442,7 +534,7 @@ class Trainer:
                     self.logger.write(step, host, prefix="train")
                     t0, window = time.time(), 0
                 if step % cfg.train.checkpoint_every == 0:
-                    self._save_ckpt()
+                    save_checkpoint(self.ckpt, self.state)
                 if step % cfg.train.eval_every == 0:
                     if self.val_loader is not None:
                         self.run_eval(step)
@@ -451,23 +543,32 @@ class Trainer:
         finally:
             profiler.stop()
             it.close()
-        self._save_ckpt()
+        save_checkpoint(self.ckpt, self.state)
         self.ckpt.wait()
         return self.state
 
-    def _save_ckpt(self) -> None:
-        self.ckpt.save(self.state.step, state_dict(self.state))
+    def whole_model(self) -> GSTTacotron:
+        """The model with every kernel whole: the state's own model, or under
+        a model axis a copy with the shards gathered (a collective: every
+        rank calls it)."""
+        return sharding.whole_copy(
+            self.state.model, self.mesh,
+            lambda: build_model(self.cfg, seed=self.cfg.train.seed, device=self.device))
 
 
 def default_eval_hook(trainer: Trainer, step: int) -> None:
     """Periodic qualitative eval: synthesize ``train.eval_sentences`` through
     the port's ``Synthesizer`` (its kernels on the card), save the wavs and
     alignment PNGs, log diagonality and length, and the first sentence's
-    alignment, mel and wav to TensorBoard."""
+    alignment, mel and wav to TensorBoard. In a parallel run rank 0 does it
+    (after every rank took part in gathering the sharded kernels)."""
     from .synthesize import Synthesizer
 
     cfg = trainer.cfg
-    synth = Synthesizer(cfg, trainer.state.model, device=trainer.device)
+    model = trainer.whole_model()
+    if not trainer.chief:
+        return
+    synth = Synthesizer(cfg, model, device=trainer.device)
     try:
         out = synth(list(cfg.train.eval_sentences), seed=step)
     except Exception:  # eval must never kill training
@@ -486,7 +587,7 @@ def default_eval_hook(trainer: Trainer, step: int) -> None:
                                 sample_rate=cfg.audio.sample_rate)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train GST-Tacotron (PyTorch port)")
     p.add_argument("--preset", default="taco1_lj")
     p.add_argument("--config", help="config JSON path (overrides preset)")
@@ -495,26 +596,30 @@ def main(argv=None):
     p.add_argument("--steps", type=int)
     p.add_argument("--device", default=None,
                    help="default cuda; 'cpu' runs the plain path on the CPU")
-    p.add_argument("--model-parallelism", type=int, default=1)
-    p.add_argument("--coordinator")
-    p.add_argument("--num-processes", type=int)
-    p.add_argument("--process-id", type=int)
+    p.add_argument("--model-parallelism", type=int, default=1,
+                   help="ranks of the mesh's model axis (tensor parallelism); the data "
+                        "axis takes the rest")
+    p.add_argument("--coordinator", help="multi-process: host:port of rank 0")
+    p.add_argument("--num-processes", type=int, help="multi-process: the number of ranks")
+    p.add_argument("--process-id", type=int, help="multi-process: this process's rank")
     p.add_argument("--profile",
                    help="trace ~20 train steps after 2 warm-up steps into this directory")
     p.add_argument("overrides", nargs="*", help="dotted config overrides k=v")
-    args = p.parse_args(argv)
-    if (args.model_parallelism != 1 or args.coordinator or args.num_processes is not None
-            or args.process_id is not None):
-        p.error("--model-parallelism, --coordinator, --num-processes and --process-id: "
-                "data and tensor parallelism are not ported (ROADMAP A15); the port "
-                "trains on one device")
+    return p
 
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     cfg = load_config(args.config) if args.config else get_preset(args.preset)
     if args.overrides:
         cfg = apply_overrides(cfg, parse_cli_overrides(args.overrides))
-    trainer = Trainer(cfg, args.patterns, args.workdir, device=args.device)
-    trainer.restore_if_available()
-    trainer.train(args.steps, eval_fn=default_eval_hook, profile_dir=args.profile)
+    with pmesh.cli_mesh(args.model_parallelism, args.coordinator, args.num_processes,
+                        args.process_id, args.device) as mesh:
+        # unlike the JAX CLI, which drops the mesh where the batch does not
+        # divide the data axis, the Trainer raises
+        trainer = Trainer(cfg, args.patterns, args.workdir, device=args.device, mesh=mesh)
+        trainer.restore_if_available()
+        trainer.train(args.steps, eval_fn=default_eval_hook, profile_dir=args.profile)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,17 @@ cropped into fixed-size (mel segment, wav segment) pairs, and the teacher-
 forced mu-law cross-entropy (``WaveRNN.loss``) is minimized with the
 seq2seq trainer's optimizer chain. The loss is plain PyTorch over the
 parameters (no kernel: the sampling kernel K5 serves synthesis only).
-Single device.
+
+Under a mesh (``VocoderTrainer(..., mesh=)``) every rank loads its own
+crops (the loader's shard of the corpus, its generator keyed by the shard)
+of ``batch_size`` / data ranks rows; the step is the single-device step on
+the ranks' rows together: the loss is the rank's share of the global mean,
+the gradients are summed over the data axis, and the WaveRNN's ruled
+kernels are stored sharded over the model axis (``parallel.sharding``).
+Rank 0 writes the logs and the checkpoints (the whole state).
 
     python -m gst_tacotron_tpu_torch.vocoder_train --patterns P --workdir W
+    # N processes, rank i: ... --coordinator HOST:PORT --num-processes N --process-id i
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,9 +34,10 @@ from .checkpoint import CheckpointManager
 from .config import (AudioConfig, Config, apply_overrides, get_preset, load_config,
                      parse_cli_overrides)
 from .data.loader import PatternDataset
-from .device import resolve_device
 from .metrics import MetricLogger
-from .train import TrainState, load_state_dict, make_optimizer, state_dict
+from .parallel import mesh as pmesh
+from .parallel import sharding
+from .train import TrainState, load_state_dict, make_optimizer, save_checkpoint
 from .vocoder import check_vocoder_hop
 from .weights import build_wavernn
 
@@ -102,27 +111,40 @@ class VocoderSegmentLoader:
 
 
 class VocoderTrainer:
-    """``device`` is ``cuda`` unless named; with no card and no device it
-    raises."""
+    """``device`` is ``cuda`` unless named (under a process group, card
+    ``rank % device_count``); with no card and no device it raises.
+    ``batch_size`` is the global batch; with ``mesh`` this rank's share."""
 
     def __init__(self, cfg: Config, pattern_dir: str, work_dir: str, device=None,
-                 segment_frames: int = 24, batch_size: int = 16):
+                 segment_frames: int = 24, batch_size: int = 16,
+                 mesh: Optional[pmesh.Mesh] = None):
         check_vocoder_hop(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = pmesh.rank_device(device)
+        self.chief = pmesh.world()[0] == 0
         os.makedirs(work_dir, exist_ok=True)
+        shard_index, num_shards = (0, 1) if mesh is None else pmesh.process_data_shard(mesh)
+        if batch_size % num_shards:
+            raise ValueError(f"batch_size={batch_size} does not divide over the mesh's data "
+                             f"axis of {num_shards} ranks")
         ds = PatternDataset(pattern_dir, cfg.data.metadata_file)
         self.loader = VocoderSegmentLoader(ds, cfg.model.vocoder.wavernn_hop,
                                            segment_frames=segment_frames,
-                                           batch_size=batch_size, seed=cfg.train.seed)
+                                           batch_size=batch_size // num_shards,
+                                           seed=cfg.train.seed, shard_index=shard_index,
+                                           num_shards=num_shards)
         self.model = build_wavernn(cfg, seed=cfg.train.seed, device=self.device)
         self.tx = make_optimizer(cfg.optimizer)
         self.state = TrainState(0, self.model,
                                 self.tx.init(dict(self.model.named_parameters())),
                                 cfg.train.seed + 1)
+        if mesh is not None:
+            sharding.place_state(self.state, mesh)
         self.ckpt = CheckpointManager(os.path.join(work_dir, "vocoder_ckpt"),
                                       keep=cfg.train.keep_checkpoints)
-        self.logger = MetricLogger(os.path.join(work_dir, "vocoder_logs"))
+        self.logger = MetricLogger(os.path.join(work_dir, "vocoder_logs")
+                                   if self.chief else None)
 
     def restore_if_available(self) -> bool:
         step = self.ckpt.latest_step()
@@ -135,17 +157,21 @@ class VocoderTrainer:
         """One update on a float16 host batch (computed in float32)."""
         mel, wav = (torch.from_numpy(batch[k]).to(self.device, torch.float32)
                     for k in ("mel", "wav"))
-        params = dict(self.model.named_parameters())
-        with torch.enable_grad():
+        params = sharding.named_parameters(self.model)
+        mesh = self.mesh
+        with torch.enable_grad(), sharding.on_mesh(self.model, mesh):
             loss = self.model.loss(mel, wav)
             loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
-        grad_norm = self.tx.update(params, grads, self.state.opt)
+        grads = sharding.step_gradients(mesh, grads, self.state.sharded)
+        loss = pmesh.sum_over_data(mesh, {"loss": loss.detach()})["loss"]
+        grad_norm = self.tx.update(params, grads, self.state.opt, self.state.sharded,
+                                   None if mesh is None else mesh.model_sum)
         for p in params.values():
             p.grad = None
         self.state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
 
     def train(self, total_steps: int) -> TrainState:
         """Steps up to ``total_steps``; batches are assembled on a feeder
@@ -173,9 +199,9 @@ class VocoderTrainer:
                                   prefix="vocoder")
                 t0, window = time.time(), 0
             if step % self.cfg.train.checkpoint_every == 0:
-                self.ckpt.save(step, state_dict(self.state))
+                save_checkpoint(self.ckpt, self.state)
         feeder.join()
-        self.ckpt.save(self.state.step, state_dict(self.state))
+        save_checkpoint(self.ckpt, self.state)
         self.ckpt.wait()
         return self.state
 
@@ -191,15 +217,22 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--device", default=None,
                    help="default cuda; 'cpu' runs the plain path on the CPU")
+    p.add_argument("--model-parallelism", type=int, default=1)
+    p.add_argument("--coordinator", help="multi-process: host:port of rank 0")
+    p.add_argument("--num-processes", type=int, help="multi-process: the number of ranks")
+    p.add_argument("--process-id", type=int, help="multi-process: this process's rank")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
     cfg = load_config(args.config) if args.config else get_preset(args.preset)
     if args.overrides:
         cfg = apply_overrides(cfg, parse_cli_overrides(args.overrides))
-    trainer = VocoderTrainer(cfg, args.patterns, args.workdir, device=args.device,
-                             segment_frames=args.segment_frames, batch_size=args.batch_size)
-    trainer.restore_if_available()
-    trainer.train(args.steps)
+    with pmesh.cli_mesh(args.model_parallelism, args.coordinator, args.num_processes,
+                        args.process_id, args.device) as mesh:
+        trainer = VocoderTrainer(cfg, args.patterns, args.workdir, device=args.device,
+                                 segment_frames=args.segment_frames,
+                                 batch_size=args.batch_size, mesh=mesh)
+        trainer.restore_if_available()
+        trainer.train(args.steps)
 
 
 if __name__ == "__main__":

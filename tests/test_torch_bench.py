@@ -2,7 +2,8 @@
 workload is ``bench.py::build``'s (the same config overrides, token ids and
 reference mel, drawn in the same order), it refuses to run without a card,
 and its timed functions run end to end at small widths on CPU tensors (the
-numbers of a CPU run are no device metric and are not read here)."""
+numbers of a CPU run are no device metric and are not read here); its
+``--scaling`` curve runs on gloo processes on the CPU."""
 
 import numpy as np
 import pytest
@@ -68,3 +69,20 @@ def test_bench_functions_run_on_cpu_tensors(tmp_path):
     assert per_step > 0 and gl > 0
     c5 = bench.bench_config5(cfg, model, sample, iterations=1)
     assert c5["wav_samples_per_batch"] == 2 * 3 * r * cfg.audio.hop_length
+
+
+def test_scaling_curve_on_gloo_processes():
+    """``--scaling --device cpu``: one row a rank count, ms a step from
+    every rank, efficiency 1 at one rank; the fake-mesh widths are the JAX
+    bench's (``__graft_entry__._tiny_overrides``)."""
+    import __graft_entry__ as graft
+
+    assert {k: v for k, v in graft._tiny_overrides().items()
+            if k != "audio.griffin_lim_iters"} == bench.TINY
+    rows = bench.bench_scaling("cpu", counts=(1, 2), steps=1)
+    assert [r["ranks"] for r in rows] == [1, 2]
+    assert rows[0]["weak_scaling_efficiency"] == 1.0
+    assert all(r["ms_per_step"] > 0 and r["rows_per_rank"] == 2 for r in rows)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(["--scaling"])

@@ -587,6 +587,53 @@ def test_wavernn_sample_kernel(dev, b, t, c, h, bits, greedy):
         assert float(gaps.max()) <= 1e-4
 
 
+def test_kernels_at_row0_draw_the_whole_batchs_rows(dev):
+    """K4 and K5 on rows 3..4 at ``row0=3`` (a data-parallel rank's rows):
+    K4 within 1e-5 of its plain twin at that row0 and of those rows of the
+    5-row launch, dropout on; K5 held teacher-forced at that row0, and its
+    classes those rows' of the 5-row launch (a row's sums do not depend on
+    the launch's rows)."""
+    from gst_tacotron_tpu_torch.config import AttentionConfig, DecoderConfig, VocoderConfig
+    from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+    from gst_tacotron_tpu_torch.models.wavernn import WaveRNN
+    from gst_tacotron_tpu_torch.ops.decode import decode_scan, decode_scan_plain
+    from gst_tacotron_tpu_torch.ops.wavernn import score_gaps, wavernn_sample
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    dec = DecoderConfig(prenet_dims=(16, 8), attention_rnn_dim=16, decoder_rnn_dim=24,
+                        reduction_factor=3, max_decode_steps=7)
+    attn = AttentionConfig(dim=12)
+    cell = DecoderCell(dec, attn, 10, 20)
+    init_weights(cell, seed=3)
+    cell = cell.to(dev)
+    g = torch.Generator().manual_seed(4)
+    memory = rand(g, 5, 9, 20).to(dev)
+    with torch.no_grad():
+        keys = cell.precompute_keys(memory).contiguous()
+    lengths = torch.tensor([9, 0, 4, 7, 9], device=dev)
+    kw = dict(dec_cfg=dec, attn_cfg=attn, num_mels=10, steps=7, seed=11, use_dropout=True)
+    whole = decode_scan(cell.pack(), memory, keys, lengths, **kw)
+    shard = (memory[3:].contiguous(), keys[3:].contiguous(), lengths[3:])
+    got = decode_scan(cell.pack(), *shard, row0=3, **kw)
+    ref = decode_scan_plain(cell.pack(), *shard, row0=3, **kw)
+    for x, y, z in zip(got, ref, whole):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        torch.testing.assert_close(x, z[3:], atol=1e-5, rtol=0)
+
+    model = WaveRNN(VocoderConfig(kind="wavernn", wavernn_gru_dim=16, wavernn_fc_dim=16,
+                                  wavernn_bits=8, wavernn_hop=4), 6)
+    init_weights(model, seed=5)
+    model = model.to(dev)
+    with torch.no_grad():
+        cond = model.cond_frames(torch.rand(5, 4, 6, generator=g).to(dev)).contiguous()
+    packed = model.pack()
+    skw = dict(hop=4, seed=21, temperature=0.9)
+    classes = wavernn_sample(packed, cond, **skw)
+    part = wavernn_sample(packed, cond[3:].contiguous(), row0=3, **skw)
+    assert torch.equal(part, classes[3:])
+    assert float(score_gaps(packed, cond[3:], part, row0=3, **skw).max()) <= 1e-4
+
+
 def _entry_point_call(name, dev, grad):
     """A call of kernel entry point ``name`` on small CUDA inputs, one of
     which requires grad when ``grad``."""

@@ -21,7 +21,11 @@ card:
   (no CTA reads what another CTA of its launch writes);
 - resuming: two emulated launcher calls on one carried workspace (the
   second skipping the prologue, its dropout keyed by the global step) give
-  the bits of one call, both branches, dropout on and off.
+  the bits of one call, both branches, dropout on and off;
+- ``row0``: a shard's Philox draw (``stream_uniforms``, ``dropout_uniforms``,
+  ``prenet_keep``) is those rows of the whole batch's at row0 0, bit for
+  bit, and its plain decodes (AR and teacher-forced, dropout on) within
+  1e-5.
 """
 
 import numpy as np
@@ -426,3 +430,48 @@ def test_emulation_resumes_from_a_carried_workspace(kind, r, cumulative, use_dro
     assert carry["step"] == 6
     for x, y in zip(two, one):
         torch.testing.assert_close(x, y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("row0,b", [(2, 3), (7, 1)])
+def test_stream_rows_from_row0_are_the_whole_batchs_rows(row0, b):
+    """A shard's draw from row ``row0`` is rows row0 .. row0 + b of the draw
+    over the whole batch (numpy and torch twins, the prenet streams)."""
+    from gst_tacotron_tpu_torch.ops.philox import stream_uniforms
+
+    whole = row0 + b + 2
+    for layer, units in ((0, 13), (1, 8)):
+        full = D.dropout_uniforms(11, 5, layer, whole, units)
+        np.testing.assert_array_equal(D.dropout_uniforms(11, 5, layer, b, units, row0),
+                                      full[:, row0: row0 + b])
+        got = stream_uniforms(11, torch.arange(5), layer, b, units, row0)
+        np.testing.assert_array_equal(got.numpy(), full[:, row0: row0 + b])
+    keep = D.prenet_keep(11, 5, whole, 13, 8, 0.5, "cpu")
+    mine = D.prenet_keep(11, 5, b, 13, 8, 0.5, "cpu", row0=row0)
+    for k, m in zip(keep, mine):
+        assert torch.equal(m, k[:, row0: row0 + b])
+
+
+@pytest.mark.parametrize("kind,r,cumulative", [("bahdanau", 2, False),
+                                               ("location_sensitive", 3, True)])
+def test_plain_decodes_of_a_shard_are_the_whole_batchs_rows(kind, r, cumulative):
+    """``decode_scan_plain`` and ``teacher_forced_scan`` of rows 2..4 at
+    ``row0=2``, dropout on, give those rows of the decode of all five rows
+    at row0 0 (a data-parallel rank's rows), within 1e-5: the masks are the
+    same bits, and the products over three rows round apart from those over
+    five by an ulp."""
+    packed, memory, keys, lengths, dec, attn, nm = odd_case(kind, r, cumulative, 5, "ragged")
+    kw = dict(dec_cfg=dec, attn_cfg=attn, num_mels=nm, seed=11, use_dropout=True)
+    full = D.decode_scan_plain(packed, memory, keys, lengths, steps=4, **kw)
+    part = D.decode_scan_plain(packed, memory[2:], keys[2:], lengths[2:], steps=4, row0=2,
+                               **kw)
+    for x, y in zip(part, full):
+        torch.testing.assert_close(x, y[2:], atol=1e-5, rtol=0)
+    shifted = D.decode_scan_plain(packed, memory[2:], keys[2:], lengths[2:], steps=4, **kw)
+    assert float((shifted[0] - full[0][2:]).abs().max()) > 1e-2   # row0 0: other masks
+    targets = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (5, 4 * r, nm)).astype(np.float32))
+    tf = D.teacher_forced_scan(packed, memory, keys, lengths, targets, **kw)
+    tf_part = D.teacher_forced_scan(packed, memory[2:], keys[2:], lengths[2:], targets[2:],
+                                    row0=2, **kw)
+    for x, y in zip(tf_part, tf):
+        torch.testing.assert_close(x, y[2:], atol=1e-5, rtol=0)

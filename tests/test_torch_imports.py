@@ -3,8 +3,9 @@ location-sensitive decode, the WaveRNN vocoder, the training-corpus path: a
 pattern run and a loader batch in both transports, and the trainers: a
 seq2seq step with its checkpoint and a vocoder step; the synthesis entry
 points: the chunked decode, the bench's workload, the parity harness and
-the synthesize CLI on the trainers' workdirs), and no file of the port (nor
-chip_smoke.py) imports jax or the JAX package."""
+the synthesize CLI on the trainers' workdirs; the parallel subpackage: its
+mesh, sharding rules and ``DistributedSynthesizer`` on a one-rank mesh), and
+no file of the port (nor chip_smoke.py) imports jax or the JAX package."""
 
 import ast
 import os
@@ -96,6 +97,15 @@ def test_port_imports_and_runs_with_jax_blocked():
         "parity.save_fixture(pd + '/f.npz', 'blocked jax.', out['mel'][0])\n"
         "assert len(parity.run_parity(Synthesizer(one, build_model(one, seed=0, device='cpu'),\n"
         "    device='cpu'), pd)) == 1\n"
+        "from gst_tacotron_tpu_torch.parallel import (DistributedSynthesizer,\n"
+        "    describe_sharding, make_mesh, place_state, process_data_shard, shard_params,\n"
+        "    state_shardings)\n"
+        "assert process_data_shard(make_mesh(2, ranks=range(4)), 2) == (1, 2)\n"
+        "m = build_model(cfg, seed=0, device='cpu')\n"
+        "assert sum('model' in v for v in describe_sharding(dict(m.named_parameters()))\n"
+        "           .values()) == 8\n"
+        "ds = DistributedSynthesizer(cfg, m, make_mesh(1), device='cpu')\n"
+        "assert ds.synthesize(['blocked jax.'], max_steps=2)['mel'].shape == (1, 4, 80)\n"
         "assert 'gst_tacotron_tpu' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

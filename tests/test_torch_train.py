@@ -11,7 +11,9 @@ bucket of 320 frames to keep the CPU loops short), plus:
   gives the wav-transport step's losses bit for bit;
 * a train step with every kernel entry point patched to raise still runs:
   the train path reaches no kernel;
-* with no card, ``Trainer`` and ``VocoderTrainer`` without a device raise.
+* with no card, ``Trainer`` and ``VocoderTrainer`` without a device raise;
+* the train CLI's multi-process flags parse, and a mesh that cannot hold
+  the run is refused (tests/test_torch_parallel_*.py run the ranks).
 """
 
 import copy
@@ -28,8 +30,9 @@ from gst_tacotron_tpu_torch.checkpoint import CheckpointManager
 from gst_tacotron_tpu_torch.config import OptimizerConfig, apply_overrides, load_config
 from gst_tacotron_tpu_torch.data import PatternDataset, generate_patterns, synthetic_utterances
 from gst_tacotron_tpu_torch.synthesize import Synthesizer
+from gst_tacotron_tpu_torch.parallel import make_mesh
 from gst_tacotron_tpu_torch.train import (Trainer, _materialize_features, corpus_batch,
-                                          main, make_schedule, train_step)
+                                          main, make_schedule, parser, train_step)
 from gst_tacotron_tpu_torch.vocoder_train import VocoderSegmentLoader, VocoderTrainer
 
 from tests.test_train_smoke import small_cfg
@@ -202,11 +205,22 @@ def test_trainers_without_a_device_raise(cfg, pattern_dir, tmp_path):
         VocoderTrainer(voc, pattern_dir, str(tmp_path / "v"), segment_frames=8, batch_size=2)
 
 
-def test_cli_refuses_parallel_flags(pattern_dir, tmp_path, capsys):
-    with pytest.raises(SystemExit):
+def test_cli_refuses_parallel_flags(cfg, pattern_dir, tmp_path):
+    """The multi-process flags parse; what the mesh cannot hold is refused:
+    a model axis that does not divide the ranks, and a batch that does not
+    divide the data axis (the JAX CLI drops the mesh there instead)."""
+    args = parser().parse_args(["--patterns", "p", "--workdir", "w", "--coordinator",
+                                "localhost:1234", "--num-processes", "2", "--process-id",
+                                "1", "--model-parallelism", "2"])
+    assert (args.coordinator, args.num_processes, args.process_id,
+            args.model_parallelism) == ("localhost:1234", 2, 1, 2)
+    with pytest.raises(ValueError, match="model_parallelism=2 does not divide 1 ranks"):
         main(["--patterns", pattern_dir, "--workdir", str(tmp_path), "--device", "cpu",
               "--model-parallelism", "2"])
-    assert "ROADMAP A15" in capsys.readouterr().err
+    odd = apply_overrides(cfg, {"data.batch_size": 3})
+    with pytest.raises(ValueError, match="does not divide over the mesh's data axis"):
+        Trainer(odd, pattern_dir, str(tmp_path / "w"), device="cpu",
+                mesh=make_mesh(1, ranks=[0, 1]))
 
 
 def test_profile_window_writes_a_trace(cfg, pattern_dir, tmp_path):

@@ -279,3 +279,29 @@ def test_warp_products_reduce_scatter_covers_each_output_once():
     assert sorted(idx[even]) == list(range(16))
     np.testing.assert_allclose(a[even], part.sum(0)[idx[even]], rtol=1e-12)
     np.testing.assert_array_equal(a[even], a[lane[even] ^ 1])
+
+
+def test_a_shards_samples_are_the_whole_batchs_rows():
+    """``row0``: the Gumbel stream from row ``row0`` is those rows of the
+    whole batch's (numpy and torch), and the plain sampler and
+    ``score_gaps`` of rows 1..2 at ``row0=1`` give those rows of the call on
+    all three rows (a data-parallel rank's rows)."""
+    steps = np.arange(12)
+    full = twavernn.gumbel_uniforms(7, steps, 4, 256)
+    np.testing.assert_array_equal(twavernn.gumbel_uniforms(7, steps, 2, 256, row0=1),
+                                  full[:, 1:3])
+    np.testing.assert_array_equal(
+        twavernn.gumbel_uniforms(7, torch.arange(12), 2, 256, row0=1).numpy(), full[:, 1:3])
+    _, _, model, mel = build(t_frames=3, batch=3)
+    packed = model.pack()
+    with torch.no_grad():
+        cond = model.cond_frames(torch.from_numpy(mel))
+        kw = dict(hop=CFG_KW["wavernn_hop"], seed=5, temperature=0.7)
+        whole = twavernn.wavernn_sample_plain(packed, cond, **kw)
+        part = twavernn.wavernn_sample_plain(packed, cond[1:], row0=1, **kw)
+        assert torch.equal(part, whole[1:])
+        assert not torch.equal(twavernn.wavernn_sample_plain(packed, cond[1:], **kw), whole[1:])
+        gaps = twavernn.score_gaps(packed, cond, whole, **kw)
+        gaps_part = twavernn.score_gaps(packed, cond[1:], part, row0=1, **kw)
+        torch.testing.assert_close(gaps_part, gaps[1:], atol=1e-5, rtol=0)
+        assert float(gaps.abs().max()) < 1e-5
