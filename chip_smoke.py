@@ -78,11 +78,27 @@ Phases, each of which exits non-zero on failure:
    ``chunks_run`` agreed, dp=2 and tp=2 train steps within 1e-5 relative,
    the tp=2 ranks' replicated parameters and buffers bit-equal after 4
    steps, K5 at dp=2 the single-process classes, each rank's launch counts), and
-   the dp=2 checks over NCCL where there are two cards.
+   the dp=2 checks over NCCL where there are two cards;
+11. taco2 (after the three paths): gst_lj with ``model.encoder.kind=taco2``
+   (embedding 256, three 5-tap 256-channel convs with BatchNorm, BiGRU
+   2 x 128) through ``run_path`` at the gst_lj path's workload (K1 3, K2 1,
+   K3 4, K4 1 counted, the mel within 2e-3 of the plain path, stage
+   times); the encoder alone launches K1 once (counted), K1 at its BiGRU's
+   shape against its plain scans, timed beside cuDNN and its bound; one
+   taco2 train step on the card against the CPU at the CPU tests' widths;
+12. jax_export (after the CLI phase): tests/fixtures/jax_export, a JAX
+   workdir exported by tools/export_jax_workdir.py, served by the
+   synthesize CLI (K1-K4 counted), its mel within 2e-3 of the stored JAX
+   CPU mel, and resumed by ``Trainer`` for step 3 against the stored JAX
+   step (1e-4 relative);
+13. train bench (last): ``bench --train-bench``'s function, cut to 3 timed
+   steps a transport, its line with the card.
 
 It prints one JSON line per kernel check, per path and per training run
 (``{"train": ...}``), per chunked, bf16 and CLI run, the parallel phase's
-``{"parallel": ...}``, the bench's two lines,
+``{"parallel": ...}``, the taco2 phase's ``{"taco2": ...}``, the
+``{"jax_export": ...}`` line, the bench's two lines, the ``{"train_bench":
+...}`` line,
 one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``.
 
@@ -1608,10 +1624,11 @@ def small_train_batch(rng, cfg, b=4, t_text=24, t_mel=64):
             "speaker_ids": np.zeros(b, np.int32)}
 
 
-def check_train_card_vs_cpu(torch, dev):
-    """One train step of gst_lj at the CPU tests' widths (dropout off, the
-    constant schedule at lr 1e-3 of tests/test_torch_train_parity.py) on the
-    card (TF32 off) and on the CPU, from the same weights and batch."""
+def check_train_card_vs_cpu(torch, dev, overrides=None, label="gst_lj"):
+    """One train step of gst_lj (with ``overrides``) at the CPU tests'
+    widths (dropout off: the prenets' and a Taco2 conv stack's; the constant
+    schedule at lr 1e-3 of tests/test_torch_train_parity.py) on the card
+    (TF32 off) and on the CPU, from the same weights and batch."""
     import copy
 
     from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
@@ -1621,9 +1638,12 @@ def check_train_card_vs_cpu(torch, dev):
     cfg = apply_overrides(get_preset("gst_lj"), {
         **SMALL_WIDTHS, "model.encoder.prenet_dropout": 0.0,
         "model.decoder.prenet_dropout": 0.0, "optimizer.schedule": "constant",
-        "optimizer.learning_rate": 1e-3})
+        "optimizer.learning_rate": 1e-3, **(overrides or {})})
     batch = small_train_batch(np.random.default_rng(11), cfg)
     cpu_model = build_model(cfg, seed=5, device="cpu")
+    if hasattr(cpu_model.encoder, "convs"):
+        # the card's and the CPU's generators draw different masks
+        cpu_model.encoder.convs.dropout_rate = 0.0
     card_model = copy.deepcopy(cpu_model).to(dev)
     res = {}
     for name, model, d in (("cpu", cpu_model, "cpu"), ("card", card_model, dev)):
@@ -1638,7 +1658,7 @@ def check_train_card_vs_cpu(torch, dev):
     grad_rel = max(float((gg[k] - gc[k]).abs().max() / max(float(gc[k].abs().max()), 1e-30))
                    for k in gc)
     param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
-    info = {"config": "gst_lj at the CPU tests' widths", "transport": "card vs CPU, one step",
+    info = {"config": f"{label} at the CPU tests' widths", "transport": "card vs CPU, one step",
             "loss_max_rel_err": loss_rel, "grad_max_err_rel_to_max": grad_rel,
             "param_max_abs_err": param_err, "tol": TRAIN_TOL, "grad_tol": GRAD_TOL,
             "loss": mg["loss"]}
@@ -1705,6 +1725,224 @@ def run_train_phase(torch, dev, corpus_dir, work):
     run_vocoder_train(torch, dev, corpus_dir, f"{work}/voc")
     log(f"vocoder train done in {time.perf_counter() - t0:.1f} s; train phase "
         f"{time.perf_counter() - t_train:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the taco2 encoder, JAX workdirs exported into the port, the train bench
+# ---------------------------------------------------------------------------
+
+TACO2 = {"model.encoder.kind": "taco2"}
+
+
+def taco2_encoder_k1(torch, dev, model, tok, tok_len):
+    """K1 on the Taco2 encoder's BiGRU (B=32, T=64, D=256 -> 2 x 128, one
+    launch, the model's seeded weights, the path's token lengths): error
+    against the plain scans, kernel / plain / cuDNN times, device time by
+    phase (the mean of 10 profiled calls), and its bound."""
+    from gst_tacotron_tpu_torch.ops.gru import bigru_scan, gru_scan_plain
+
+    with torch.no_grad():
+        x = model.encoder.convs(model.encoder.embedding(tok), tok_len)
+    g = model.encoder.bigru
+    h = g.fwd.features
+    d = x.shape[-1]
+    dirs = [(torch.zeros(B, h, device=dev), m.kernel.detach(), m.bias.detach(),
+             m.recurrent_kernel.detach(), m.recurrent_bias.detach()) for m in (g.fwd, g.bwd)]
+
+    def kernel():
+        return bigru_scan(x, *dirs, lengths=tok_len)
+
+    def plain():
+        f = gru_scan_plain(x, *dirs[0], lengths=tok_len)
+        b = gru_scan_plain(x, *dirs[1], lengths=tok_len, reverse=True)
+        return torch.cat([f[0], b[0]], -1), (f[1], b[1])
+
+    got, ref = kernel(), plain()
+    err = max_err([got[0], *got[1]], [ref[0], *ref[1]])
+    reorder = lambda w: torch.cat([w[..., h:2 * h], w[..., :h], w[..., 2 * h:]], -1)
+    lib = torch.nn.GRU(d, h, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for sfx, (_, wi, bi, wh, bh) in zip(("", "_reverse"), dirs):
+            getattr(lib, "weight_ih_l0" + sfx).copy_(reorder(wi).T)
+            getattr(lib, "weight_hh_l0" + sfx).copy_(reorder(wh).T)
+            getattr(lib, "bias_ih_l0" + sfx).copy_(reorder(bi))
+            getattr(lib, "bias_hh_l0" + sfx).copy_(reorder(bh))
+    h0 = torch.zeros(2, B, h, device=dev)
+
+    def library():
+        with torch.no_grad():
+            lib(x, h0)
+
+    t = x.shape[1]
+    flops = 2 * 2.0 * B * t * (d + h) * 3 * h
+    nbytes = 4.0 * (B * t * d + B + 2 * (B * t * h + 2 * B * h + (d + h + 2) * 3 * h))
+    b_ms, b_by = bound(flops, nbytes)
+    # device time by phase, over 10 calls in one profile (one call's events
+    # were lost twice in a row); None where the profiler saw none
+    reps = 10
+    phases = {}
+    for _ in range(3):
+        phases = kernel_device_ms(torch, lambda: [kernel() for _ in range(reps)],
+                                  {"input_gemm_ms": "gru_input_gemm",
+                                   "recurrence_ms": "gru_recur_kernel"})
+        if phases["recurrence_ms"] > 0:
+            break
+    phases = {k: v / reps if v > 0 else None for k, v in phases.items()}
+    return {"shape": f"B={B}, T={t}, D={d} -> 2 x {h}", "max_abs_err": err, "tol": 1e-4,
+            "kernel_ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, iters=2),
+            "library_ms": time_ms(torch, library), "bound_ms": b_ms, "bound_by": b_by,
+            **phases,
+            "library": "torch.nn.GRU (cuDNN), bidirectional, full length (the path's rows "
+                       "are ragged: the library computes more than the kernel)"}
+
+
+def run_taco2(torch, dev, cfg, expected):
+    """gst_lj with ``model.encoder.kind=taco2`` at its widths (embedding
+    256, three 5-tap 256-channel convs with BatchNorm, BiGRU 2 x 128; the
+    rest at gst_lj's), seeded weights, the gst_lj path's workload
+    (``run_path``: B=32 texts of 64 tokens, 32 reference wavs of 128 frames,
+    200 steps, stop threshold 1.0, Griffin-Lim; K1 3, K2 1, K3 4, K4 1
+    counted; the mel within 2e-3 of the plain path; stage times); the
+    encoder alone: one K1 launch for its BiGRU (counted), K1 at its shape;
+    one taco2 train step on the card against the CPU at the CPU tests'
+    widths. Returns the path's launch counts."""
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.text import batch_text_to_ids
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    cfg2 = apply_overrides(cfg, TACO2)
+    counts = run_path(torch, np.random.default_rng(12), dev, "gst_lj taco2", cfg2, expected)
+    model = build_model(cfg2, seed=0, device=dev)
+    texts, _ = make_inputs(np.random.default_rng(13), cfg2.audio.sample_rate)
+    ids, lens = batch_text_to_ids(texts)
+    tok = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    tok_len = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        enc = model.encoder(tok, tok_len)
+        torch.cuda.synchronize()
+        enc_counts = nonzero_counts(ops)
+        enc_err = float((enc - model.encoder(tok, tok_len, plain=True)).abs().max())
+        enc_ms = time_ms(torch, lambda: model.encoder(tok, tok_len))
+        enc_plain_ms = time_ms(torch, lambda: model.encoder(tok, tok_len, plain=True), iters=2)
+    info = {"name": "gst_lj taco2 encoder", "batch": B, "text_tokens": int(tok.shape[1]),
+            "encoder_launches": enc_counts, "encoder_max_abs_err_vs_plain": enc_err,
+            "encoder_ms": enc_ms, "encoder_plain_ms": enc_plain_ms,
+            "k1_encoder_bigru": taco2_encoder_k1(torch, dev, model, tok, tok_len)}
+    print(json.dumps({"taco2": info}), flush=True)
+    if enc_counts != {"gru_scan": 1}:
+        fail(f"taco2: the encoder launched {enc_counts}, expected one gru_scan")
+    k1 = info["k1_encoder_bigru"]
+    if not (enc_err <= 1e-4 and k1["max_abs_err"] <= k1["tol"]):
+        fail(f"taco2: the encoder's K1 differs from its plain scans: {enc_err}, "
+             f"{k1['max_abs_err']}")
+    check_train_card_vs_cpu(torch, dev, TACO2, "gst_lj taco2")
+    return counts
+
+
+def fixture_dir(name: str) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", name)
+
+
+def run_jax_export(torch, dev, work):
+    """tests/fixtures/jax_export (a tiny gst_lj state trained 2 steps by the
+    JAX package and exported by tools/export_jax_workdir.py, with the JAX
+    CPU outputs beside it) on the card: the synthesize CLI serves it (its
+    wavs, K1-K4 counted); the ``Synthesizer`` restored as the CLI restores
+    it gives the stored JAX mel within 2e-3 (``deterministic_prenet=True``,
+    equal frame lengths); ``Trainer`` resumes it at step 2 and takes step 3,
+    its losses against the JAX ``Trainer``'s stored step 3 (1e-4 relative,
+    tests/test_torch_train_parity.py's step budget)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from scipy.io import wavfile
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.checkpoint import CheckpointManager
+    from gst_tacotron_tpu_torch.config import load_config
+    from gst_tacotron_tpu_torch.data import generate_patterns, synthetic_utterances
+    from gst_tacotron_tpu_torch.synthesize import Synthesizer
+    from gst_tacotron_tpu_torch.synthesize import main as synthesize_main
+    from gst_tacotron_tpu_torch.train import Trainer
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    src = fixture_dir("jax_export")
+    exp = dict(np.load(os.path.join(src, "expected.npz")))
+    wd = os.path.join(work, "jax_export")
+    shutil.copytree(src, wd)
+    cfg = load_config(os.path.join(wd, "config.json"))
+    texts = [str(t) for t in exp["texts"]]
+    ref_path = os.path.join(work, "jax_export_ref.wav")
+    wavfile.write(ref_path, cfg.audio.sample_rate, exp["ref_wav"])
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        paths = synthesize_main(["--workdir", wd, "--out", os.path.join(work, "jax_export_out"),
+                                 "--reference-wavs", ref_path, ref_path, "--texts", *texts])
+    torch.cuda.synchronize()
+    cli_counts = nonzero_counts(ops)
+    wavs = [p for p in paths if p.endswith(".wav")]
+
+    saved = CheckpointManager(os.path.join(wd, cfg.train.checkpoint_dir)).restore(
+        map_location=dev)
+    model = build_model(cfg, seed=0, device=dev)
+    model.load_state_dict(saved["model"])
+    out = Synthesizer(cfg, model, device=dev, deterministic_prenet=True)(
+        texts, reference_wavs=[exp["ref_wav"]] * 2, seed=0)
+    mel_err = float(np.abs(out["mel"] - exp["mel"]).max())
+
+    patterns = os.path.join(work, "jax_export_patterns")
+    generate_patterns(synthetic_utterances(8, num_speakers=1), cfg.audio, patterns)
+    trainer = Trainer(cfg, patterns, wd, device=dev)
+    resumed = trainer.restore_if_available() and trainer.state.step == 2
+    trainer.train(3)
+    last = [json.loads(x) for x in open(os.path.join(wd, "logs", "metrics.jsonl"))][-1]
+    loss_rel = {str(n): abs(last[f"train/{n}"] - float(v)) / abs(float(v))
+                for n, v in zip(exp["next_loss_names"], exp["next_losses"])}
+    info = {"name": "jax_export", "fixture": "tests/fixtures/jax_export",
+            "cli_wavs": len(wavs), "cli_launches": cli_counts,
+            "cli_printed": printed.getvalue().strip().splitlines()[:1],
+            "mel_max_abs_err_vs_jax": mel_err, "mel_tol": 2e-3,
+            "frame_lengths": out["frame_lengths"].tolist(),
+            "jax_frame_lengths": exp["frame_lengths"].tolist(),
+            "resumed_at_step_2": bool(resumed), "step_after": trainer.state.step,
+            "step3_rel_err_vs_jax": loss_rel, "step3_tol": 1e-4}
+    print(json.dumps({"jax_export": info}), flush=True)
+    if len(wavs) != 2:
+        fail(f"jax_export: the CLI wrote {paths}")
+    for k in ("gru_scan", "refenc_stack", "stft_features", "decode_scan"):
+        if not cli_counts.get(k):
+            fail(f"jax_export: the CLI launched {cli_counts}, no {k}")
+    if not (mel_err <= 2e-3 and info["frame_lengths"] == info["jax_frame_lengths"]):
+        fail(f"jax_export: the mel differs from the stored JAX mel by {mel_err} > 2e-3 or "
+             f"the frame lengths differ")
+    if not (resumed and trainer.state.step == 3 and max(loss_rel.values()) <= 1e-4):
+        fail(f"jax_export: the resumed step: {info}")
+
+
+TRAIN_BENCH_STEPS = 3
+
+
+def run_train_bench(torch, card):
+    """``python -m gst_tacotron_tpu_torch.bench --train-bench``'s function
+    (``bench.py --train-bench``'s workload: gst_lj, 8 x 64 tokens x 400
+    frames, fresh host batches, the three transports) cut to
+    ``TRAIN_BENCH_STEPS`` timed steps a transport (its default 15)."""
+    from gst_tacotron_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    line = bench.train_bench_line(TRAIN_BENCH_STEPS)
+    print(json.dumps({"train_bench": line, "card": card,
+                      "cut": f"{TRAIN_BENCH_STEPS} timed steps a transport, not "
+                             f"{bench.TRAIN_STEPS}"}), flush=True)
+    if not all(np.isfinite(r["loss"]) and r["ms_per_step"] > 0 for r in line["rows"]):
+        fail(f"train bench: {line}")
+    log(f"train bench done in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2350,6 +2588,9 @@ def main() -> None:
                 r["launches"] = counts[r["name"]]
         log(f"{name} path done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    run_taco2(torch, dev, cfg, taco)
+    log(f"taco2 phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     run_chunked(torch, dev, cfg, apply_overrides(cfg3, {"model.decoder.max_decode_steps": 256}))
     log(f"chunked phase done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2369,7 +2610,11 @@ def main() -> None:
         t0 = time.perf_counter()
         run_cli(torch, dev, work)
         log(f"CLI phase done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_jax_export(torch, dev, work)
+        log(f"jax_export phase done in {time.perf_counter() - t0:.1f} s")
     run_bench(torch, card)
+    run_train_bench(torch, card)
     for r in kernels:
         if "launches" not in r:
             fail(f"{r['name']}: no path launched it")

@@ -11,9 +11,10 @@ The workload is ``bench.py::build``'s: ``gst_lj`` at its published widths,
 threshold 1.0 (every step decodes, as a trained model near its length);
 B = 32 texts of 64 random token ids in [2, 40) and a random 128-frame
 reference mel, drawn in ``bench.py``'s order from ``default_rng(0)`` (so
-both benches see the same arrays); seeded random weights, or a port trainer
-workdir's latest checkpoint with ``--checkpoint`` (then the workdir's config
-with its own stop threshold and its ``eval_sentences``).
+both benches see the same arrays); seeded random weights, or a trainer
+workdir's latest checkpoint with ``--checkpoint`` (the port's, or a JAX
+workdir exported by ``tools/export_jax_workdir.py``; then the workdir's
+config with its own stop threshold and its ``eval_sentences``).
 
 ``bench_fused`` times what ``bench.py::bench_fused`` times: the style
 through ``ops/refenc.py::gst_style_from_params`` (K2, K1), ``GSTTacotron
@@ -439,12 +440,124 @@ def scaling_line(device: str, steps: int) -> Dict[str, Any]:
     return {"metric": "weak_scaling_efficiency", "rows": rows, "device": kind, "note": note}
 
 
+# bench.py::bench_train's workload: gst_lj, 8 rows of 64 tokens and 400 frames
+TRAIN_BATCH, TRAIN_T_TEXT, TRAIN_T_MEL, TRAIN_STEPS = 8, 64, 400, 15
+TRANSPORTS = ("features", "wav", "corpus")
+CORPUS_ROWS = 64
+
+
+def train_bench_wire(cfg: Config, transport: str, batch: int, t_text: int, t_mel: int
+                     ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], np.random.Generator]:
+    """(feature batch, wire batch, the generator after them):
+    ``bench.py::bench_train``'s arrays, drawn in its order from
+    ``default_rng(0)``; the wire is the feature batch (``features``) or the
+    float16 wav + int32 block of the wav transport (``wav``, ``corpus``)."""
+    rng = np.random.default_rng(0)
+    a = cfg.audio
+    feat = {
+        "tokens": rng.integers(2, 40, (batch, t_text)).astype(np.int32),
+        "token_lengths": np.full((batch,), t_text, np.int32),
+        "mel": rng.random((batch, t_mel, cfg.model.num_mels), np.float32),
+        "mel_lengths": np.full((batch,), t_mel, np.int32),
+        "linear": rng.random((batch, t_mel, cfg.model.num_freq), np.float32),
+        "speaker_ids": np.zeros((batch,), np.int32),
+    }
+    if transport == "features":
+        return feat, feat, rng
+    sig_len = (t_mel - 1) * a.hop_length + a.n_fft
+    ints = np.zeros((batch, t_text + 4), np.int32)
+    ints[:, :t_text] = feat["tokens"]
+    ints[:, t_text] = t_text
+    ints[:, t_text + 1] = t_mel
+    ints[:, t_text + 2] = t_mel
+    wire = {"wav": (rng.standard_normal((batch, sig_len)) * 0.05).astype(np.float16),
+            "ints": ints}
+    return feat, wire, rng
+
+
+def bench_train(transport: str, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+                t_text: int = TRAIN_T_TEXT, t_mel: int = TRAIN_T_MEL, device=None,
+                overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Train-step time of one batch transport, as ``bench.py::bench_train``
+    measures it: the seeded gst_lj state, one untimed step, then ``steps``
+    steps each fed a FRESH host batch (one element perturbed a copy), the
+    loss of the last fetched once at the end (every step feeds the next).
+    ``features``: the 6-tensor float32 feature batch; ``wav``: the float16
+    wav + int32 wire, features computed in the step
+    (``train._materialize_features``); ``corpus``: a 64-row corpus resident
+    on the device, a fresh (B,) index a step. ``overrides`` cut the model
+    (the CPU tests)."""
+    from .train import init_state, make_optimizer, train_step, train_step_device_corpus
+
+    dev = resolve_device(device)
+    cfg = apply_overrides(get_preset("gst_lj"), {
+        **(overrides or {}), "data.wav_transport": transport in ("wav", "corpus"),
+        "data.batch_size": batch})
+    _, wire, rng = train_bench_wire(cfg, transport, batch, t_text, t_mel)
+    bytes_per_batch = batch * 4 if transport == "corpus" else sum(
+        v.nbytes for v in wire.values())
+    _, state = init_state(cfg, dev)
+    tx = make_optimizer(cfg.optimizer)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    if transport == "corpus":
+        c_wav, c_ints = (torch.from_numpy(np.concatenate([wire[k]] * (CORPUS_ROWS // batch)))
+                         .to(dev) for k in ("wav", "ints"))
+        sig_len = wire["wav"].shape[1]
+
+        def step(idx):
+            return train_step_device_corpus(tx, cfg, t_text, sig_len, t_text, state, c_wav,
+                                            c_ints, torch.from_numpy(idx).to(dev))
+        first = np.arange(batch, dtype=np.int64)
+        timed = [rng.integers(0, CORPUS_ROWS, batch).astype(np.int64) for _ in range(steps)]
+    else:
+        def step(b):
+            return train_step(tx, cfg, state, to_dev(b))
+        first = wire
+        timed = []
+        for i in range(steps):
+            b = {k: v.copy() for k, v in wire.items()}
+            (b["wav"] if "wav" in b else b["mel"])[0, 0] = i * 1e-3
+            timed.append(b)
+    t0 = time.perf_counter()
+    float(step(first)["loss"])
+    log(f"train[{transport}] first step {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for b in timed:
+        metrics = step(b)
+    loss = float(metrics["loss"])        # the sync point: every step feeds the next
+    dt = (time.perf_counter() - t0) / steps
+    log(f"train[{transport}]: {dt * 1e3:.1f} ms/step, loss {loss:.4f}")
+    return {"transport": transport, "ms_per_step": dt * 1e3, "steps_per_sec": 1.0 / dt,
+            "wire_mb_per_batch": bytes_per_batch / 1e6,
+            "arg_buffers": 1 if transport == "corpus" else len(wire), "batch": batch,
+            "t_mel_frames": t_mel, "steps": steps, "loss": loss}
+
+
+def train_bench_line(steps: int = TRAIN_STEPS, device=None,
+                     overrides: Optional[Dict[str, Any]] = None, **shape) -> Dict[str, Any]:
+    """The ``--train-bench`` line: ``bench.py``'s ``train_ms_per_step``
+    (the wav transport's ms a step) with a row per transport.
+    ``vs_baseline`` is this run's features-transport time over its
+    wav-transport time, the ratio the JAX bench prints from its own two
+    rows; no TPU number enters it."""
+    rows = [bench_train(t, steps, device=device, overrides=overrides, **shape)
+            for t in TRANSPORTS]
+    dev = resolve_device(device)
+    return {"metric": "train_ms_per_step", "value": rows[1]["ms_per_step"],
+            "unit": "ms/step (wav transport)",
+            "vs_baseline": rows[0]["ms_per_step"] / rows[1]["ms_per_step"],
+            "baseline": "the features transport's ms a step, this run",
+            "rows": rows,
+            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Synthesis throughput of the PyTorch port")
     p.add_argument("--quick", action="store_true", help="smaller workload (50 steps)")
     p.add_argument("--batch", type=int, default=32)
-    p.add_argument("--checkpoint", help="a port trainer workdir: bench the trained model "
-                                        "with real stop-token termination")
+    p.add_argument("--checkpoint", help="a trainer workdir (the port's, or an exported JAX "
+                                        "one): bench the trained model with real "
+                                        "stop-token termination")
     p.add_argument("--config5", action="store_true",
                    help="also time the WaveRNN pipeline (K5), into --details")
     p.add_argument("--vocoder-workdir", help="vocoder_train workdir for --config5")
@@ -452,13 +565,25 @@ def main(argv=None) -> None:
     p.add_argument("--scaling", action="store_true",
                    help="measure the weak scaling of the data-parallel train step instead")
     p.add_argument("--device", default=None,
-                   help="with --scaling: 'cpu' runs gloo processes on the CPU")
-    p.add_argument("--steps", type=int, default=3, help="with --scaling: timed steps")
+                   help="with --scaling: 'cpu' runs gloo processes on the CPU; with "
+                        "--train-bench: the device (default cuda)")
+    p.add_argument("--steps", type=int, help="with --scaling (default 3) or --train-bench "
+                                              f"(default {TRAIN_STEPS}): timed steps")
+    p.add_argument("--train-bench", action="store_true",
+                   help="train-step time per batch transport (features, wav, corpus) "
+                        "instead; prints one JSON line")
     args = p.parse_args(argv)
     if args.batch < 1:
         p.error(f"--batch {args.batch}: must be >= 1")
+    if args.train_bench:
+        line = train_bench_line(args.steps or TRAIN_STEPS, device=args.device)
+        if args.details:
+            with open(args.details, "w") as f:
+                json.dump(line, f, indent=2)
+        print(json.dumps(line))
+        return
     if args.scaling:
-        print(json.dumps(scaling_line(args.device or "cuda", args.steps)))
+        print(json.dumps(scaling_line(args.device or "cuda", args.steps or 3)))
         return
     result, details = run(args)
     if args.details:

@@ -79,6 +79,18 @@ def _dft_bases_np(cfg: AudioConfig) -> Tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(fwd[sl]), np.ascontiguousarray(inv[:, sl])
 
 
+def frame_indices(num_samples: int, n_fft: int, hop: int) -> np.ndarray:
+    """(T, n_fft) sample indices of the frames of a ``num_samples`` signal,
+    T = 1 + (num_samples - n_fft) // hop."""
+    num_frames = 1 + (num_samples - n_fft) // hop
+    return np.arange(num_frames)[:, None] * hop + np.arange(n_fft)[None, :]
+
+
+def num_frames_for(num_samples: int, cfg: AudioConfig) -> int:
+    """Frame count for a center-padded signal of ``num_samples`` samples."""
+    return 1 + num_samples // cfg.hop_length
+
+
 class TorchDSP:
     """DSP ops for one AudioConfig on one device."""
 
@@ -238,6 +250,12 @@ class TorchDSP:
         total = cfg.n_fft + hop * (t - 1)
         out = out.reshape(b, total) / self._win_norm(t)
         return out[:, cfg.n_fft // 2: total - cfg.n_fft // 2]
+
+    def istft(self, spect: torch.Tensor) -> torch.Tensor:
+        """Complex (B, T, F) -> (B, hop * (T - 1)): ``istft_ri`` of its real
+        and imaginary parts (the function of both of ``JaxDSP.istft``'s
+        routes)."""
+        return self.istft_ri(spect.real, spect.imag)
 
     def griffin_lim(self, magnitude: torch.Tensor,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:

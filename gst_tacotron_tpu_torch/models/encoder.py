@@ -1,4 +1,6 @@
-"""Text encoder (counterpart of ``gst_tacotron_tpu/models/encoder.py``)."""
+"""Text encoders (counterparts of ``gst_tacotron_tpu/models/encoder.py``):
+``Taco1Encoder`` (prenet + CBHG) and ``Taco2Encoder`` (conv stack + BiGRU),
+the ``model.encoder.kind`` switch."""
 
 from __future__ import annotations
 
@@ -8,7 +10,8 @@ import torch
 from torch import nn
 
 from ..config import EncoderConfig
-from .modules import CBHG, Embed, Prenet, mask_sequence
+from .modules import CBHG, Conv1dBNStack, Embed, Prenet, mask_sequence
+from .rnn import BiGRU
 
 
 class Taco1Encoder(nn.Module):
@@ -31,3 +34,28 @@ class Taco1Encoder(nn.Module):
         x = self.prenet(x, deterministic=deterministic_prenet, generator=generator)
         x = self.cbhg(x, lengths, plain=plain, train=train)
         return mask_sequence(x, lengths)
+
+
+class Taco2Encoder(nn.Module):
+    """embedding -> 3 x (5-tap conv + BatchNorm + ReLU) -> BiGRU -> (B, T,
+    2*gru_dim) encoder states. No prenet. The BiGRU takes K1 on the card at
+    inference (``models/rnn.py``), the plain scans in training and on the
+    CPU; the stack's dropout draws from ``generator`` in training only."""
+
+    def __init__(self, cfg: EncoderConfig, num_symbols: int):
+        super().__init__()
+        self.embedding = Embed(num_symbols, cfg.embedding_dim)
+        self.convs = Conv1dBNStack(cfg.embedding_dim, [cfg.embedding_dim] * 3, kernel_size=5)
+        self.bigru = BiGRU(cfg.embedding_dim, cfg.cbhg_gru_dim)
+
+    def forward(self, tokens: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                *, deterministic_prenet: bool = False,
+                generator: Optional[torch.Generator] = None,
+                plain: bool = False, train: bool = False) -> torch.Tensor:
+        x = self.embedding(tokens)
+        x = self.convs(x, lengths, train=train, generator=generator)
+        x, _ = self.bigru(x, lengths, plain=plain, train=train)
+        return mask_sequence(x, lengths)
+
+
+ENCODERS = {"taco1": Taco1Encoder, "taco2": Taco2Encoder}

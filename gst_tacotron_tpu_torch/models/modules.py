@@ -1,4 +1,5 @@
-"""Shared modules: dense, BatchNorm, prenet, highway, convs, CBHG.
+"""Shared modules: dense, BatchNorm, prenet, highway, convs, CBHG, the Taco2
+conv stack.
 
 Counterparts of ``gst_tacotron_tpu/models/modules.py``. Parameters keep the
 JAX package's names and layouts (``kernel`` is (in, out), conv kernels are
@@ -361,3 +362,35 @@ class CBHG(nn.Module):
         y = mask_sequence(y, lengths)
         out, _ = self.bigru(y, lengths, plain=plain, train=train)
         return out
+
+
+class Conv1dBNStack(nn.Module):
+    """Taco2 conv stack: N x (mask -> 1-D conv -> BatchNorm -> ReLU ->
+    dropout). The padded positions are re-zeroed before each conv; ReLU
+    follows every layer but the last unless ``final_activation``. Dropout
+    runs only in training (``train=True``, drawn from ``generator``; a
+    ``data_parallel`` shard draws the global batch's mask), unlike the
+    prenets' it is off at inference."""
+
+    def __init__(self, in_dim: int, channels: Sequence[int], kernel_size: int = 5,
+                 dropout_rate: float = 0.5, final_activation: bool = True):
+        super().__init__()
+        self.num_layers = len(channels)
+        self.dropout_rate = dropout_rate
+        self.final_activation = final_activation
+        for i, ch in enumerate(channels):
+            setattr(self, f"conv_{i}", MatmulConv1D(in_dim, ch, kernel_size))
+            setattr(self, f"bn_{i}", BatchNorm(ch))
+            in_dim = ch
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor], *,
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = mask_sequence(x, lengths)
+            x = getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(x), train)
+            if i + 1 < self.num_layers or self.final_activation:
+                x = torch.relu(x)
+            if train and self.dropout_rate > 0.0:
+                x = dropout(x, self.dropout_rate, generator, data_shard(self))
+        return x

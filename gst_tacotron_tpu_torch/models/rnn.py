@@ -1,5 +1,5 @@
-"""Keras-v2 GRU cell, masked GRU scan and BiGRU (counterparts of
-``gst_tacotron_tpu/models/rnn.py``).
+"""Keras-v2 GRU cell, masked GRU scan, BiGRU and the zoneout cell
+(counterparts of ``gst_tacotron_tpu/models/rnn.py``).
 
 Layout as in the JAX package: ``kernel`` (in, 3H) and ``recurrent_kernel``
 (H, 3H) with gate order z, r, n, separate ``bias`` and ``recurrent_bias``,
@@ -109,3 +109,30 @@ class BiGRU(nn.Module):
                     for g in (self.fwd, self.bwd))
         ys, (f_final, b_final) = bigru_scan(xs.to(torch.float32), fwd, bwd, lengths=lengths)
         return ys.to(dt), (f_final.to(dt), b_final.to(dt))
+
+
+class ZoneoutGRUCell(nn.Module):
+    """GRU cell with zoneout on the state. Deterministic: h' = z * h + (1 -
+    z) * h_new; otherwise each unit keeps its old h where a Bernoulli(z)
+    draw from ``generator`` (never the global stream) is true. Returns
+    (h', h'). The inner cell keeps flax's auto name ``GRUCell_0``."""
+
+    def __init__(self, in_dim: int, features: int, zoneout: float = 0.1):
+        super().__init__()
+        self.zoneout = zoneout
+        self.GRUCell_0 = GRUCell(in_dim, features)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h_new, _ = self.GRUCell_0(h, x)
+        h = h.to(h_new.dtype)
+        if self.zoneout > 0.0 and not deterministic:
+            if generator is None:
+                raise ValueError("the stochastic zoneout branch needs a torch.Generator")
+            keep_old = torch.rand(h_new.shape, generator=generator,
+                                  device=h_new.device) < self.zoneout
+            h_new = torch.where(keep_old, h, h_new)
+        elif self.zoneout > 0.0:
+            h_new = self.zoneout * h + (1.0 - self.zoneout) * h_new
+        return h_new, h_new

@@ -1,6 +1,6 @@
 """GSTTacotron (counterpart of ``gst_tacotron_tpu/models/tacotron.py``).
 
-tokens -> Taco1Encoder -> encoder states (B, T, E)
+tokens -> Taco1Encoder | Taco2Encoder (model.encoder.kind) -> encoder states (B, T, E)
 [GST: ref mel -> ReferenceEncoder -> StyleTokenLayer -> style (B, S)]
 [multi-speaker: speaker id -> embedding (B, P)]
 memory = concat([encoder states, style and speaker broadcast over T])
@@ -12,8 +12,8 @@ mel -> PostCBHG -> linear
 ``Synthesizer``'s kernel stages (``use_pallas_decoder``, with its fused
 style path): the style from ``ops/refenc.py::gst_style_from_params`` (K2 and
 K1, float32), the decode through K4 (float32), the rest of the model in the
-compute dtype. The Taco2 encoder is not ported; configs that need it are
-refused.
+compute dtype (the Taco2 encoder's BiGRU, like every GRU at inference, on
+K1).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from ..config import ModelConfig
 from ..decode import chunked_decode
 from ..ops.refenc import gst_style_from_params
 from .decoder import Decoder
-from .encoder import Taco1Encoder
+from .encoder import ENCODERS
 from .gst import GST
 from .modules import Embed, set_compute_dtype
 from .postnet import PostCBHG
@@ -48,10 +48,8 @@ class GSTTacotron(nn.Module):
     def __init__(self, cfg: ModelConfig, num_symbols: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.encoder.kind != "taco1":
-            raise NotImplementedError("only the taco1 encoder is ported")
         self.cfg = cfg
-        self.encoder = Taco1Encoder(cfg.encoder, num_symbols)
+        self.encoder = ENCODERS[cfg.encoder.kind](cfg.encoder, num_symbols)
         self.gst = GST(cfg.gst, cfg.num_mels) if cfg.gst.enabled else None
         self.speaker_embedding = (Embed(cfg.num_speakers, cfg.speaker_dim)
                                   if cfg.num_speakers > 1 else None)
@@ -109,11 +107,14 @@ class GSTTacotron(nn.Module):
                 train: bool = False, deterministic_prenet: bool = False,
                 seed: int = 0) -> Dict[str, torch.Tensor]:
         """Teacher-forced pass (training and eval losses): encode (prenet
-        dropout from a generator seeded ``seed``), decode the targets
+        and, in training, Taco2 conv-stack dropout from a generator seeded
+        ``seed``), decode the targets
         (dropout stream ``seed + 1``), post-net over the whole decoded mel.
         In training the GST reference is the target mel itself; pass
         ``ref_mel=mel_targets``."""
-        gen = _generator(seed, tokens.device, deterministic_prenet)
+        # training draws the Taco2 conv stack's dropout from it even with the
+        # prenets deterministic
+        gen = _generator(seed, tokens.device, deterministic_prenet and not train)
         memory, aux = self.build_memory(
             tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
             speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,

@@ -20,7 +20,8 @@ on the card too, as the reference the kernels are held against.
 ``save_outputs`` writes the eval artifacts: 16-bit wavs, and alignment PNGs
 where matplotlib imports. ``benchmark_synthesis`` times a ``Synthesizer``;
 ``main`` is the command line (``python -m gst_tacotron_tpu_torch.synthesize``),
-restoring a checkpoint of the port's trainer.
+restoring a checkpoint of the port's trainer or a JAX workdir exported by
+``tools/export_jax_workdir.py``.
 """
 
 from __future__ import annotations
@@ -240,8 +241,8 @@ def benchmark_synthesis(synth: Synthesizer, texts: Sequence[str], iterations: in
 
 
 def main(argv=None):
-    """Restore a checkpoint of the port's trainer, synthesize texts, write
-    wavs and alignment PNGs."""
+    """Restore a checkpoint of the port's trainer (or an exported JAX one),
+    synthesize texts, write wavs and alignment PNGs."""
     from .checkpoint import CheckpointManager
     from .config import apply_overrides, get_preset, load_config, parse_cli_overrides
     from .vocoder import make_vocoder
@@ -251,7 +252,8 @@ def main(argv=None):
     p.add_argument("--preset", default="taco1_lj")
     p.add_argument("--config")
     p.add_argument("--workdir", required=True,
-                   help="the port's training workdir: config.json and checkpoints/")
+                   help="a training workdir of the port, or a JAX one exported by "
+                        "tools/export_jax_workdir.py: config.json and checkpoints/")
     p.add_argument("--out", required=True, help="output directory")
     p.add_argument("--texts", nargs="+", required=True)
     p.add_argument("--reference-wavs", nargs="*", help="style reference wavs (GST configs)")
@@ -271,8 +273,8 @@ def main(argv=None):
     p.add_argument("--vocoder", choices=["config", "griffin_lim", "wavernn"],
                    default="config", help="waveform stage; 'config' uses model.vocoder.kind")
     p.add_argument("--vocoder-workdir",
-                   help="vocoder_train workdir with vocoder_ckpt/ (wavernn; defaults to "
-                        "--workdir)")
+                   help="vocoder_train workdir with vocoder_ckpt/, the port's or an "
+                        "exported JAX one (wavernn; defaults to --workdir)")
     p.add_argument("--profile",
                    help="trace the synthesis call into this directory (torch.profiler)")
     p.add_argument("overrides", nargs="*")

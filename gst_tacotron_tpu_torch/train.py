@@ -7,7 +7,10 @@ decayed weights, the learning-rate schedule, negation. The bucketed loader
 feeds it feature batches, wav-transport batches (features computed on the
 device, ``_materialize_features``) or row indices into a corpus held on the
 device (``data.device_corpus``). Checkpoints are ``torch.save`` files
-(``checkpoint.py``), metrics JSONL and TensorBoard (``metrics.py``).
+(``checkpoint.py``), metrics JSONL and TensorBoard (``metrics.py``). A JAX
+trainer's workdir exported by ``tools/export_jax_workdir.py`` resumes here
+too: its parameters, batch statistics, Adam state and step (not its PRNG
+key).
 
 The train step launches no kernel: every recurrence in it is a plain masked
 scan, as in the JAX step (its GRUs take the Pallas kernel only when not
@@ -347,7 +350,9 @@ def save_checkpoint(ckpt: CheckpointManager, state: TrainState) -> None:
 def load_state_dict(state: TrainState, saved: Dict[str, Any]) -> None:
     """Restore ``saved`` (a whole state, from any mesh) into ``state``'s
     tensors, in place; under a mesh each sharded kernel and its moments
-    take this rank's block."""
+    take this rank's block. An exported JAX state
+    (``checkpoint.read_jax_export``) has no dropout root: ``state`` keeps
+    its own (``train.seed``)."""
     if state.mesh is None:
         state.model.load_state_dict(saved["model"])
     else:
@@ -361,7 +366,8 @@ def load_state_dict(state: TrainState, saved: Dict[str, Any]) -> None:
             mine[k].copy_(v)
     state.opt.count = int(saved["opt"]["count"])
     state.step = int(saved["step"])
-    state.seed = int(saved["rng"]["seed"])
+    if "rng" in saved:
+        state.seed = int(saved["rng"]["seed"])
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +494,8 @@ class Trainer:
         return means
 
     def restore_if_available(self) -> bool:
+        """Resume from the latest checkpoint of the workdir: the port's own,
+        or a JAX one exported into it by ``tools/export_jax_workdir.py``."""
         step = self.ckpt.latest_step()
         if step is None:
             return False

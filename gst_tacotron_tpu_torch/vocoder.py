@@ -6,10 +6,10 @@ vocoder(outputs, seed) -> waveform (B, S):
     the sampling kernel (K5) on the card.
 
 ``make_vocoder`` builds the configured one. WaveRNN variables come as the
-flat ``params/...`` mapping of ``weights.load_flat``, or from the port's
-vocoder training workdir (``load_wavernn_variables``: the latest
-``vocoder_ckpt/`` checkpoint of ``vocoder_train.VocoderTrainer``). The JAX
-package's orbax vocoder checkpoints are not read.
+flat ``params/...`` mapping of ``weights.load_flat``, or from a vocoder
+training workdir (``load_wavernn_variables``: the latest ``vocoder_ckpt/``
+checkpoint of ``vocoder_train.VocoderTrainer``, or a JAX vocoder workdir
+exported by ``tools/export_jax_workdir.py --vocoder``).
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ class WaveRNNVocoder:
 def load_wavernn_variables(vocoder_workdir: str, ckpt_dirname: str = "vocoder_ckpt"
                            ) -> Dict[str, np.ndarray]:
     """The flat ``params/...`` variables of the latest WaveRNN checkpoint
-    that ``vocoder_train.VocoderTrainer`` saved under ``vocoder_workdir``."""
+    under ``vocoder_workdir``/``ckpt_dirname``: one that
+    ``vocoder_train.VocoderTrainer`` saved, or an exported JAX one."""
     from .checkpoint import CheckpointManager
     from .weights import state_key_to_flat
 

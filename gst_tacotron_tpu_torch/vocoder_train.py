@@ -147,6 +147,9 @@ class VocoderTrainer:
                                    if self.chief else None)
 
     def restore_if_available(self) -> bool:
+        """Resume from the latest ``vocoder_ckpt/`` checkpoint: the port's
+        own, or a JAX one exported by ``tools/export_jax_workdir.py
+        --vocoder``."""
         step = self.ckpt.latest_step()
         if step is None:
             return False

@@ -3,7 +3,9 @@ workload is ``bench.py::build``'s (the same config overrides, token ids and
 reference mel, drawn in the same order), it refuses to run without a card,
 and its timed functions run end to end at small widths on CPU tensors (the
 numbers of a CPU run are no device metric and are not read here); its
-``--scaling`` curve runs on gloo processes on the CPU."""
+``--scaling`` curve runs on gloo processes on the CPU; its ``--train-bench``
+draws ``bench.py::bench_train``'s arrays and runs its three transports at a
+cut size on the CPU."""
 
 import numpy as np
 import pytest
@@ -86,3 +88,57 @@ def test_scaling_curve_on_gloo_processes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench.main(["--scaling"])
+
+
+@pytest.mark.parametrize("transport", ["features", "wav"])
+def test_train_bench_arrays_match_the_jax_bench(transport):
+    """``bench.py::bench_train``'s feature batch and wire, drawn in its
+    order (its full-size init stubbed out: only the arrays are compared)."""
+    import gst_tacotron_tpu.train as jtrain
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def capture(cfg, rng, feat):
+        seen["cfg"], seen["feat"] = cfg, feat
+        raise Stop
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jtrain, "init_state", capture)
+    try:
+        with pytest.raises(Stop):
+            jbench.bench_train(transport)
+    finally:
+        mp.undo()
+    cfg = apply_overrides(load_config_gst_lj(), {"data.batch_size": 8})
+    feat, wire, _ = bench.train_bench_wire(cfg, transport, 8, 64, 400)
+    for key, ref in seen["feat"].items():
+        np.testing.assert_array_equal(feat[key], ref, err_msg=key)
+        assert feat[key].dtype == ref.dtype, key
+    if transport == "wav":
+        assert wire["wav"].dtype == np.float16 and wire["wav"].shape == (8, 399 * 256 + 2048)
+        np.testing.assert_array_equal(wire["ints"][:, 64:67], [[64, 400, 400]] * 8)
+    assert seen["cfg"].data.batch_size == 8
+
+
+def load_config_gst_lj():
+    from gst_tacotron_tpu_torch.config import get_preset
+
+    return get_preset("gst_lj")
+
+
+def test_train_bench_runs_every_transport_on_cpu_tensors():
+    line = bench.train_bench_line(1, device="cpu", overrides=bench.TINY, batch=2, t_text=8,
+                                  t_mel=16)
+    assert line["metric"] == "train_ms_per_step" and line["unit"] == "ms/step (wav transport)"
+    assert [r["transport"] for r in line["rows"]] == list(bench.TRANSPORTS)
+    assert line["value"] == line["rows"][1]["ms_per_step"] > 0
+    assert line["vs_baseline"] == line["rows"][0]["ms_per_step"] / line["value"]
+    assert all(np.isfinite(r["loss"]) and r["batch"] == 2 for r in line["rows"])
+    # the corpus rows are the wire's rows: the same first-step data
+    assert line["rows"][2]["wire_mb_per_batch"] == 2 * 4 / 1e6
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(["--train-bench"])

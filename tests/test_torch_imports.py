@@ -1,11 +1,14 @@
-"""The port imports and runs with ``jax`` blocked (the gst_lj slice, the
+"""The port imports and runs with ``jax`` and ``tensorflow`` blocked (the
+gst_lj slice and its taco2 encoder, the
 location-sensitive decode, the WaveRNN vocoder, the training-corpus path: a
 pattern run and a loader batch in both transports, and the trainers: a
 seq2seq step with its checkpoint and a vocoder step; the synthesis entry
 points: the chunked decode, the bench's workload, the parity harness and
 the synthesize CLI on the trainers' workdirs; the parallel subpackage: its
-mesh, sharding rules and ``DistributedSynthesizer`` on a one-rank mesh), and
-no file of the port (nor chip_smoke.py) imports jax or the JAX package."""
+mesh, sharding rules and ``DistributedSynthesizer`` on a one-rank mesh; the
+exported JAX workdir of tests/fixtures/jax_export, served and resumed; the
+Keras importer's module and the trace server), and no file of the port
+(nor chip_smoke.py) imports jax or the JAX package."""
 
 import ast
 import os
@@ -47,6 +50,7 @@ def test_port_imports_and_runs_with_jax_blocked():
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['tensorflow'] = None\n"
         "import torch; torch.set_num_threads(1)\n"
         "import gst_tacotron_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'gst_tacotron_tpu_torch.'):\n"
@@ -106,7 +110,14 @@ def test_port_imports_and_runs_with_jax_blocked():
         "           .values()) == 8\n"
         "ds = DistributedSynthesizer(cfg, m, make_mesh(1), device='cpu')\n"
         "assert ds.synthesize(['blocked jax.'], max_steps=2)['mel'].shape == (1, 4, 80)\n"
-        "assert 'gst_tacotron_tpu' not in sys.modules\n"
+        "t2 = apply_overrides(cfg, {'model.encoder.kind': 'taco2'})\n"
+        "out = Synthesizer(t2, build_model(t2, seed=0, device='cpu'), device='cpu')(\n"
+        "    ['blocked jax.'], max_steps=3)\n"
+        "assert out['mel'].shape == (1, 6, 80), out['mel'].shape\n"
+        "from gst_tacotron_tpu_torch import tf_import\n"
+        "from gst_tacotron_tpu_torch.utils.profiling import maybe_start_server\n"
+        "assert maybe_start_server(None) is None\n"
+        "assert 'gst_tacotron_tpu' not in sys.modules and sys.modules['tensorflow'] is None\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300,
@@ -120,6 +131,7 @@ def test_port_trains_with_jax_blocked(tmp_path):
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['tensorflow'] = None\n"
         "sys.modules['optax'] = None\n"
         "import torch; torch.set_num_threads(1)\n"
         "from gst_tacotron_tpu_torch.config import apply_overrides, load_config\n"
@@ -144,7 +156,16 @@ def test_port_trains_with_jax_blocked(tmp_path):
         "    '--chunked-decoder', '--vocoder', 'wavernn', '--vocoder-workdir', d + '/v',\n"
         "    '--texts', 'blocked jax.'])\n"
         "assert paths[0].endswith('synth_000.wav'), paths\n"
-        "assert 'gst_tacotron_tpu' not in sys.modules\n"
+        "import shutil\n"
+        f"shutil.copytree({str(ROOT / 'tests/fixtures/jax_export')!r}, d + '/jx')\n"
+        "main(['--workdir', d + '/jx', '--out', d + '/ox', '--device', 'cpu',\n"
+        "      '--texts', 'blocked jax.'])\n"
+        "jc = load_config(d + '/jx/config.json')\n"
+        "generate_patterns(synthetic_utterances(3), jc.audio, d + '/jp')\n"
+        "jt = Trainer(jc, d + '/jp', d + '/jx', device='cpu')\n"
+        "assert jt.restore_if_available() and jt.state.step == 2\n"
+        "assert jt.train(3).step == 3\n"
+        "assert 'gst_tacotron_tpu' not in sys.modules and sys.modules['tensorflow'] is None\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300,
