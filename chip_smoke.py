@@ -92,13 +92,21 @@ Phases, each of which exits non-zero on failure:
    CPU mel, and resumed by ``Trainer`` for step 3 against the stored JAX
    step (1e-4 relative);
 13. train bench (last): ``bench --train-bench``'s function, cut to 3 timed
-   steps a transport, its line with the card.
+   steps a transport, its line with the card;
+14. scaling (after the parallel phase): ``bench.bench_scaling("cuda")`` at
+   the card count, one rank over NCCL a card (see ``run_scaling``): the
+   train step, the contention control, chunked ``DistributedSynthesizer``
+   (K1, K4) and WaveRNN sampling (K5) on every rank, each rank's launch
+   counts;
+15. style (after the jax_export phase): the style contrast on the train
+   phase's gst_lj workdir (see ``run_style``): the deterministic pass's
+   bits under two seeds, every one-hot pair apart, K1-K4 launched.
 
 It prints one JSON line per kernel check, per path and per training run
 (``{"train": ...}``), per chunked, bf16 and CLI run, the parallel phase's
 ``{"parallel": ...}``, the taco2 phase's ``{"taco2": ...}``, the
-``{"jax_export": ...}`` line, the bench's two lines, the ``{"train_bench":
-...}`` line,
+``{"jax_export": ...}`` line, the ``{"scaling": ...}`` and ``{"style":
+...}`` lines, the bench's two lines, the ``{"train_bench": ...}`` line,
 one ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``.
 
@@ -2340,6 +2348,81 @@ def run_parallel(torch, dev):
                 fail(f"{tag}: rank {rank} launched no {missing}")
 
 
+def run_scaling(torch):
+    """``bench --scaling``'s rows (``bench.bench_scaling("cuda")``) at this
+    machine's card count: one rank over NCCL on one card, the curve where
+    there are more. Each row must carry the four rates and efficiencies,
+    every rank of a row the same synthesis ``chunks_run`` (at the bench's
+    stop threshold 1.0 the whole budget's chunks), and every rank's
+    launch counts (each workload's counters set to 0 just before it) must
+    show K1 and K4 in its synthesis and K5 in its WaveRNN sampling."""
+    from gst_tacotron_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    rows = bench.bench_scaling("cuda")
+    info = {"rows": rows, "cards": torch.cuda.device_count(),
+            "seconds": time.perf_counter() - t0}
+    print(json.dumps({"scaling": info}), flush=True)
+    for row in rows:
+        tag = f"scaling at {row['ranks']} rank(s)"
+        for key, eff in bench.EFFICIENCIES:
+            if not all(np.isfinite(row.get(k, np.nan)) and row[k] > 0 for k in (key, eff)):
+                fail(f"{tag}: no positive {key} / {eff}")
+        budget = -(-row["synth_max_steps"] // row["chunk_steps"])
+        if row["chunks_run"] != [budget] * row["ranks"]:
+            fail(f"{tag}: the ranks ran {row['chunks_run']} synthesis chunks; at stop "
+                 f"threshold 1.0 each runs the budget's {budget}")
+        for rank, launches in enumerate(row["launches"]):
+            missing = [k for k in ("gru_scan", "decode_scan") if not launches["synth"].get(k)]
+            if missing or not launches["wavernn"].get("wavernn_sample"):
+                fail(f"{tag}: rank {rank} launched {launches}: no {missing} in synthesis "
+                     "or no wavernn_sample in WaveRNN sampling")
+
+
+def run_style(torch, work):
+    """``style_contrast.main`` on the train phase's gst_lj workdir
+    (``work``/feat, its published widths and decode budget): the report's
+    summary, its wall and the launch counts (set to 0 just before it). The
+    deterministic pass must give the same bits under two seeds, every
+    condition must be there, no pair of one-hot conditions may give the same
+    mel (style would do nothing), and the run must launch K1, K2, K3 and
+    K4."""
+    import contextlib
+    import io
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.style_contrast import main as style_main
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        report = style_main(["--workdir", f"{work}/feat", "--out", f"{work}/style.json"])
+    torch.cuda.synchronize()
+    det = report["deterministic_pass"]
+    onehot = {k: v["mel_l1"] for k, v in det["pairwise"].items()
+              if all(n.startswith("token") for n in k.split("|"))}
+    info = {"workdir": "the train phase's gst_lj workdir", "step": report["step"],
+            "conditions": report["conditions"], "summary": report["summary"],
+            "seed_floor_bit_identical": det["seed_floor_bit_identical"],
+            "onehot_pair_mel_l1": onehot, "acoustic_stats": det["acoustic_stats"],
+            "stochastic_floor_mel_l1": report["stochastic_pass"]["seed_floor_mel_l1"],
+            "wall_s": time.perf_counter() - t0, "launches": nonzero_counts(ops),
+            "printed": printed.getvalue().strip().splitlines()[-1:]}
+    print(json.dumps({"style": info}), flush=True)
+    if not info["seed_floor_bit_identical"]:
+        fail(f"style: the deterministic pass differs between seeds by "
+             f"{det['seed_floor_mel_l1']}")
+    want = sorted(["token0", "token3", "token5", "token7", "uniform", "ref_wav"])
+    if report["conditions"] != want:
+        fail(f"style: conditions {report['conditions']}, expected {want}")
+    if len(onehot) != 6 or not min(onehot.values()) > 0:
+        fail(f"style: one-hot pairs with the same mel: {onehot}")
+    missing = [k for k in ("gru_scan", "refenc_stack", "stft_features", "decode_scan")
+               if not info["launches"].get(k)]
+    if missing:
+        fail(f"style: the run launched {info['launches']}, none of {missing}")
+
+
 def run_bf16(torch, dev, cfg, corpus_dir, work):
     """``model.compute_dtype="bfloat16"`` on the card: gst_lj synthesis
     (B=32 with reference wavs, decoder dropout off on both) finite, apart
@@ -2596,6 +2679,9 @@ def main() -> None:
     t0 = time.perf_counter()
     run_parallel(torch, dev)
     log(f"parallel phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_scaling(torch)
+    log(f"scaling phase done in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as corpus_dir, tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
         counts = run_corpus(torch, dev, get_preset("gst_lj"), corpus_dir)
@@ -2613,6 +2699,9 @@ def main() -> None:
         t0 = time.perf_counter()
         run_jax_export(torch, dev, work)
         log(f"jax_export phase done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        run_style(torch, work)
+        log(f"style phase done in {time.perf_counter() - t0:.1f} s")
     run_bench(torch, card)
     run_train_bench(torch, card)
     for r in kernels:

@@ -37,16 +37,33 @@ card: without one it raises "CUDA is not available".
 
     python -m gst_tacotron_tpu_torch.bench --scaling [--device cpu]
 
-measures instead the weak scaling of the data-parallel GST train step
-(``bench.py::bench_scaling``'s curve): a fixed batch per rank, one
-process a rank (``parallel``'s mesh, ``train.train_step``), over 1 ..
-``torch.cuda.device_count()`` cards on NCCL, one rank a card, at gst_lj's
-own training batch a rank (``configs/gst_lj.json``: ``data.batch_size``
-32 rows at its first bucket, 64 tokens and 400 frames); with ``--device
-cpu`` over 1, 2 and 4 gloo processes at the JAX bench's fake-mesh widths
-(2 rows of 16 frames a rank). It prints one JSON line of rows (ranks, ms a step, global
-samples a second, efficiency against one rank); on one card, its one
-point, and says so.
+measures instead weak scaling (``bench.py::bench_scaling``'s curve): a
+fixed size a rank, one process a rank on one mesh, over 1 ..
+``torch.cuda.device_count()`` cards on NCCL, one rank a card (with
+``--device cpu`` over 1, 2 and 4 gloo processes at the JAX scaling child's
+widths), for the JAX child's four workloads:
+
+  * the data-parallel GST train step (``train.train_step``) at gst_lj's
+    own training batch a rank (``configs/gst_lj.json``: ``data.batch_size``
+    32 rows at its first bucket, 64 tokens and 400 frames; on the CPU 2
+    rows of 16 frames);
+  * the contention control: 30 elementwise updates of a rank's own (64,
+    512) rows, no collective; its falloff bounds what contention for the
+    host's cores costs, so what the other rows lose beyond it is the
+    collectives';
+  * chunked-consensus synthesis through ``DistributedSynthesizer``
+    (uniform token weights, the stop consensus a chunk, Griffin-Lim, the
+    all-gather of the outputs): the bench's 32 texts of 64 tokens a rank,
+    200 steps in chunks of 64 (on the CPU 2 rows, 8 steps in chunks of 4);
+    its rate counts the step budget's frames, as the JAX child's does;
+  * WaveRNN sampling of a rank's rows of a global mel (``gst_wavernn``'s
+    vocoder on 32 rows of 128 frames a rank, K5; on the CPU the JAX child's
+    16-wide vocoder on 2 rows of 6 frames).
+
+It prints one JSON line of rows (ranks; each workload's slowest-rank time,
+global rate and efficiency against one rank, under the JAX names; the
+synthesis ``chunks_run`` and the launch counts of each rank); on one card,
+its one point, and says so.
 """
 
 from __future__ import annotations
@@ -306,7 +323,8 @@ def run(args) -> Tuple[Dict[str, Any], Dict[str, Any]]:
 
 # the JAX bench's fake-mesh widths (``__graft_entry__._tiny_overrides``)
 TINY = {"audio.n_fft": 512, "audio.hop_length": 128, "audio.win_length": 512,
-        "model.num_freq": 257, "model.encoder.embedding_dim": 64,
+        "audio.griffin_lim_iters": 4, "model.num_freq": 257,
+        "model.encoder.embedding_dim": 64,
         "model.encoder.prenet_dims": [64, 32], "model.encoder.cbhg_bank_k": 4,
         "model.encoder.cbhg_bank_channels": 32, "model.encoder.cbhg_proj_channels": [32, 32],
         "model.encoder.cbhg_highway_layers": 2, "model.encoder.cbhg_highway_dim": 32,
@@ -317,6 +335,15 @@ TINY = {"audio.n_fft": 512, "audio.hop_length": 128, "audio.win_length": 512,
         "model.postnet.cbhg_bank_channels": 16, "model.postnet.cbhg_proj_channels": [32, 80],
         "model.postnet.cbhg_highway_layers": 1, "model.postnet.cbhg_highway_dim": 32,
         "model.postnet.cbhg_gru_dim": 32}
+# the JAX scaling child's contention control (bench.py:825-848): rows a rank,
+# their width, and the elementwise updates an iteration
+CONTROL_ROWS, CONTROL_WIDTH, CONTROL_UPDATES = 64, 512, 30
+# its WaveRNN on the CPU (bench.py:880-907), and the sampling seed of the row
+CPU_VOCODER = {"model.vocoder.wavernn_gru_dim": 16, "model.vocoder.wavernn_fc_dim": 16,
+               "model.vocoder.wavernn_hop": 4}
+WAVERNN_SEED = 3
+
+
 def scaling_shape(cfg: Config, cpu: bool) -> Tuple[int, int, int]:
     """(rows, tokens, frames) a rank of the weak-scaling step: on the card
     the config's training batch (``data.batch_size`` rows at its first
@@ -326,6 +353,41 @@ def scaling_shape(cfg: Config, cpu: bool) -> Tuple[int, int, int]:
         return 2, 32, 16
     t_text, frames = cfg.data.buckets[0]
     return cfg.data.batch_size, t_text, frames
+
+
+def synth_workload(cpu: bool) -> Tuple[Config, int, int, int]:
+    """(config, rows a rank, decode steps, chunk steps) of the synthesis
+    row: on the CPU the JAX child's (its fake-mesh config, 2 rows, 8 steps in
+    chunks of 4); on the card the bench's workload (``gst_lj``, ``WORKLOAD``:
+    stop threshold 1.0, 15 Griffin-Lim iterations) on 32 rows, 200 steps in
+    chunks of 64."""
+    if cpu:
+        return apply_overrides(get_preset("gst_lj"), TINY), 2, 8, 4
+    cfg = apply_overrides(get_preset("gst_lj"), WORKLOAD)
+    return cfg, 32, cfg.model.decoder.max_decode_steps, 64
+
+
+def wavernn_workload(cpu: bool) -> Tuple[Config, int, int]:
+    """(config, rows a rank, mel frames) of the WaveRNN row: on the CPU the
+    JAX child's vocoder (GRU 16, fc 16, hop 4) on 2 rows of 6 frames; on the
+    card ``gst_wavernn``'s (GRU 512, fc 512, hop 256) on 32 rows of 128
+    frames, ``chip_smoke.py``'s K5 workload."""
+    if cpu:
+        return apply_overrides(get_preset("gst_lj"), {**TINY, **CPU_VOCODER}), 2, 6
+    return get_preset("gst_wavernn"), 32, 128
+
+
+def wavernn_mel(cfg: Config, rows: int, frames: int) -> np.ndarray:
+    """The WaveRNN row's global conditioning mel, (rows, frames, mels)."""
+    return np.random.default_rng(0).random((rows, frames, cfg.model.num_mels), np.float32)
+
+
+def classes_digest(classes: torch.Tensor) -> str:
+    """A digest of int32 classes (a rank's WaveRNN samples, compared
+    exactly without sending them)."""
+    import hashlib
+
+    return hashlib.sha256(classes.to("cpu", torch.int32).numpy().tobytes()).hexdigest()[:16]
 
 
 def scaling_batch(cfg: Config, rows: int, t_text: int, frames: int, seed: int = 0
@@ -344,21 +406,58 @@ def scaling_batch(cfg: Config, rows: int, t_text: int, frames: int, seed: int = 
                        ).astype(np.float32)}
 
 
+def _timed(fn, iters: int, sync) -> float:
+    """Seconds a call of ``fn``: one untimed call, then ``iters`` calls,
+    ``sync`` at each end of the timed loop."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters
+
+
 def scaling_rank(rank: int, world: int, port: int, device: str, steps: int, out) -> None:
-    """One rank of a weak-scaling point (a spawned process): the data-parallel
-    step from the seeded init on its rows of a global batch of ``world``
-    times the per-rank rows; puts (rank, ok, ms a step or traceback)."""
-    from .parallel import initialize_distributed, make_mesh, place_state, shard_batch
+    """One rank of a weak-scaling point (a spawned process), in a process
+    group of ``world`` ranks (gloo on the CPU, NCCL a card each), on the JAX
+    scaling child's four workloads, each at a fixed size a rank:
+
+    1. the data-parallel train step from the seeded init on its rows of a
+       global batch, ``steps`` steps;
+    2. the contention control: ``CONTROL_UPDATES`` elementwise updates of
+       its own (64, 512) rows an iteration, no collective, ``steps``
+       iterations;
+    3. chunked-consensus synthesis through ``DistributedSynthesizer`` over
+       the same mesh (uniform token weights, no reference; on the card K1 and
+       K4), ``max(3, steps // 2)`` calls;
+    4. WaveRNN sampling of its rows of a global mel under ``data_parallel``
+       (each rank draws its rows of the global batch; on the card one K5
+       launch a call), ``max(3, steps // 2)`` calls.
+
+    Puts (rank, ok, {times, chunks_run, WaveRNN digest, launches of rows 3
+    and 4} or a traceback) on ``out``."""
+    import torch.distributed as dist
+
+    from . import ops
+    from .models.modules import data_parallel
+    from .parallel import DistributedSynthesizer, make_mesh, place_state, shard_batch
     from .parallel.mesh import rank_device
     from .train import init_state, make_optimizer, train_step
+    from .weights import build_model, build_wavernn
 
     cpu = device == "cpu"
     try:
         if cpu:
             torch.set_num_threads(1)
-        initialize_distributed(f"localhost:{port}", world, rank,
-                               backend="gloo" if cpu else "nccl")
+        else:
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                init_method=f"tcp://localhost:{port}", world_size=world,
+                                rank=rank)
         dev = rank_device("cpu" if cpu else None)
+        sync = (lambda: None) if cpu else (lambda: torch.cuda.synchronize(dev))
+        iters = max(3, steps // 2)
         cfg = apply_overrides(get_preset("gst_lj"), TINY if cpu else {})
         rows, t_text, frames = scaling_shape(cfg, cpu)
         mesh = make_mesh(1)
@@ -372,57 +471,137 @@ def scaling_rank(rank: int, world: int, port: int, device: str, steps: int, out)
         for _ in range(steps):
             loss = train_step(tx, cfg, state, batch)["loss"]
         float(loss)                                          # the sync point
-        out.put((rank, True, 1e3 * (time.perf_counter() - t0) / steps))
+        res = {"train_ms": 1e3 * (time.perf_counter() - t0) / steps}
+
+        x = torch.ones((CONTROL_ROWS, CONTROL_WIDTH), dtype=torch.float32, device=dev)
+
+        def control():
+            nonlocal x
+            for _ in range(CONTROL_UPDATES):
+                x = torch.tanh(x) * 1.0001 + 0.0001
+        res["control_s"] = _timed(control, steps, sync)
+
+        scfg, srows, max_steps, chunk = synth_workload(cpu)
+        sample = workload(srows * world)[1]
+        n_tok = scfg.model.gst.num_tokens
+        weights = np.full((srows * world, n_tok), 1.0 / n_tok, np.float32)
+        # the trained weights in a model of the synthesis config: its decoder's
+        # stop threshold is the model's
+        smodel = build_model(scfg, seed=0, device=dev)
+        smodel.load_state_dict(state.model.state_dict())
+        ds = DistributedSynthesizer(scfg, smodel, mesh, device=dev)
+        chunks = []
+
+        def synth():
+            chunks.append(ds(sample["tokens"], sample["token_lengths"], token_weights=weights,
+                             chunked=True, chunk_steps=chunk, max_steps=max_steps)["chunks_run"])
+        ops.reset_launch_counts()
+        res["synth_s"] = _timed(synth, iters, sync)
+        res["synth_launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+        if len(set(chunks)) != 1:
+            raise RuntimeError(f"chunks_run changed between calls: {chunks}")
+        res["chunks_run"] = chunks[0]
+
+        wcfg, wrows, wframes = wavernn_workload(cpu)
+        vocoder = build_wavernn(wcfg, seed=1, device=dev)
+        mel = torch.from_numpy(shard_batch(
+            {"mel": wavernn_mel(wcfg, wrows * world, wframes)}, mesh)["mel"]).to(dev)
+        classes = None
+
+        def sample_classes():
+            nonlocal classes
+            with data_parallel(vocoder, mesh.data_shard()):
+                classes = vocoder.sample_classes(mel, seed=WAVERNN_SEED)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            res["wavernn_s"] = _timed(sample_classes, iters, sync)
+        res["wavernn_launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+        res["wavernn_digest"] = classes_digest(classes)
+        out.put((rank, True, res))
     except BaseException:
         out.put((rank, False, traceback.format_exc()))
     finally:
-        import torch.distributed as dist
-
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# each rate and its weak-scaling efficiency (bench.py:939-952's names)
+EFFICIENCIES = (("global_samples_per_sec", "weak_scaling_efficiency"),
+                ("control_global_rows_per_sec", "control_efficiency"),
+                ("synth_global_frames_per_sec", "synth_efficiency"),
+                ("wavernn_global_samples_per_sec", "wavernn_efficiency"))
 
 
 def bench_scaling(device: str = "cuda", counts: Optional[Sequence[int]] = None,
                   steps: int = 3) -> List[Dict[str, Any]]:
     """The weak-scaling rows: for each rank count, ``scaling_rank`` on that
-    many spawned processes; ms a step is the slowest rank's, efficiency the
-    global samples a second a rank over one rank's."""
+    many spawned processes. Each workload's time is its slowest rank's;
+    its rate is its global work over that time, and its efficiency the rate
+    a rank over one rank's (``EFFICIENCIES``). On the card the kernels are
+    built here first, so the ranks only load them."""
     import multiprocessing
 
     from .parallel.mesh import free_port
 
+    cpu = device == "cpu"
     if counts is None:
-        counts = (1, 2, 4) if device == "cpu" else range(1, torch.cuda.device_count() + 1)
-    rows_per_rank, t_text, frames = scaling_shape(get_preset("gst_lj"), device == "cpu")
+        counts = (1, 2, 4) if cpu else range(1, torch.cuda.device_count() + 1)
+    if not cpu:
+        from . import ops
+        from .ops.build import build_all
+
+        build_all(ops.all_kernels())
+    rows_per_rank, t_text, frames = scaling_shape(get_preset("gst_lj"), cpu)
+    scfg, srows, max_steps, chunk = synth_workload(cpu)
+    wcfg, wrows, wframes = wavernn_workload(cpu)
+    r = scfg.model.decoder.reduction_factor
     ctx = multiprocessing.get_context("spawn")
     out_rows = []
     for n in counts:
         q = ctx.Queue()
         port = free_port()
-        procs = [ctx.Process(target=scaling_rank, args=(r, n, port, device, steps, q))
-                 for r in range(n)]
+        procs = [ctx.Process(target=scaling_rank, args=(rank, n, port, device, steps, q))
+                 for rank in range(n)]
         for proc in procs:
             proc.start()
-        ms = []
+        res = {}
         try:
             for _ in procs:
                 rank, ok, value = q.get(timeout=900)
                 if not ok:
                     raise RuntimeError(f"scaling rank {rank} of {n} failed:\n{value}")
-                ms.append(value)
+                res[rank] = value
         finally:
             for proc in procs:
                 proc.join(timeout=60)
                 if proc.is_alive():
                     proc.kill()
-        step_ms = max(ms)
-        out_rows.append({"ranks": n, "ms_per_step": step_ms, "rows_per_rank": rows_per_rank,
-                         "tokens": t_text, "frames": frames,
-                         "global_samples_per_sec": rows_per_rank * n / (step_ms / 1e3)})
-        log(f"scaling {n} rank(s): {step_ms:.1f} ms a step")
-    base = out_rows[0]["global_samples_per_sec"] / out_rows[0]["ranks"]
-    for r in out_rows:
-        r["weak_scaling_efficiency"] = r["global_samples_per_sec"] / r["ranks"] / base
+        ranks = [res[i] for i in range(n)]
+        slowest = lambda key: max(x[key] for x in ranks)
+        step_ms = slowest("train_ms")
+        out_rows.append({
+            "ranks": n, "ms_per_step": step_ms, "rows_per_rank": rows_per_rank,
+            "tokens": t_text, "frames": frames,
+            "global_samples_per_sec": rows_per_rank * n / (step_ms / 1e3),
+            "control_s": slowest("control_s"),
+            "control_global_rows_per_sec": CONTROL_ROWS * n / slowest("control_s"),
+            "synth_s": slowest("synth_s"), "synth_rows_per_rank": srows,
+            "synth_max_steps": max_steps, "chunk_steps": chunk,
+            "synth_global_frames_per_sec": srows * n * max_steps * r / slowest("synth_s"),
+            "chunks_run": [x["chunks_run"] for x in ranks],
+            "wavernn_s": slowest("wavernn_s"), "wavernn_rows_per_rank": wrows,
+            "wavernn_frames": wframes,
+            "wavernn_global_samples_per_sec":
+                wrows * n * wframes * wcfg.model.vocoder.wavernn_hop / slowest("wavernn_s"),
+            "wavernn_digests": [x["wavernn_digest"] for x in ranks],
+            "launches": [{"synth": x["synth_launches"], "wavernn": x["wavernn_launches"]}
+                         for x in ranks]})
+        log(f"scaling {n} rank(s): {step_ms:.1f} ms a step, synthesis "
+            f"{1e3 * slowest('synth_s'):.1f} ms, WaveRNN {1e3 * slowest('wavernn_s'):.1f} ms")
+    for key, eff in EFFICIENCIES:
+        base = out_rows[0][key] / out_rows[0]["ranks"]
+        for row in out_rows:
+            row[eff] = row[key] / row["ranks"] / base
     return out_rows
 
 
@@ -432,7 +611,9 @@ def scaling_line(device: str, steps: int) -> Dict[str, Any]:
         resolve_device(None)
     rows = bench_scaling(device, steps=steps)
     kind = "cpu (gloo processes)" if device == "cpu" else torch.cuda.get_device_name(0)
-    note = ("weak scaling of the data-parallel GST train step, a fixed batch per rank; "
+    note = ("weak scaling at a fixed size a rank of the data-parallel GST train step, "
+            "a contention control with no collective, chunked-consensus synthesis and "
+            "WaveRNN sampling; "
             + ("gloo processes on the host's cores (the curve's shape, not a device rate)"
                if device == "cpu" else "NCCL, one rank a card"))
     if device != "cpu" and len(rows) == 1:
@@ -563,7 +744,8 @@ def main(argv=None) -> None:
     p.add_argument("--vocoder-workdir", help="vocoder_train workdir for --config5")
     p.add_argument("--details", help="write the detailed JSON here")
     p.add_argument("--scaling", action="store_true",
-                   help="measure the weak scaling of the data-parallel train step instead")
+                   help="measure weak scaling instead: the data-parallel train step, a "
+                        "contention control, chunked synthesis and WaveRNN sampling")
     p.add_argument("--device", default=None,
                    help="with --scaling: 'cpu' runs gloo processes on the CPU; with "
                         "--train-bench: the device (default cuda)")

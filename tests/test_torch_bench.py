@@ -73,21 +73,66 @@ def test_bench_functions_run_on_cpu_tensors(tmp_path):
     assert c5["wav_samples_per_batch"] == 2 * 3 * r * cfg.audio.hop_length
 
 
-def test_scaling_curve_on_gloo_processes():
-    """``--scaling --device cpu``: one row a rank count, ms a step from
-    every rank, efficiency 1 at one rank; the fake-mesh widths are the JAX
-    bench's (``__graft_entry__._tiny_overrides``)."""
-    import __graft_entry__ as graft
+@pytest.fixture(scope="module")
+def scaling_rows():
+    return bench.bench_scaling("cpu", counts=(1, 2), steps=1)
 
-    assert {k: v for k, v in graft._tiny_overrides().items()
-            if k != "audio.griffin_lim_iters"} == bench.TINY
-    rows = bench.bench_scaling("cpu", counts=(1, 2), steps=1)
+
+def test_scaling_curve_on_gloo_processes(scaling_rows):
+    """``--scaling --device cpu``: one row a rank count with the four
+    workloads' rates (the train step, the contention control, chunked
+    synthesis, WaveRNN sampling), each time from every rank, each
+    efficiency 1 at one rank."""
+    rows = scaling_rows
     assert [r["ranks"] for r in rows] == [1, 2]
-    assert rows[0]["weak_scaling_efficiency"] == 1.0
+    for key, eff in bench.EFFICIENCIES:
+        assert rows[0][eff] == 1.0, eff
+        assert all(r[key] > 0 and r[eff] > 0 for r in rows), key
     assert all(r["ms_per_step"] > 0 and r["rows_per_rank"] == 2 for r in rows)
+    assert [len(r["launches"]) for r in rows] == [1, 2]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench.main(["--scaling"])
+
+
+def test_scaling_workloads_are_the_jax_childs():
+    """The CPU widths of bench.py's scaling child: the full
+    ``_tiny_overrides()``, synthesis of 2 rows a rank for 8 steps in chunks
+    of 4, a WaveRNN of GRU 16, fc 16, hop 4 on 2 rows of 6 frames."""
+    import __graft_entry__ as graft
+
+    assert graft._tiny_overrides() == bench.TINY
+    scfg, rows, max_steps, chunk = bench.synth_workload(True)
+    assert (rows, max_steps, chunk) == (2, 8, 4) and scfg.audio.griffin_lim_iters == 4
+    wcfg, rows, frames = bench.wavernn_workload(True)
+    v = wcfg.model.vocoder
+    assert (v.wavernn_gru_dim, v.wavernn_fc_dim, v.wavernn_hop, rows, frames) == (16, 16, 4, 2, 6)
+    assert (bench.CONTROL_ROWS, bench.CONTROL_WIDTH, bench.CONTROL_UPDATES) == (64, 512, 30)
+
+
+def test_scaling_synthesis_ranks_agree_on_chunks(scaling_rows):
+    """The stop consensus: every rank of a point ran as many chunks."""
+    for r in scaling_rows:
+        assert len(r["chunks_run"]) == r["ranks"] and len(set(r["chunks_run"])) == 1
+        assert 1 <= r["chunks_run"][0] <= r["synth_max_steps"] // r["chunk_steps"]
+
+
+def test_scaling_wavernn_ranks_sample_their_rows(scaling_rows):
+    """Each rank's WaveRNN classes are the single-process sampler's rows it
+    holds, exactly (as the dp=2 check of tests/test_torch_parallel_vocoder.py
+    holds K5's plain twin)."""
+    from gst_tacotron_tpu_torch.weights import build_wavernn
+
+    wcfg, rows, frames = bench.wavernn_workload(True)
+    for r in scaling_rows:
+        n = r["ranks"]
+        mel = torch.from_numpy(bench.wavernn_mel(wcfg, rows * n, frames))
+        with torch.no_grad():
+            classes = build_wavernn(wcfg, seed=1, device="cpu").sample_classes(
+                mel, seed=bench.WAVERNN_SEED)
+        assert classes.shape == (rows * n, frames * 4)
+        assert r["wavernn_digests"] == [bench.classes_digest(classes[i * rows:(i + 1) * rows])
+                                        for i in range(n)]
 
 
 @pytest.mark.parametrize("transport", ["features", "wav"])
