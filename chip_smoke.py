@@ -7,10 +7,13 @@ Phases, each of which exits non-zero on failure:
 
 1. build: nvcc compiles every CUDA kernel of the port (one process per
    source, all at once) and the libraries are loaded;
-2. kernels: K1-K5, K3′, K3″ and K4's location-sensitive branch each run at
+2. kernels: K1-K5, K3′, K3″, K4's location-sensitive branch and the bf16
+   operand modes of K2 and K3 (the main path's on the card) each run at
    the shapes their main path gives them and are held against their plain
-   PyTorch versions on the card, in float32 with TF32 off (K1, K2, K3, K3′
-   in both modes and K3″ also give the same bits on two runs; K1 also runs
+   PyTorch versions on the card, TF32 off (a bf16 mode against the plain
+   version's bf16 rounding; the checks held to float32 references pin
+   ``bf16=False``); K1, K2 and K3 in both modes, K3′ in both modes and K3″
+   also give the same bits on two runs; K1 also runs
    at H = 256 and 512 (1e-5); K3 at n_fft 1200 and 1536 against the float64
    oracle (5e-4); K3′ and K3″ at n_fft 1536, 1026 and odd 1575: the radix-3
    and -5 stages, the generic stage and the unpacked transform; K3, K3′ and
@@ -33,14 +36,18 @@ Phases, each of which exits non-zero on failure:
    Before each path every launch counter is set to 0, and after it the
    counts must show that the path went through each of its kernels; outputs
    must be finite with the expected shapes, the wav within [-1, 1], and the
-   path must agree with the plain path on the card; Griffin-Lim runs under
+   path must agree with the plain path on the card (the reference path in
+   K3's and K2's bf16 modes on both, each mode's branch counter read);
+   Griffin-Lim runs under
    both settings of ``audio.griffin_lim_bf16`` (gst_lj's default, True, is
    the path's), finite and different from each other;
 4. corpus: the training-corpus path on gst_lj (192 synthetic utterances of
-   varied length): patterns with device features (K3), every route of the
-   feature extractor and ``KernelDSP`` (K3′, K3″), the bucketed loader in
-   both transports and the wav-transport features on the card, each held
-   against the host numpy oracle, with launch counts per route;
+   varied length): patterns with device features (K3, float32 by name),
+   every route of the feature extractor and ``KernelDSP`` (K3′, K3″), the
+   bucketed loader in both transports and the wav-transport features on the
+   card, each held against the host numpy oracle, with launch counts per
+   route; the resident route in K3's bf16 mode (the card's default) against
+   its plain version;
 5. train: on the corpus phase's patterns, ``Trainer`` on gst_lj at its
    published widths, B=32: 6 steps on the feature transport (checkpoints
    every 4, the held-out eval and ``default_eval_hook`` at step 6), a second
@@ -100,15 +107,21 @@ Phases, each of which exits non-zero on failure:
    counts;
 15. style (after the jax_export phase): the style contrast on the train
    phase's gst_lj workdir (see ``run_style``): the deterministic pass's
-   bits under two seeds, every one-hot pair apart, K1-K4 launched.
+   bits under two seeds, every one-hot pair apart, K1-K4 launched;
+16. kernel_bench (after the bench): ``python -m
+   gst_tacotron_tpu_torch.kernel_bench`` at the JAX tool's defaults (see
+   ``run_kernel_bench``): every section launched its kernels, parity
+   within the JAX kernel tests' tolerances, every roofline share <= 1.05.
 
 It prints one JSON line per kernel check, per path and per training run
 (``{"train": ...}``), per chunked, bf16 and CLI run, the parallel phase's
 ``{"parallel": ...}``, the taco2 phase's ``{"taco2": ...}``, the
 ``{"jax_export": ...}`` line, the ``{"scaling": ...}`` and ``{"style":
-...}`` lines, the bench's two lines, the ``{"train_bench": ...}`` line,
-one ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": ...}``.
+...}`` lines, the bench's two lines, the ``{"kernel_bench": ...}`` line, the
+``{"train_bench": ...}`` line, one ``{"kernels": [...]}`` line (every
+kernel and both bf16 modes, their bounds from ``kernel_bench``'s work
+counts), the card's name and power limit, and last ``{"ok": true,
+"device": ...}``.
 
     python3 chip_smoke.py --decode-only
 
@@ -137,14 +150,6 @@ import time
 
 import numpy as np
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, dense bf16 on them, and HBM3 bandwidth. Every kernel's row
-# bounds the function it computes in float32; K3′'s bf16 mode also reports
-# the bound of its dense bf16 products.
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
-
 B = 32
 TEXT_TOKENS = 64
 REF_SAMPLES = 32512     # 1 + 32512 // 256 = 128 mel frames
@@ -159,9 +164,13 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
-def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def bound(work):
+    """(ms, "operations" or "bytes"): the least time of a kernel call's work
+    (``gst_tacotron_tpu_torch.kernel_bench``'s counts) on an H100 at its
+    published peaks: float32 outside the tensor cores, bf16 on them, HBM3."""
+    from gst_tacotron_tpu_torch.kernel_bench import bound as least_time
+
+    return least_time(work)
 
 
 def time_ms(torch, fn, iters: int = 5, warmup: int = 1) -> float:
@@ -225,6 +234,7 @@ def check_gru(torch, rng, dev):
     the encoder and post-net BiGRUs (both directions in one launch,
     ``bigru_scan``, which must give the bits of two one-direction calls) and
     the reference-encoder GRU (``gru_scan``); two runs give the same bits."""
+    from gst_tacotron_tpu_torch.kernel_bench import Work, gru_scan_work
     from gst_tacotron_tpu_torch.ops.gru import bigru_scan, gru_scan, gru_scan_plain
 
     h = 128
@@ -244,7 +254,7 @@ def check_gru(torch, rng, dev):
                 for i, dr in enumerate(dirs)]
         return [torch.cat([ys for ys, _ in outs], -1), *(f for _, f in outs)]
 
-    err, flops, nbytes, jobs = 0.0, 0.0, 0.0, []
+    err, works, jobs = 0.0, [], []
     for t, d, ndir in calls:
         lim_i, lim_h = np.sqrt(6 / (d + 3 * h)), np.sqrt(6 / (4 * h))
         dirs = [(torch.zeros(B, h, device=dev), t32(rng.uniform(-lim_i, lim_i, (d, 3 * h))),
@@ -264,8 +274,7 @@ def check_gru(torch, rng, dev):
                 if max_err(got, [torch.cat([f[0], b[0]], -1), f[1], b[1]]) != 0.0:
                     fail("bigru_scan differs from two one-direction gru_scan calls")
         jobs.append((xs, dirs, full))
-        flops += ndir * 2.0 * B * t * (d + h) * 3 * h
-        nbytes += 4.0 * (B * t * d + B + ndir * (B * t * h + 2 * B * h + (d + h + 2) * 3 * h))
+        works.append(gru_scan_work(B, t, d, h, ndir))
 
     def run(fn):
         return lambda: [fn(*j) for j in jobs]
@@ -312,7 +321,7 @@ def check_gru(torch, rng, dev):
         if phases["recurrence_ms"] > 0:
             break
     phases.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound(Work(sum(w.flops for w in works), sum(w.bytes for w in works)))
     # past H = 128: 16 weights a lane (H = 256) and the streamed form (512),
     # a BiGRU of the encoder's shape, ragged lengths, held at 1e-5 and twice
     wide = {}
@@ -351,25 +360,52 @@ def check_gru(torch, rng, dev):
 # ---------------------------------------------------------------------------
 
 
-def check_refenc(torch, rng, dev):
-    import torch.nn.functional as F
+REFENC_SHAPE = (128, 80)          # a reference mel's frames and bins on the main path
+REFENC_CHANNELS = [32, 32, 64, 64, 128, 128]
 
-    from gst_tacotron_tpu_torch.ops.refenc import layer_plan, refenc_stack, refenc_stack_plain
 
-    t, f = 128, 80
-    channels = [32, 32, 64, 64, 128, 128]
+def refenc_inputs(torch, rng, dev):
+    """Glorot-scaled kernels, folded BN (scales, biases) and a (B, 128, 80)
+    mel, drawn from ``rng`` in that order."""
     t32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-    kernels, scales, biases = [], [], []
-    c_in, flops, h, w = 1, 0.0, t, f
-    for c in channels:
+    kernels, scales, biases, c_in = [], [], [], 1
+    for c in REFENC_CHANNELS:
         lim = np.sqrt(6 / (9 * c_in + 9 * c))
         kernels.append(t32(rng.uniform(-lim, lim, (3, 3, c_in, c))))
         scales.append(t32(rng.uniform(0.5, 1.5, c)))
         biases.append(t32(rng.normal(0, 0.1, c)))
-        h, w = (h + 1) // 2, (w + 1) // 2
-        flops += 2.0 * B * h * w * 9 * c_in * c
         c_in = c
-    mel = t32(rng.uniform(0, 1, (B, t, f)))
+    return kernels, scales, biases, t32(rng.uniform(0, 1, (B, *REFENC_SHAPE)))
+
+
+def conv2d_chain(torch, mel, kernels, scales, biases, dtype=None):
+    """K2's library yardstick: F.pad + F.conv2d (cuDNN) + folded BN + ReLU a
+    layer; ``dtype`` bfloat16 runs each conv on bf16 operands."""
+    import torch.nn.functional as F
+
+    dt = dtype or torch.float32
+    wts = [k.permute(3, 2, 0, 1).contiguous().to(dt) for k in kernels]
+
+    def library():
+        x = mel[:, None]                                          # NCHW
+        for wt, sc, bi in zip(wts, scales, biases):
+            hh, ww = x.shape[2], x.shape[3]
+            ph = max(0, ((hh + 1) // 2 - 1) * 2 + 3 - hh)
+            pw = max(0, ((ww + 1) // 2 - 1) * 2 + 3 - ww)
+            x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+            y = F.conv2d(x.to(dt), wt, stride=2).float()
+            x = torch.relu(y * sc[:, None, None] + bi[:, None, None])
+        return x
+
+    return library
+
+
+def check_refenc(torch, rng, dev):
+    from gst_tacotron_tpu_torch.kernel_bench import refenc_stack_work
+    from gst_tacotron_tpu_torch.ops.refenc import layer_plan, refenc_stack, refenc_stack_plain
+
+    t, f = REFENC_SHAPE
+    kernels, scales, biases, mel = refenc_inputs(torch, rng, dev)
     full = torch.full((B,), t, device=dev, dtype=torch.int64)
     ragged = torch.from_numpy(rng.integers(1, t + 1, B)).to(dev)
     err = 0.0
@@ -379,6 +415,7 @@ def check_refenc(torch, rng, dev):
         err = max(err, max_err([got], [ref]))
         same_bits("refenc_stack", [got], [refenc_stack(mel, kernels, scales, biases,
                                                        lengths=lens)])
+    channels = REFENC_CHANNELS
     plan = layer_plan(B, t, f, channels, torch.cuda.get_device_properties(dev).multi_processor_count)
     if min(p["blocks"] for p in plan[:3]) < 132:
         fail(f"refenc_stack: layers L0-L2 launch {[p['blocks'] for p in plan[:3]]} blocks, "
@@ -388,18 +425,7 @@ def check_refenc(torch, rng, dev):
     err = max(err, max_err([refenc_stack(odd, kernels, scales, biases)],
                            [refenc_stack_plain(odd, kernels, scales, biases)]))
 
-    wts = [k.permute(3, 2, 0, 1).contiguous() for k in kernels]
-
-    def library():
-        x = mel[:, None]                                          # NCHW
-        for wt, sc, bi in zip(wts, scales, biases):
-            hh, ww = x.shape[2], x.shape[3]
-            ph = max(0, ((hh + 1) // 2 - 1) * 2 + 3 - hh)
-            pw = max(0, ((ww + 1) // 2 - 1) * 2 + 3 - ww)
-            x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
-            x = torch.relu(F.conv2d(x, wt, stride=2) * sc[:, None, None] + bi[:, None, None])
-        return x
-
+    library = conv2d_chain(torch, mel, kernels, scales, biases)
     kernel = lambda: refenc_stack(mel, kernels, scales, biases, lengths=full)
     ms = time_ms(torch, kernel, iters=20)
     plain = time_ms(torch, lambda: refenc_stack_plain(mel, kernels, scales, biases, lengths=full), iters=20)
@@ -419,9 +445,7 @@ def check_refenc(torch, rng, dev):
         d = kernel_device_ms(torch, stack, {"d": "refenc_layer_kernel"})["d"] / 5
         layer_ms.append(d - prev)
         prev = d
-    nbytes = 4.0 * (mel.numel() + B + sum(k.numel() + 2 * k.shape[-1] for k in kernels)
-                    + B * h * w * c_in)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound(refenc_stack_work(B, t, f, REFENC_CHANNELS))
     return dict(name="refenc_stack", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/refenc_stack.cu",
                 replaces="gst_tacotron_tpu/ops/refenc_pallas.py:298", max_err=err, tol=1e-4,
@@ -433,6 +457,73 @@ def check_refenc(torch, rng, dev):
                 library="F.pad + F.conv2d (cuDNN, TF32 off) + folded BN + ReLU, six layers",
                 work="one (32, 128, 80) stack: six launches, one a layer; device ms sums "
                      "them (torch.profiler), kernel ms is CUDA events over the call")
+
+
+# the bf16 modes' budget against float32: tests/test_refenc_pallas.py's (the
+# embedding) and tests/test_pallas.py's (loud mel bins)
+BF16_VS_F32_TOL = 0.05
+
+
+def check_refenc_bf16(torch, dev):
+    """K2's bf16 operand mode (the main path's on the card: the batched
+    Pallas form's ``bf16=True``) at the main path's (32, 128, 80) stack,
+    ragged and full lengths: against the plain version's bf16 rounding (the
+    same operands, float32 sums), apart from float32 by far more on average;
+    the same bits twice, and rows 16-31 alone give the 32-row launch's bits
+    (no k split in this mode, so one sum order whatever the batch)."""
+    from gst_tacotron_tpu_torch.kernel_bench import refenc_stack_work
+    from gst_tacotron_tpu_torch.ops.refenc import refenc_stack, refenc_stack_plain
+
+    rng = np.random.default_rng(21)
+    t, f = REFENC_SHAPE
+    kernels, scales, biases, mel = refenc_inputs(torch, rng, dev)
+    full = torch.full((B,), t, device=dev, dtype=torch.int64)
+    ragged = torch.from_numpy(rng.integers(1, t + 1, B)).to(dev)
+    err = mean = gap = 0.0
+    for lens in (ragged, full):
+        got = refenc_stack(mel, kernels, scales, biases, lengths=lens, bf16=True)
+        ref = refenc_stack_plain(mel, kernels, scales, biases, lengths=lens, bf16=True)
+        f32 = refenc_stack_plain(mel, kernels, scales, biases, lengths=lens)
+        err = max(err, max_err([got], [ref]))
+        mean = max(mean, float((got - ref).abs().mean()))
+        gap = max(gap, float((got - f32).abs().mean()))
+        same_bits("refenc_stack:bf16", [got], [refenc_stack(mel, kernels, scales, biases,
+                                                            lengths=lens, bf16=True)])
+        half = refenc_stack(mel[B // 2:].contiguous(), kernels, scales, biases,
+                            lengths=lens[B // 2:], bf16=True)
+        if not torch.equal(half, got[B // 2:]):
+            fail("refenc_stack:bf16: rows 16-31 alone differ from the 32-row launch's")
+    if not mean < gap / 5:
+        fail(f"refenc_stack:bf16: mean error {mean} against the plain bf16 version is not "
+             f"far below its mean distance {gap} from float32")
+    kernel = lambda: refenc_stack(mel, kernels, scales, biases, lengths=full, bf16=True)
+    ms = time_ms(torch, kernel, iters=20)
+    plain = time_ms(torch, lambda: refenc_stack_plain(mel, kernels, scales, biases,
+                                                      lengths=full, bf16=True), iters=5)
+    library = conv2d_chain(torch, mel, kernels, scales, biases, torch.bfloat16)
+    lib = time_ms(torch, library, iters=20)
+    device = {}
+    for _ in range(2):      # the profiler once lost every event of a call
+        device = kernel_device_ms(torch, kernel, {"kernel_device_ms": "refenc_layer_kernel"})
+        if device["kernel_device_ms"] > 0:
+            break
+    device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
+    b_ms, b_by = bound(refenc_stack_work(B, t, f, REFENC_CHANNELS, bf16=True))
+    return dict(name="refenc_stack:bf16", route="cuda",
+                source="gst_tacotron_tpu_torch/csrc/refenc_stack.cu",
+                replaces="gst_tacotron_tpu/ops/refenc_pallas.py:298", max_err=err,
+                tol=BF16_VS_F32_TOL, mean_err=mean, mean_dist_from_f32=gap,
+                tol_reason="tests/test_refenc_pallas.py's bf16 budget; the same bf16 operands "
+                           "as the plain version, float32 sums in another order, so only a "
+                           "value on a bf16 rounding boundary moves (one bf16 step); the mean "
+                           "error must be under a fifth of the mean distance from float32",
+                kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                **device,
+                library="F.pad + F.conv2d on bf16 operands (cuDNN, float32 epilogue) + "
+                        "folded BN + ReLU, six layers",
+                work="one (32, 128, 80) stack in the bf16 operand mode: six launches, no k "
+                     "split; bound: its FLOPs at 989 TFLOP/s (bf16 tensor cores), which the "
+                     "kernel does not use yet (CUDA cores)")
 
 
 # ---------------------------------------------------------------------------
@@ -456,25 +547,6 @@ def stft_groups(torch, rng, dev, a):
         wav = rng.uniform(-1, 1, (8, length)) * env
         groups.append(torch.from_numpy(wav.astype(np.float32)).to(dev))
     return groups
-
-
-def stft_bound(a, n_frames: int, in_bytes: float):
-    """The least time of n_frames frames of features on an H100, from the
-    function's least work and not from any kernel's method: the real FFT of
-    each n_fft-point frame, 2.5 n_fft log2 n_fft operations (half of a complex
-    FFT's 5 N log2 N), plus a multiply and an add for each nonzero weight of
-    the mel filters, against the input bytes, the live window taps and the
-    nonzero mel weights read once and the mel and linear outputs written
-    once. The magnitudes and the dB maps are not counted."""
-    import math
-
-    from gst_tacotron_tpu_torch.ops.stft import live_tap_span, stft_bases
-
-    _, _, n_live = live_tap_span(a)
-    nnz_mel = stft_bases(a, "cpu")["mel_w"].numel()
-    flops = n_frames * (2.5 * a.n_fft * math.log2(a.n_fft) + 2.0 * nnz_mel)
-    nbytes = in_bytes + 4.0 * (n_live + nnz_mel + n_frames * (a.num_freq + a.num_mels))
-    return bound(flops, nbytes)
 
 
 def torch_stft_yardstick(torch, a, groups, bases):
@@ -550,7 +622,9 @@ def oracle_errs(torch, dev, cfg):
         raw = rng.uniform(-1, 1, (2, hop * 127)) * 0.3
         pre = [np.pad(dsp_ref.preemphasis(w, a.preemphasis), n_fft // 2, mode="reflect")
                for w in raw]
-        got = stft_features(torch.from_numpy(np.stack(pre).astype(np.float32)).to(dev), a)
+        # float32 by name: the oracle is the float64 host function
+        got = stft_features(torch.from_numpy(np.stack(pre).astype(np.float32)).to(dev), a,
+                            bf16=False)
         err = 0.0
         for i, w in enumerate(raw):
             for x, y in zip(got, (dsp_ref.melspectrogram(w, a), dsp_ref.spectrogram(w, a))):
@@ -560,6 +634,7 @@ def oracle_errs(torch, dev, cfg):
 
 
 def check_stft(torch, rng, dev, cfg):
+    from gst_tacotron_tpu_torch.kernel_bench import stft_work
     from gst_tacotron_tpu_torch.ops.stft import stft_bases, stft_features, stft_features_plain
 
     a = cfg.audio
@@ -567,25 +642,28 @@ def check_stft(torch, rng, dev, cfg):
     groups = stft_groups(torch, rng, dev, a)
     err = 0.0
     for g in groups:
-        got = stft_features(g, a, bases)
+        got = stft_features(g, a, bases, bf16=False)
         ref = stft_features_plain(g, a, bases)
         err = max(err, max_err(got, ref))
-        same_bits("stft_features", got, stft_features(g, a, bases))
+        same_bits("stft_features", got, stft_features(g, a, bases, bf16=False))
 
-    ms = time_ms(torch, lambda: [stft_features(g, a, bases) for g in groups], iters=10)
+    ms = time_ms(torch, lambda: [stft_features(g, a, bases, bf16=False) for g in groups],
+                 iters=10)
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases) for g in groups], iters=10)
     lib = time_ms(torch, torch_stft_yardstick(torch, a, groups, bases), iters=10)
     # device time alone: at microseconds a launch, the timed loop may wait on
     # the host's calls rather than on the card
-    device = kernel_device_ms(torch, lambda: [stft_features(g, a, bases) for g in groups],
+    device = kernel_device_ms(torch, lambda: [stft_features(g, a, bases, bf16=False)
+                                              for g in groups],
                               {"kernel_device_ms": "stft_wav_kernel"})
     device.update(kernel_device_ms(torch, torch_stft_yardstick(torch, a, groups, bases),
                                    {"library_device_ms": ""}))
-    b_ms, b_by = stft_bound(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups))
+    # the function's least work: a real FFT a frame and the nonzero mel weights
+    b_ms, b_by = bound(stft_work(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups)))
     oracle = oracle_errs(torch, dev, cfg)
     if not max(oracle.values()) <= CORPUS_TOL:
         fail(f"stft_features off the powers of two: {oracle} > {CORPUS_TOL} from the oracle")
-    big = big_errs(torch, dev, cfg, lambda x, c: stft_features(x, c), False)
+    big = big_errs(torch, dev, cfg, lambda x, c: stft_features(x, c, bf16=False), False)
     return dict(name="stft_features", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_features.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:417",
@@ -595,6 +673,86 @@ def check_stft(torch, rng, dev, cfg):
                 **device,
                 library="torch.stft (cuFFT) + abs + mel product + dB normalization",
                 work="the 4 launches (32 wavs of 128 frames) of one synthesis")
+
+
+def check_stft_bf16(torch, dev, cfg):
+    """K3's bf16 operand mode (the main path's reference mels on the card, as
+    the JAX extractor's ``bf16=not self.interpret`` on its accelerator) at
+    K3's main-path launches (4 x 8 wavs of 128 frames): against the plain
+    version's bf16 rounding (the same operands, float32 sums), apart from
+    float32 by far more on average and within 0.05 of it on loud mel bins
+    (tests/test_pallas.py's bf16 check); the same bits twice; n_fft 6144
+    (clusters of 4 CTAs); timed beside the plain version and the bf16 GEMMs
+    of the library."""
+    import dataclasses
+
+    from gst_tacotron_tpu_torch.kernel_bench import stft_bf16_work
+    from gst_tacotron_tpu_torch.ops.stft import (db_normalize, dft_bases, live_tap_span,
+                                                 stft_bases, stft_features, stft_features_plain)
+
+    a = cfg.audio
+    bases = stft_bases(a, dev)
+    groups = stft_groups(torch, np.random.default_rng(13), dev, a)
+    err = mean = gap = loud = 0.0
+    for g in groups:
+        got = stft_features(g, a, bases, bf16=True)
+        ref = stft_features_plain(g, a, bases, bf16=True)
+        f32 = stft_features_plain(g, a, bases)
+        err = max(err, max_err(got, ref))
+        mean = max(mean, float((got[0] - ref[0]).abs().mean()))
+        gap = max(gap, float((got[0] - f32[0]).abs().mean()))
+        loud = max(loud, float((got[0] - f32[0]).abs()[f32[0] > 0.5].max()))
+        same_bits("stft_features:bf16", got, stft_features(g, a, bases, bf16=True))
+    if not (mean < gap / 5 and loud <= BF16_VS_F32_TOL):
+        fail(f"stft_features:bf16: mean error {mean} against the plain bf16 version (its "
+             f"mean distance from float32 {gap}), loud mel bins {loud} from float32")
+    a6 = dataclasses.replace(a, n_fft=6144, hop_length=1536, win_length=4608)
+    w6 = torch.from_numpy((np.random.default_rng(6144).uniform(-1, 1, (2, 6144 + 1536 * 30))
+                           * 0.3).astype(np.float32)).to(dev)
+    err_6144 = max_err(stft_features(w6, a6, bf16=True), stft_features_plain(w6, a6, bf16=True))
+
+    kernel = lambda: [stft_features(g, a, bases, bf16=True) for g in groups]
+    j0, _, n_live = live_tap_span(a)
+    cos16, sin16 = (x.to(torch.bfloat16) for x in dft_bases(a, str(dev)))
+    mel16 = bases["mel_t"][: a.num_freq].to(torch.bfloat16)
+    n0 = j0 * a.hop_length
+
+    def library():
+        # the mode's function as bf16 GEMMs with float32 outputs: the two DFT
+        # products, the magnitude, the mel product on bf16 operands, dB
+        for g in groups:
+            fr = g[:, n0:].unfold(-1, n_live, a.hop_length)[:, :STFT_FRAMES]
+            fr = fr.to(torch.bfloat16).reshape(-1, n_live)
+            re = torch.mm(fr, cos16, out_dtype=torch.float32)
+            im = torch.mm(fr, sin16, out_dtype=torch.float32)
+            mag = torch.sqrt(re * re + im * im)
+            mel = torch.mm(mag.to(torch.bfloat16), mel16, out_dtype=torch.float32)
+            db_normalize(mel, a), db_normalize(mag, a)
+
+    ms = time_ms(torch, kernel, iters=10)
+    plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases, bf16=True)
+                                    for g in groups], iters=10)
+    lib = time_ms(torch, library, iters=10)
+    device = kernel_device_ms(torch, kernel, {"kernel_device_ms": "stft_fused_bf16"})
+    device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
+    b_ms, b_by = bound(stft_bf16_work(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups)))
+    return dict(name="stft_features:bf16", route="cuda",
+                source="gst_tacotron_tpu_torch/csrc/stft_features.cu",
+                replaces="gst_tacotron_tpu/ops/stft_pallas.py:417",
+                max_err=max(err, err_6144), max_err_n_fft_2048=err, max_err_n_fft_6144=err_6144,
+                mean_err_mel=mean, mean_dist_from_f32_mel=gap, max_err_loud_vs_f32=loud,
+                loud_vs_f32_tol=BF16_VS_F32_TOL, tol=STFT_TOL,
+                tol_reason=STFT_TOL_REASON + "; bf16 mode: the plain version rounds the same "
+                           "operands, so only a magnitude on a bf16 rounding boundary moves "
+                           "(one bf16 step); the mean error must be under a fifth of the mean "
+                           "distance from float32",
+                kernel_ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                **device,
+                library="torch.mm of the bf16 frames and bases, then of the bf16 magnitude "
+                        "and mel basis, float32 outputs, + dB normalization",
+                work="K3's 4 launches (32 wavs of 128 frames) in the bf16 mode (K3′'s "
+                     "tensor-core kernel with a bf16 mel product); bound: the dense bf16 "
+                     "products and the mel at 989 TFLOP/s")
 
 
 # (n_fft, hop, win) whose FFTs run the other stages on the card: 768 =
@@ -627,6 +785,7 @@ def check_stft_fused(torch, dev, cfg):
     too, which runs the same arithmetic) and with bf16 bases on the tensor
     cores (held against the plain version's bf16 rounding); both give the
     same bits twice; one float32 and one bf16 call at each of MIXED_SIZES."""
+    from gst_tacotron_tpu_torch.kernel_bench import stft_bf16_work, stft_work
     from gst_tacotron_tpu_torch.ops.stft import (bf16_cluster, db_normalize, dft_bases,
                                                  live_tap_span, stft_bases, stft_features,
                                                  stft_features_fused, stft_features_plain)
@@ -639,7 +798,7 @@ def check_stft_fused(torch, dev, cfg):
     for g in groups:
         got = stft_features_fused(g, a, bases)
         err = max(err, max_err(got, stft_features_plain(g, a, bases)))
-        k3 = stft_features(g, a, bases)
+        k3 = stft_features(g, a, bases, bf16=False)
         err_k3 = max(err_k3, max_err(got, k3))
         k3_bits &= all(bool(torch.equal(x, y)) for x, y in zip(got, k3))
         err_bf16 = max(err_bf16, max_err(stft_features_fused(g, a, bases, bf16_bases=True),
@@ -696,14 +855,11 @@ def check_stft_fused(torch, dev, cfg):
     device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
     device.update(kernel_device_ms(torch, library_bf16, {"library_device_ms_bf16": ""}))
     n_frames = B * STFT_FRAMES
-    b_ms, b_by = stft_bound(a, n_frames, 4.0 * sum(g.numel() for g in groups))
+    wav_bytes = 4.0 * sum(g.numel() for g in groups)
+    b_ms, b_by = bound(stft_work(a, n_frames, wav_bytes))
     # the dense products over the live taps and the num_freq real bins (the
-    # kernel's zero padding past them is not the function's work)
-    _, _, n_live = live_tap_span(a)
-    b_bf16, b_bf16_by = bound(4.0 * n_frames * n_live * a.num_freq,
-                              4.0 * sum(g.numel() for g in groups)
-                              + 2.0 * 2 * n_live * a.num_freq
-                              + 4.0 * n_frames * (a.num_freq + a.num_mels), peak=BF16_FLOPS)
+    # kernel's zero padding past them is not the function's work) and the mel
+    b_bf16, b_bf16_by = bound(stft_bf16_work(a, n_frames, wav_bytes))
     return dict(name="stft_fused", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_fused.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:265",
@@ -726,6 +882,7 @@ def check_stft_frames(torch, dev, cfg):
     """K3″ at K3's shapes: the (1024, n_fft) frames of each 8-wav launch; the
     same bits twice; one call at each of MIXED_SIZES."""
     from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
+    from gst_tacotron_tpu_torch.kernel_bench import stft_work
     from gst_tacotron_tpu_torch.ops.stft import (db_normalize, live_tap_span, stft_bases,
                                                  stft_features_frames,
                                                  stft_features_frames_plain)
@@ -763,7 +920,7 @@ def check_stft_frames(torch, dev, cfg):
     _, _, n_live = live_tap_span(a)
     n_frames = sum(f.shape[0] for f in frames)
     # the function reads only the live columns of each frame
-    b_ms, b_by = stft_bound(a, n_frames, 4.0 * n_frames * n_live)
+    b_ms, b_by = bound(stft_work(a, n_frames, 4.0 * n_frames * n_live))
     return dict(name="stft_frames", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/stft_frames.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:118",
@@ -794,6 +951,7 @@ DECODE_STEP_KERNELS = ("decode_phase<", "decode_scores", "decode_attend")
 def check_decode(torch, rng, dev, cfg, init_seed=7):
     """K4 at ``cfg``'s shapes: the Bahdanau branch (gst_lj) or the
     location-sensitive one (gst_r1_location)."""
+    from gst_tacotron_tpu_torch.kernel_bench import decode_scan_work
     from gst_tacotron_tpu_torch.models.decoder import DecoderCell
     from gst_tacotron_tpu_torch.ops.decode import decode_scan, decode_scan_plain
     from gst_tacotron_tpu_torch.weights import init_weights
@@ -857,22 +1015,9 @@ def check_decode(torch, rng, dev, cfg, init_seed=7):
                         if any(sub in key for sub in DECODE_STEP_KERNELS))
     device_ms = sum(ms for key, ms, _ in rows if "decode_" in key)
     n_w = sum(x.numel() for x in packed.values())
-    d = m.decoder
-    per_step = 2.0 * (m.num_mels * d.prenet_dims[0] + d.prenet_dims[0] * d.prenet_dims[1]
-                      + (d.prenet_dims[1] + mem_dim + d.attention_rnn_dim) * 3 * d.attention_rnn_dim
-                      + d.attention_rnn_dim * m.attention.dim
-                      + (d.attention_rnn_dim + mem_dim) * d.decoder_rnn_dim
-                      + 2 * 2 * d.decoder_rnn_dim * 3 * d.decoder_rnn_dim
-                      + (d.decoder_rnn_dim + mem_dim) * (d.reduction_factor * (m.num_mels + 1))
-                      + TEXT_TOKENS * (m.attention.dim + mem_dim))
-    if lsa:
-        per_step += 2.0 * TEXT_TOKENS * m.attention.location_kernel_size \
-            * m.attention.location_channels * m.attention.dim
-    flops = per_step * B * steps
-    r = d.reduction_factor
-    nbytes = 4.0 * (n_w + memory.numel() + keys.numel() + B
-                    + B * steps * r * (m.num_mels + 1) + B * steps * TEXT_TOKENS)
-    b_ms, b_by = bound(flops, nbytes)
+    r = m.decoder.reduction_factor
+    # the useful work: the location taps of the band only (LSA)
+    b_ms, b_by = bound(decode_scan_work(cfg, B, TEXT_TOKENS, steps, n_w, dense_band=True))
     # a kernel row is named by the launch counter its path reads
     return dict(name="decode_scan:location_sensitive" if lsa else "decode_scan", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/decode_scan.cu",
@@ -904,6 +1049,7 @@ def check_wavernn(torch, rng, dev, cfg, frames=128):
     the plain version's histories part, so the kernel is held teacher-forced:
     the plain pass runs on the kernel's own classes and every class must
     score within the tolerance of its step's best."""
+    from gst_tacotron_tpu_torch.kernel_bench import wavernn_sample_work
     from gst_tacotron_tpu_torch.ops.wavernn import (score_gaps, wavernn_sample,
                                                     wavernn_sample_plain)
     from gst_tacotron_tpu_torch.weights import build_wavernn
@@ -964,15 +1110,12 @@ def check_wavernn(torch, rng, dev, cfg, frames=128):
     tiny_cond = torch.zeros(B, frames, 8, device=dev)
     tiny_ms = time_ms(torch, lambda: wavernn_sample(tiny, tiny_cond, hop=hop, seed=1),
                       iters=1)
-    c, h, f = cond.shape[-1], v.wavernn_gru_dim, v.wavernn_fc_dim
     nw = sum(x.numel() for x in packed.values())
-    flops = 2.0 * (c * 3 * h + h * 3 * h + h * f + f * k) * B * n
-    nbytes = 4.0 * (nw + cond.numel() + B * n)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound(wavernn_sample_work(cfg, B, frames, cond.shape[-1], nw))
     # the least work once the input product is hoisted: the two tables
     # (embed and cond against wi) once, then 3H*H + H*F + F*K a row and sample
-    hoisted = 2.0 * ((k + B * frames) * c * 3 * h + (h * 3 * h + h * f + f * k) * B * n)
-    b_hoisted, b_hoisted_by = bound(hoisted, nbytes)
+    b_hoisted, b_hoisted_by = bound(wavernn_sample_work(cfg, B, frames, cond.shape[-1], nw,
+                                                        hoisted=True))
     return dict(name="wavernn_sample", route="cuda",
                 source="gst_tacotron_tpu_torch/csrc/wavernn_sample.cu",
                 replaces="gst_tacotron_tpu/ops/wavernn_pallas.py:119",
@@ -1148,7 +1291,8 @@ def profile_path(torch, dev, name, cfg, model, texts, wavs, vocoder=None):
         tok = torch.from_numpy(ids.astype(np.int64)).to(dev)
         tok_len = torch.from_numpy(lens.astype(np.int64)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(0)
-        # as GSTTacotron.infer: the style from the float32 fast path (K2, K1)
+        # as GSTTacotron.infer: the style from the fast path (K2 in its bf16
+        # mode on the card, K1)
         (memory, _), stages["encode_and_gst"] = timed(lambda: model.build_memory(
             tok, tok_len, generator=gen,
             precomputed_style=gst_style_from_params(model.gst, ref, ref_len)[0]))
@@ -1283,7 +1427,10 @@ def run_corpus(torch, dev, cfg, out):
     utts = synthetic_utterances(CORPUS_UTTERANCES, variable=True)
     ops.reset_launch_counts()
     t0 = start()
-    generate_patterns(utts, a, out, store_wav=True, device_features=True, device=dev)
+    # float32 by name (the card's default is K3's bf16 mode): the patterns are
+    # held against the float64 host oracle, and the wire features against them
+    generate_patterns(utts, a, out, store_wav=True, device_features=True, device=dev,
+                      bf16=False)
     patterns_s = stop("patterns", t0)
     ds = PatternDataset(out)
     items = [ds.load(i) for i in range(len(ds))]
@@ -1300,7 +1447,8 @@ def run_corpus(torch, dev, cfg, out):
     kernel_of = {"resident": "stft_features", "fused": "stft_fused",
                  "frames": "stft_frames", None: None}
     for route, kname in kernel_of.items():
-        ex = DeviceFeatureExtractor(a, dev, stft_kernel=route)
+        # float32 by name: each route is held against the float64 oracle
+        ex = DeviceFeatureExtractor(a, dev, stft_kernel=route, bf16=False)
         label = str(route)
         t0 = start()
         res = ex.extract(wavs)
@@ -1311,6 +1459,23 @@ def run_corpus(torch, dev, cfg, out):
                  f"{calls} launches of {kname}")
         err_oracle[label] = errs(res, oracle)
         err_resident[label] = errs(res, resident)
+    # the resident route as the card runs it by default: K3's bf16 mode, held
+    # against its plain version (the same bf16 rounding) and, on loud mel bins,
+    # against the float64 oracle (tests/test_pallas.py's bf16 budget)
+    label = "resident bf16"
+    t0 = start()
+    res_bf16 = DeviceFeatureExtractor(a, dev).extract(wavs)
+    route_ms[label] = 1e3 * stop(label, t0)
+    calls = len(DeviceFeatureExtractor(a, dev).plan(num_frames))
+    if launches[label] != {"stft_features": calls, "stft_features:bf16": calls}:
+        fail(f"corpus: route {label} launched {launches[label]}, expected {calls} launches "
+             "of stft_features, each in its bf16 branch")
+    plain_bf16 = DeviceFeatureExtractor(a, dev, plain=True).extract(wavs)
+    bf16_errs = {"vs_plain_bf16": errs(res_bf16, plain_bf16),
+                 "loud_mel_vs_oracle": max(
+                     float(np.abs(r[0] - o[0])[o[0] > 0.5].max(initial=0.0))
+                     for r, o in zip(res_bf16, oracle))}
+    del res_bf16, plain_bf16
     kd = KernelDSP(a, dev)
     t0 = start()
     res = []
@@ -1389,7 +1554,8 @@ def run_corpus(torch, dev, cfg, out):
             "wall_s": time.perf_counter() - t_path, "patterns_s": patterns_s,
             "oracle_host_s": oracle_s, "extractor_ms": route_ms, "launches": launches,
             "max_err_vs_oracle": err_oracle, "max_err_vs_resident": err_resident,
-            "tol": CORPUS_TOL, "tol_kernel_dsp": DSP_TOL, "buckets": sizes,
+            "tol": CORPUS_TOL, "tol_kernel_dsp": DSP_TOL, "resident_bf16": bf16_errs,
+            "tol_bf16": [STFT_TOL, BF16_VS_F32_TOL], "buckets": sizes,
             "batches_per_transport": n_batches,
             "feature_batches_s": feat_s, "wire_batches_s": wire_s,
             "materialize_ms": mat_ms,
@@ -1404,6 +1570,10 @@ def run_corpus(torch, dev, cfg, out):
         tol = DSP_TOL if label == "KernelDSP" else CORPUS_TOL
         if not max(em, el) <= tol:
             fail(f"corpus: {label} differs from the host oracle by {max(em, el)} > {tol}")
+    if not (max(bf16_errs["vs_plain_bf16"]) <= STFT_TOL
+            and bf16_errs["loud_mel_vs_oracle"] <= BF16_VS_F32_TOL):
+        fail(f"corpus: the resident route's bf16 mode: {bf16_errs} (tolerances {STFT_TOL} "
+             f"against its plain version, {BF16_VS_F32_TOL} on loud mel bins)")
     if not max(wire_vs_oracle) <= CORPUS_TOL:
         fail(f"corpus: wire features differ from the wire's host oracle by "
              f"{max(wire_vs_oracle)} > {CORPUS_TOL}")
@@ -1576,7 +1746,8 @@ def run_train(torch, dev, pattern_dir, rng, work):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     expected = {**dict.fromkeys(counts, 0), "gru_scan": 3, "refenc_stack": 1,
-                "stft_features": 4, "decode_scan": 1}
+                "refenc_stack:bf16": 1, "stft_features": 4, "stft_features:bf16": 4,
+                "decode_scan": 1}
     info = {"config": "gst_lj", "transport": "synthesis from the trained state",
             "batch": B, "launches": nonzero_counts(ops), "wall_ms": 1e3 * wall,
             "frames": out["mel"].shape[1],
@@ -1747,6 +1918,7 @@ def taco2_encoder_k1(torch, dev, model, tok, tok_len):
     launch, the model's seeded weights, the path's token lengths): error
     against the plain scans, kernel / plain / cuDNN times, device time by
     phase (the mean of 10 profiled calls), and its bound."""
+    from gst_tacotron_tpu_torch.kernel_bench import gru_scan_work
     from gst_tacotron_tpu_torch.ops.gru import bigru_scan, gru_scan_plain
 
     with torch.no_grad():
@@ -1782,9 +1954,7 @@ def taco2_encoder_k1(torch, dev, model, tok, tok_len):
             lib(x, h0)
 
     t = x.shape[1]
-    flops = 2 * 2.0 * B * t * (d + h) * 3 * h
-    nbytes = 4.0 * (B * t * d + B + 2 * (B * t * h + 2 * B * h + (d + h + 2) * 3 * h))
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound(gru_scan_work(B, t, d, h, directions=2))
     # device time by phase, over 10 calls in one profile (one call's events
     # were lost twice in a row); None where the profiler saw none
     reps = 10
@@ -1900,7 +2070,8 @@ def run_jax_export(torch, dev, work):
         map_location=dev)
     model = build_model(cfg, seed=0, device=dev)
     model.load_state_dict(saved["model"])
-    out = Synthesizer(cfg, model, device=dev, deterministic_prenet=True)(
+    # float32 by name: the stored mel is the JAX package's on the CPU
+    out = Synthesizer(cfg, model, device=dev, deterministic_prenet=True, bf16=False)(
         texts, reference_wavs=[exp["ref_wav"]] * 2, seed=0)
     mel_err = float(np.abs(out["mel"] - exp["mel"]).max())
 
@@ -2561,6 +2732,23 @@ def run_bench(torch, card):
     log(f"bench done in {time.perf_counter() - t0:.1f} s")
 
 
+def run_kernel_bench(torch, card):
+    """``python -m gst_tacotron_tpu_torch.kernel_bench`` at the JAX tool's
+    defaults (gst_lj B=8 200 steps, 1000 and 2000 for the marginal; K3″ on
+    1024 frames; 8 wavs of 512 frames through every STFT route; the (8, 256,
+    80) reference encoder in float32 and bf16; gst_r1_location 1000 steps;
+    WaveRNN at 4, 16 and 32 streams): its report with the card on one line.
+    Fails where a section did not launch its kernels, a parity error exceeds
+    the JAX package's kernel-test tolerance, or a roofline share reads over
+    1.05."""
+    from gst_tacotron_tpu_torch import kernel_bench
+
+    report = kernel_bench.run("cuda")
+    print(json.dumps({"kernel_bench": report, "card": card}), flush=True)
+    if report["failures"]:
+        fail("kernel_bench: " + "; ".join(report["failures"]))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2570,6 +2758,7 @@ def main() -> None:
     try:
         from gst_tacotron_tpu_torch import ops
         from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+        from gst_tacotron_tpu_torch.kernel_bench import card_line
         from gst_tacotron_tpu_torch.ops.build import build_all
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
@@ -2578,12 +2767,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    try:
+        card = card_line()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        fail(str(e))
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     decode_only = sys.argv[1:] == ["--decode-only"]
@@ -2623,7 +2810,7 @@ def main() -> None:
                 tempfile.TemporaryDirectory() as work:
             generate_patterns(synthetic_utterances(CORPUS_UTTERANCES, variable=True),
                               get_preset("gst_lj").audio, corpus_dir, store_wav=True,
-                              device_features=True, device=dev)
+                              device_features=True, device=dev, bf16=False)
             run_train_phase(torch, dev, corpus_dir, work)
         print(card)
         return
@@ -2631,7 +2818,9 @@ def main() -> None:
     kernels = []
     for check in (lambda: check_gru(torch, rng, dev),
                   lambda: check_refenc(torch, rng, dev),
+                  lambda: check_refenc_bf16(torch, dev),
                   lambda: check_stft(torch, rng, dev, cfg),
+                  lambda: check_stft_bf16(torch, dev, cfg),
                   lambda: check_stft_fused(torch, dev, cfg),
                   lambda: check_stft_frames(torch, dev, cfg),
                   lambda: check_decode(torch, rng, dev, cfg),
@@ -2653,9 +2842,11 @@ def main() -> None:
         kernels.append(res)
 
     # gru_scan: the encoder and post-net BiGRUs (one launch each, both
-    # directions) and the reference-encoder GRU
+    # directions) and the reference-encoder GRU; on the card the reference
+    # path runs K3's and K2's bf16 modes (their branch counters)
     taco = {**dict.fromkeys(ops.launch_counts(), 0), "gru_scan": 3, "refenc_stack": 1,
-            "stft_features": 4, "decode_scan": 1}
+            "refenc_stack:bf16": 1, "stft_features": 4, "stft_features:bf16": 4,
+            "decode_scan": 1}
     # (path, config, launches beyond taco's, run_path options); each kernel
     # row takes its launches from the first path that launches it
     paths = (("gst_lj", cfg, {}, {}),
@@ -2703,6 +2894,9 @@ def main() -> None:
         run_style(torch, work)
         log(f"style phase done in {time.perf_counter() - t0:.1f} s")
     run_bench(torch, card)
+    t0 = time.perf_counter()
+    run_kernel_bench(torch, card)
+    log(f"kernel_bench phase done in {time.perf_counter() - t0:.1f} s")
     run_train_bench(torch, card)
     for r in kernels:
         if "launches" not in r:

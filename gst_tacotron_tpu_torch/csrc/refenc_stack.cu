@@ -38,8 +38,26 @@
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, each layer takes 20-49 us
 // whatever its FLOPs: a layer is latency-bound (PERF.md); a persistent
 // launch with a grid barrier between layers is the alternative.
+//
+// bf16 mode (bf16 = 1): the batched Pallas kernel's bf16 operand mode
+// (refenc_stack_pallas_batched(bf16=True)): each layer's input and its conv
+// taps rounded to bfloat16 (__float2bfloat16_rn, in shared memory right
+// after the copy, or at the load for taps read through the cache), the
+// products summed in float32 on the CUDA cores (a product of two bf16
+// values is exact in float32), the folded-BN epilogue and ReLU in float32.
+// Its launches take no k split (ops/refenc.py::layer_plan(split_k=False)),
+// so each output is summed in one order whatever the batch. Bound: the same
+// FLOPs, at the 989 TFLOP/s of the bf16 tensor cores about 0.8 us at the
+// main-path shape, so the bytes (1.3 MB, about 0.4 us) do not bound it
+// either; a tensor-core form is later work.
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 #define REFENC_MAX_LAYERS 8
 #define RE_THREADS 256
@@ -78,7 +96,7 @@ __host__ __device__ inline int refenc_patch_rows(int span, int wo) {
 // with every load in flight, the input rows its pixels touch (rows past the
 // length or outside the input as zeros) and, where SW, its channel tile's
 // taps [9 * ci][32] into shared memory; then each thread sums from there.
-template <int VEC, int PX, bool SW>
+template <int VEC, int PX, bool SW, bool BF>
 __global__ void __launch_bounds__(RE_THREADS)
 refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
   extern __shared__ float4 smem4[];
@@ -128,6 +146,12 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+  if (BF) {  // the bf16 mode's operands, rounded once where they are staged
+    for (int e = threadIdx.x; e < nrows * rowlen; e += RE_THREADS) Xs[e] = round_bf16(Xs[e]);
+    if (SW)
+      for (int e = threadIdx.x; e < 9 * ci * RE_TC; e += RE_THREADS) Ws[e] = round_bf16(Ws[e]);
+    __syncthreads();
+  }
 
   float acc[PX];
   int pi[PX], pq[PX];
@@ -155,6 +179,10 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             w[j] = SW ? ws[(c + j) * RE_TC] : (ook ? __ldg(kp + (size_t)(c + j) * co) : 0.0f);
+          if (BF && !SW) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) w[j] = round_bf16(w[j]);
+          }
 #pragma unroll
           for (int i = 0; i < PX; ++i) {
             if (xp[i] == nullptr) continue;
@@ -167,7 +195,8 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
         }
       } else {
         for (int c = c0; c < c1; ++c) {
-          const float w = SW ? ws[c * RE_TC] : (ook ? __ldg(kp + (size_t)c * co) : 0.0f);
+          float w = SW ? ws[c * RE_TC] : (ook ? __ldg(kp + (size_t)c * co) : 0.0f);
+          if (BF && !SW) w = round_bf16(w);
 #pragma unroll
           for (int i = 0; i < PX; ++i)
             if (xp[i] != nullptr) acc[i] = fmaf(xp[i][c], w, acc[i]);
@@ -204,7 +233,7 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
 // HBM3 at 700 W).
 #define RE_STAGE_W_BYTES (80 * 1024)
 
-template <int VEC, bool SW>
+template <int VEC, bool SW, bool BF>
 static cudaError_t launch_layer_sw(const RefencLayer& L, const int* lengths, int px, int B,
                                    cudaStream_t stream) {
   const int slots = RE_GROUPS / L.ks;
@@ -215,10 +244,10 @@ static cudaError_t launch_layer_sw(const RefencLayer& L, const int* lengths, int
   switch (px) {
 #define RE_CASE(P)                                                                              \
   case P:                                                                                       \
-    err = cudaFuncSetAttribute(refenc_layer_kernel<VEC, P, SW>,                                  \
+    err = cudaFuncSetAttribute(refenc_layer_kernel<VEC, P, SW, BF>,                              \
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);         \
     if (err != cudaSuccess) return err;                                                         \
-    refenc_layer_kernel<VEC, P, SW><<<grid, RE_THREADS, smem, stream>>>(L, lengths);            \
+    refenc_layer_kernel<VEC, P, SW, BF><<<grid, RE_THREADS, smem, stream>>>(L, lengths);        \
     break;
     RE_CASE(1)
     RE_CASE(2)
@@ -229,21 +258,22 @@ static cudaError_t launch_layer_sw(const RefencLayer& L, const int* lengths, int
   return cudaGetLastError();
 }
 
-template <int VEC>
+template <int VEC, bool BF>
 static cudaError_t launch_layer(const RefencLayer& L, const int* lengths, int px, int B,
                                 cudaStream_t stream) {
   return 9 * L.ci * RE_TC * sizeof(float) <= RE_STAGE_W_BYTES
-             ? launch_layer_sw<VEC, true>(L, lengths, px, B, stream)
-             : launch_layer_sw<VEC, false>(L, lengths, px, B, stream);
+             ? launch_layer_sw<VEC, true, BF>(L, lengths, px, B, stream)
+             : launch_layer_sw<VEC, false, BF>(L, lengths, px, B, stream);
 }
 
 // channels, ks and px: host arrays of n_layers entries (ops/refenc.py::
 // layer_plan); scratch holds 2 * B * max_act floats (max_act the largest
-// activation but the last); params each layer's kernel, scale and bias.
+// activation but the last); params each layer's kernel, scale and bias;
+// bf16 the bf16 operand mode.
 extern "C" int refenc_stack_launch(const float* mel, const int* lengths, const float* params,
                                    const int* channels, const int* ks, const int* px,
                                    int n_layers, float* out, float* scratch, int B, int T,
-                                   int F, cudaStream_t stream) {
+                                   int F, int bf16, cudaStream_t stream) {
   if (n_layers < 1 || n_layers > REFENC_MAX_LAYERS || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   long long max_act = 1;
@@ -276,8 +306,11 @@ extern "C" int refenc_stack_launch(const float* mel, const int* lengths, const f
     L.ks = ks[l];
     if (L.ks < 1 || L.ks > RE_GROUPS || RE_GROUPS % L.ks != 0 || L.co < 1)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t err = ci % 4 == 0 ? launch_layer<4>(L, lengths, px[l], B, stream)
-                                        : launch_layer<1>(L, lengths, px[l], B, stream);
+    const cudaError_t err =
+        bf16 ? (ci % 4 == 0 ? launch_layer<4, true>(L, lengths, px[l], B, stream)
+                            : launch_layer<1, true>(L, lengths, px[l], B, stream))
+             : (ci % 4 == 0 ? launch_layer<4, false>(L, lengths, px[l], B, stream)
+                            : launch_layer<1, false>(L, lengths, px[l], B, stream));
     if (err != cudaSuccess) return (int)err;
     K += 9LL * ci * L.co + 2LL * L.co;
     in = L.out;

@@ -285,12 +285,12 @@ def extract_pattern(utt: Utterance, audio: AudioConfig, out_dir: str,
 
 
 def _device_feature_results(utts, audio, out_dir, store_wav, device=None,
-                            chunk_size: int = 64):
+                            chunk_size: int = 64, bf16=None):
     """Host prep (trim, normalize) in chunks, then one batched device call
     per bucket group for the STFT and mel work (K3 on the card)."""
     from ..dsp.device_features import DeviceFeatureExtractor
 
-    extractor = DeviceFeatureExtractor(audio, device)
+    extractor = DeviceFeatureExtractor(audio, device, bf16=bf16)
     for start in range(0, len(utts), chunk_size):
         prepped = [(u, prepare_wav(u, audio)) for u in utts[start: start + chunk_size]]
         kept = [(u, p) for u, p in prepped if p is not None]
@@ -315,10 +315,13 @@ def generate_patterns(
     device_features: bool = False,
     wav_only: bool = False,
     device=None,
+    bf16=None,
 ) -> dict:
     """Write the corpus's patterns and ``metadata.json`` into ``out_dir``;
     returns the metadata. ``device`` is where ``device_features`` runs (the
-    card unless ``"cpu"`` is given); the host path ignores it."""
+    card unless ``"cpu"`` is given); the host path ignores it. ``bf16`` is
+    the device extractor's (None: K3's bf16 mode on the card, as the JAX
+    extractor on its accelerator; False pins float32)."""
     os.makedirs(out_dir, exist_ok=True)
     if wav_only and device_features:
         raise ValueError(
@@ -330,7 +333,7 @@ def generate_patterns(
     entries = []
     pool = None
     if device_features:
-        results = _device_feature_results(utts, audio, out_dir, store_wav, device)
+        results = _device_feature_results(utts, audio, out_dir, store_wav, device, bf16=bf16)
     elif num_workers > 1:
         pool = ProcessPoolExecutor(num_workers, mp_context=multiprocessing.get_context("spawn"))
         n = len(utts)

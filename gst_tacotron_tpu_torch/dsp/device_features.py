@@ -19,6 +19,11 @@ brackets):
 
 A kernel route launches its kernel for CUDA tensors and runs its plain
 version on the CPU; ``plain=True`` runs the plain version on any device.
+
+The resident route computes K3's bf16 operand mode where ``bf16`` resolves
+true: as the JAX extractor's ``bf16=not self.interpret``, None is on for a
+CUDA device and off on the CPU (JAX's interpret mode, float32). The other
+routes are float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,11 +51,12 @@ class DeviceFeatureExtractor:
 
     def __init__(self, cfg: AudioConfig, device=None, batch_size: int = 8,
                  frame_bucket: int = 128, stft_kernel: Optional[str] = "resident",
-                 plain: bool = False):
+                 plain: bool = False, bf16: Optional[bool] = None):
         if stft_kernel not in ROUTES:
             raise ValueError(f"stft_kernel {stft_kernel!r} is not one of {ROUTES}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.bf16 = self.device.type == "cuda" if bf16 is None else bool(bf16)
         self.batch_size = batch_size
         self.frame_bucket = frame_bucket
         self.stft_kernel = stft_kernel
@@ -65,7 +71,7 @@ class DeviceFeatureExtractor:
         cfg, route, plain = self.cfg, self.stft_kernel, self.plain
         if route == "resident":
             fn = stft.stft_features_plain if plain else stft.stft_features
-            return fn(batch, cfg, self._bases)
+            return fn(batch, cfg, self._bases, bf16=self.bf16)
         if route == "fused":
             fn = stft.stft_features_plain if plain else stft.stft_features_fused
             return fn(batch, cfg, self._bases)

@@ -4,7 +4,8 @@
 At inference in float32 the forward passes are the composition of
 ``gst_tacotron_tpu/ops/refenc_pallas.py``, ported in ``ops/refenc.py``:
 masked, folded-BN conv stack (K2), then the reference GRU (K1), then the
-multi-head attention over the tanh tokens. In training (``train=True``),
+multi-head attention over the tanh tokens, with K2 in float32 as the flax
+module computes it. In training (``train=True``),
 and at inference in another compute dtype, the reference encoder is the
 flax module's own composition in the compute dtype: plain stride-2 convs,
 BatchNorm (the batch's statistics in training, the running ones at
@@ -44,7 +45,9 @@ class ReferenceEncoder(nn.Module):
     def forward(self, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor] = None,
                 *, plain: bool = False, train: bool = False) -> torch.Tensor:
         if not train and compute_dtype(self) == torch.float32:
-            return refenc.ref_encoder(self, ref_mel, mel_lengths, plain=plain)
+            # float32, as the flax module computes it (the bf16 operand
+            # mode is the JAX synthesis fast path's, GSTTacotron.infer)
+            return refenc.ref_encoder(self, ref_mel, mel_lengths, plain=plain, bf16=False)
         x = mask_sequence(ref_mel, mel_lengths)[..., None]        # (B, T, F, 1)
         n = len(self.cfg.ref_conv_channels)
         for i in range(n):
@@ -98,7 +101,7 @@ class GST(nn.Module):
         dt = compute_dtype(self)
         if not train and dt == torch.float32:
             return refenc.gst_style_from_params(self, ref_mel, mel_lengths,
-                                                token_weights, plain=plain)
+                                                token_weights, plain=plain, bf16=False)
         if ref_mel is None:
             if token_weights is None:
                 raise ValueError("GST needs ref_mel or token_weights")

@@ -134,17 +134,20 @@ class GSTTacotron(nn.Module):
               max_steps: Optional[int] = None, deterministic_prenet: bool = False,
               seed: int = 0, precomputed_style: Optional[torch.Tensor] = None,
               plain: bool = False, chunk_steps: Optional[int] = None,
-              stop_all_reduce=None) -> Dict[str, torch.Tensor]:
+              stop_all_reduce=None, bf16: Optional[bool] = None
+              ) -> Dict[str, torch.Tensor]:
         """Autoregressive synthesis: encode (prenet dropout from ``seed``),
         decode (dropout stream ``seed + 1``), post-net. ``chunk_steps``
         decodes in chunks with early exit (``decode.chunked_decode``, whose
         ``all_reduce`` is ``stop_all_reduce``; the result then has
-        ``chunks_run``)."""
+        ``chunks_run``). The style is the JAX synthesis fast path's: K2 in
+        its bf16 operand mode where ``bf16`` resolves true
+        (``refenc.resolve_bf16``: None is on for the card)."""
         gen = _generator(seed, tokens.device, deterministic_prenet)
         style_attn = None
         if self.gst is not None and precomputed_style is None:
             precomputed_style, style_attn = gst_style_from_params(
-                self.gst, ref_mel, ref_mel_lengths, token_weights, plain=plain)
+                self.gst, ref_mel, ref_mel_lengths, token_weights, plain=plain, bf16=bf16)
         memory, aux = self.build_memory(
             tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
             speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,

@@ -7,9 +7,18 @@ folded BatchNorm, ReLU) over a (B, T, F) mel with rows past each length
 zeroed first, giving (B, T', F' * C_last). One kernel takes any T, so it
 serves both the batched (T % 64 == 0) and the per-element Pallas contracts.
 
+``bf16=True`` is the batched Pallas kernel's bf16 operand mode
+(``refenc_stack_pallas_batched(bf16=True)``): each layer's input and the
+conv kernels rounded to bfloat16, their products summed in float32, the
+folded-BN epilogue and ReLU in float32.
+
 ``ref_encoder`` and ``gst_style_from_params`` port the JAX composition:
 mask + folded-BN stack (K2), then the reference GRU (K1), then the
-style-token attention.
+style-token attention. Their ``bf16=None`` resolves as
+``ref_encoder_pallas`` resolves it on its accelerator (``resolve_bf16``): on
+for a CUDA tensor at a shape where JAX picks the batched form
+(``refenc_batched_supported`` and ``refenc_batched_vmem_ok``), off on the
+CPU.
 """
 
 from __future__ import annotations
@@ -23,9 +32,10 @@ import torch
 from ..models.modules import BN_EPS, conv2d_stride2_same, mask_sequence
 from .build import I, P, CudaKernel, check_cuda, ptr, refuse_grad, sm_count, stream_ptr
 from .gru import gru_scan, gru_scan_plain
+from .stft import round_bf16
 
 KERNEL = CudaKernel("refenc_stack.cu", "refenc_stack_launch",
-                    [P, P, P, P, P, P, I, P, P, I, I, I, P])
+                    [P, P, P, P, P, P, I, P, P, I, I, I, I, P], branches=("bf16",))
 MAX_LAYERS = 8
 # a layer block's warps and output channels (csrc/refenc_stack.cu), and its
 # (k parts, pixels a thread) candidates in order of preference: fewer split
@@ -35,19 +45,21 @@ _SPLITS = ((1, 4), (1, 2), (2, 2), (1, 1), (2, 1), (4, 1), (8, 1))
 
 
 def layer_plan(batch: int, t: int, f: int, channels: Sequence[int],
-               sms: int) -> List[Dict[str, int]]:
+               sms: int, split_k: bool = True) -> List[Dict[str, int]]:
     """K2's launch of each layer of a (batch, t, f) stack: ``ks`` k parts of
     the input-channel sum and ``px`` pixels a thread, the first of
-    ``_SPLITS`` (with ks no more than C_in) whose grid gives each of ``sms``
-    SMs two blocks, else the one with the most blocks; ``blocks`` its grid
-    and ``shape`` (h_out, w_out, c_out)."""
+    ``_SPLITS`` (with ks no more than C_in, and 1 unless ``split_k``) whose
+    grid gives each of ``sms`` SMs two blocks, else the one with the most
+    blocks; ``blocks`` its grid and ``shape`` (h_out, w_out, c_out).
+    Without a split every output is summed in one order whatever the batch
+    (the bf16 mode: a rank's rows give the whole batch's bits)."""
     plans, h, w, c_in = [], t, f, 1
     for c in channels:
         h, w = (h + 1) // 2, (w + 1) // 2
         ctiles = -(-c // CHANNEL_TILE)
         best = None
         for ks, px in _SPLITS:
-            if ks > c_in:
+            if ks > c_in or (ks > 1 and not split_k):
                 continue
             blocks = batch * ctiles * -(-(h * w) // ((GROUPS // ks) * px))
             if best is None or blocks > best["blocks"]:
@@ -58,6 +70,49 @@ def layer_plan(batch: int, t: int, f: int, channels: Sequence[int],
         plans.append(best)
         c_in = c
     return plans
+
+
+def refenc_batched_supported(t: int, n_layers: int) -> bool:
+    """Whether the batched Pallas form takes T (``refenc_pallas.py``'s
+    rule): every intermediate height even."""
+    return t % (1 << n_layers) == 0
+
+
+_BATCHED_VMEM_LIMIT = 100 * 1024 * 1024   # the batched Pallas form's scoped VMEM
+
+
+def refenc_batched_vmem_ok(b: int, t: int, f: int, channels: Sequence[int]) -> bool:
+    """Whether the batched Pallas form's VMEM peak fits its limit, the rule by
+    which ``ref_encoder_pallas`` picks that form (the shape arithmetic of
+    ``refenc_pallas.py::_refenc_layout`` and ``refenc_batched_vmem_ok``): all
+    phase matrices live, plus the largest layer's padded input and output."""
+    n = len(channels)
+    if t % (1 << n):
+        raise ValueError(f"refenc_batched_vmem_ok: t {t} is not a multiple of {1 << n}")
+    w, hp, c_in, wp_in = f, t + (1 << n), 1, f + 1
+    mats = peak = 0
+    for li, c_out in enumerate(channels):
+        w = (w + 1) // 2
+        wp_out = w if li == n - 1 else w + 1
+        lanes_in, lanes_out = wp_in * c_in, wp_out * c_out
+        mats += 3 * lanes_in * lanes_out + 2 * lanes_out
+        x_in = (b * hp + 8) * lanes_in * 2          # x + its padded copy
+        x_out = b * (hp // 2) * lanes_out * 2       # the sum + the masked result
+        peak = max(peak, x_in + x_out)
+        hp, c_in, wp_in = hp // 2, c_out, wp_out
+    return 4 * (mats + peak) < _BATCHED_VMEM_LIMIT * 0.9
+
+
+def resolve_bf16(bf16: Optional[bool], ref_mel: torch.Tensor,
+                 channels: Sequence[int]) -> bool:
+    """``bf16`` as given, or (None) as ``ref_encoder_pallas`` resolves it on
+    its accelerator: on for a CUDA tensor where the batched form is chosen,
+    off on the CPU (where JAX runs in interpret mode, in float32)."""
+    if bf16 is not None:
+        return bool(bf16)
+    b, t, f = ref_mel.shape
+    return (ref_mel.device.type == "cuda" and refenc_batched_supported(t, len(channels))
+            and refenc_batched_vmem_ok(b, t, f, channels))
 
 
 def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -71,10 +126,16 @@ def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
 def refenc_stack_plain(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tensor],
                        bn_scales: Sequence[torch.Tensor],
                        bn_biases: Sequence[torch.Tensor], *,
-                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The same stack in plain PyTorch (patch slices + one product a layer)."""
+                       lengths: Optional[torch.Tensor] = None,
+                       bf16: bool = False) -> torch.Tensor:
+    """The same stack in plain PyTorch (patch slices + one product a layer);
+    ``bf16`` rounds each layer's input and kernel to bfloat16 first (their
+    products are exact in float32, so the float32 sums compute the bf16
+    mode's function)."""
     x = mask_sequence(ref_mel, lengths)[..., None]            # (B, T, F, 1)
     for kern, sc, bi in zip(conv_kernels, bn_scales, bn_biases):
+        if bf16:
+            x, kern = round_bf16(x), round_bf16(kern)
         x = torch.relu(conv2d_stride2_same(x, kern) * sc + bi)
     b, t, f, c = x.shape
     return x.reshape(b, t, f * c)
@@ -83,12 +144,14 @@ def refenc_stack_plain(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tenso
 def refenc_stack(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tensor],
                  bn_scales: Sequence[torch.Tensor],
                  bn_biases: Sequence[torch.Tensor], *,
-                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 lengths: Optional[torch.Tensor] = None,
+                 bf16: bool = False) -> torch.Tensor:
     """Conv stack: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors; ``bf16`` the bf16 operand mode (counted as the kernel's
+    ``bf16`` branch)."""
     if ref_mel.device.type == "cpu":
         return refenc_stack_plain(ref_mel, conv_kernels, bn_scales, bn_biases,
-                                  lengths=lengths)
+                                  lengths=lengths, bf16=bf16)
     refuse_grad("refenc_stack", ref_mel, *conv_kernels, *bn_scales, *bn_biases)
     b, t, f = ref_mel.shape
     channels = [int(k.shape[-1]) for k in conv_kernels]
@@ -105,7 +168,7 @@ def refenc_stack(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tensor],
     mel = ref_mel.to(torch.float32).contiguous()
     lens = None if lengths is None else lengths.to(mel.device, torch.int32).contiguous()
     check_cuda("refenc_stack", mel, params, lens)
-    plan = layer_plan(b, t, f, channels, sm_count(mel.device.index))
+    plan = layer_plan(b, t, f, channels, sm_count(mel.device.index), split_k=not bf16)
     h, w, _ = plan[-1]["shape"]
     out = torch.empty(b, h, w * channels[-1], device=mel.device, dtype=torch.float32)
     if b == 0:
@@ -118,17 +181,18 @@ def refenc_stack(ref_mel: torch.Tensor, conv_kernels: Sequence[torch.Tensor],
     host = lambda xs: (ctypes.c_int * len(xs))(*xs)      # read on the host
     KERNEL(ptr(mel), ptr(lens), ptr(params), host(channels), host([p["ks"] for p in plan]),
            host([p["px"] for p in plan]), len(channels), ptr(out), ptr(scratch), b, t, f,
-           stream_ptr(mel.device))
+           int(bf16), stream_ptr(mel.device), branch="bf16" if bf16 else None)
     return out
 
 
 
 def ref_encoder(enc, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor],
-                *, plain: bool = False) -> torch.Tensor:
+                *, plain: bool = False, bf16: Optional[bool] = None) -> torch.Tensor:
     """ReferenceEncoder forward from its parameters (inference): masked,
     folded-BN conv stack (K2), then the GRU (K1) -> (B, ref_gru_dim).
     ``enc`` is a ``models.gst.ReferenceEncoder``; ``plain`` runs the plain
-    versions of both kernels whatever the device."""
+    versions of both kernels whatever the device; ``bf16`` the stack's bf16
+    operand mode (None: ``resolve_bf16``)."""
     n_layers = len(enc.cfg.ref_conv_channels)
     kernels, scales, biases = [], [], []
     for i in range(n_layers):
@@ -137,8 +201,9 @@ def ref_encoder(enc, ref_mel: torch.Tensor, mel_lengths: Optional[torch.Tensor],
         kernels.append(getattr(enc, f"conv_{i}").kernel)
         scales.append(sc)
         biases.append(bi)
+    bf16 = resolve_bf16(bf16, ref_mel, enc.cfg.ref_conv_channels)
     stack = refenc_stack_plain if plain else refenc_stack
-    feats = stack(ref_mel, kernels, scales, biases, lengths=mel_lengths)
+    feats = stack(ref_mel, kernels, scales, biases, lengths=mel_lengths, bf16=bf16)
     stride_total = 2 ** n_layers
     gru_lengths = None
     if mel_lengths is not None:
@@ -184,11 +249,12 @@ def style_attention(stl, ref: torch.Tensor,
 def gst_style_from_params(gst, ref_mel: Optional[torch.Tensor],
                           mel_lengths: Optional[torch.Tensor] = None,
                           token_weights: Optional[torch.Tensor] = None, *,
-                          plain: bool = False
+                          plain: bool = False, bf16: Optional[bool] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full GST block (inference): reference encoder (K2 + K1) and the
     style-token attention. ``gst`` is a ``models.gst.GST``; with no
-    reference mel the style comes from ``token_weights`` alone."""
+    reference mel the style comes from ``token_weights`` alone. ``bf16``
+    as ``ref_encoder``'s: the JAX fast path leaves it to resolve."""
     c = gst.cfg
     if ref_mel is None:
         if token_weights is None:
@@ -196,5 +262,5 @@ def gst_style_from_params(gst, ref_mel: Optional[torch.Tensor],
         ref = torch.zeros(token_weights.shape[0], c.ref_gru_dim,
                           device=token_weights.device)
     else:
-        ref = ref_encoder(gst.reference_encoder, ref_mel, mel_lengths, plain=plain)
+        ref = ref_encoder(gst.reference_encoder, ref_mel, mel_lengths, plain=plain, bf16=bf16)
     return style_attention(gst.stl, ref, token_weights)

@@ -7,7 +7,10 @@ from ``fft_plan``; any hop | n_fft, each transform in shared memory or, past
 filter's nonzero bins, in one launch:
 
   K3   ``stft_features``        <- ``stft_features_pallas_resident``:
-       (B, L) wav (``csrc/stft_features.cu``);
+       (B, L) wav (``csrc/stft_features.cu``); ``bf16`` is the resident
+       kernel's bf16 operand mode (frames and bases, then magnitudes and the
+       mel basis, rounded to bfloat16, float32 sums), on K3′'s tensor-core
+       kernel with a bf16 mel;
   K3′  ``stft_features_fused``  <- ``stft_features_pallas_fused``: the same
        function through the same kernel (``csrc/stft_wav.cuh``), with its own
        launcher and counter; ``bf16_bases`` runs the window-baked DFT
@@ -40,12 +43,12 @@ from ..dsp.ref import live_tap_span, padded_window
 from ..dsp.torch_dsp import TorchDSP
 from .build import F, I, P, CudaKernel, check_cuda, ptr, refuse_grad, sm_count, stream_ptr
 
-KERNEL = CudaKernel("stft_features.cu", "stft_features_launch",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
-                     F, F, F, I, I, P, P])
-FUSED_KERNEL = CudaKernel("stft_fused.cu", "stft_fused_launch",
-                          [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
-                           F, F, F, I, I, I, I, P, P])
+# K3 and K3′ share one launcher signature (csrc/stft_features.cu,
+# csrc/stft_fused.cu)
+_WAV_ARGS = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
+             F, F, F, I, I, I, I, P, P]
+KERNEL = CudaKernel("stft_features.cu", "stft_features_launch", _WAV_ARGS, branches=("bf16",))
+FUSED_KERNEL = CudaKernel("stft_fused.cu", "stft_fused_launch", _WAV_ARGS)
 FRAMES_KERNEL = CudaKernel("stft_frames.cu", "stft_frames_launch",
                            [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, I, F, F, F, I, I,
                             P, P])
@@ -157,7 +160,7 @@ def sparse_mel(mel_t: np.ndarray, num_freq: int) -> Tuple[np.ndarray, np.ndarray
 
 def bf16_bits(x: np.ndarray) -> np.ndarray:
     """The bfloat16 bits (uint16) of x rounded to nearest, ties to even: the
-    rounding of ``_bf16`` (torch's cast)."""
+    rounding of ``round_bf16`` (torch's cast)."""
     t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
     return t.view(torch.int16).numpy().view(np.uint16)
 
@@ -347,31 +350,39 @@ def _num_frames(cfg: AudioConfig, total: int) -> int:
     return 1 + (total - cfg.n_fft) // cfg.hop_length
 
 
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """Round to the nearest bfloat16 and back to float32."""
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest bfloat16 (ties to even) and back to float32: a
+    plain version's bf16 operand."""
     return x.to(torch.bfloat16).to(torch.float32)
 
 
 def _live_features(frames: torch.Tensor, cfg: AudioConfig, bases, normalize_linear: bool,
-                   bf16_bases: bool = False) -> Features:
+                   bf16_bases: bool = False, bf16_mel: bool = False) -> Features:
     """(..., n_live) frames' live taps -> (mel, linear): two products against
-    the window-baked bases, the magnitude, the mel product, dB."""
+    the window-baked bases, the magnitude, the mel product, dB.
+    ``bf16_bases`` rounds the frames and the bases to bfloat16,
+    ``bf16_mel`` the magnitude and the mel basis for the mel product (the
+    linear output keeps the float32 magnitude); the products of bf16 values
+    are exact in float32, so the float32 sums compute the bf16 modes."""
     nf = cfg.num_freq
     cos_b, sin_b = dft_bases(cfg, str(frames.device))
+    mel_t = bases["mel_t"][:nf]
     if bf16_bases:
-        frames, cos_b, sin_b = _bf16(frames), _bf16(cos_b), _bf16(sin_b)
+        frames, cos_b, sin_b = round_bf16(frames), round_bf16(cos_b), round_bf16(sin_b)
     re = frames @ cos_b
     im = frames @ sin_b
     mag = torch.sqrt(re * re + im * im)
-    mel = mag @ bases["mel_t"][:nf]
+    mel = round_bf16(mag) @ round_bf16(mel_t) if bf16_mel else mag @ mel_t
     return db_normalize(mel, cfg), (db_normalize(mag, cfg) if normalize_linear else mag)
 
 
 def stft_features_plain(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
-                        normalize_linear: bool = True, bf16_bases: bool = False
-                        ) -> Features:
+                        normalize_linear: bool = True, bf16_bases: bool = False,
+                        bf16: bool = False) -> Features:
     """The plain version of K3 and K3′ (one function, computed whole here):
-    hop-chunk framing of the live taps, then ``_live_features``."""
+    hop-chunk framing of the live taps, then ``_live_features``.
+    ``bf16_bases`` is K3′'s mode (the mel stays float32), ``bf16`` K3's (the
+    bases and the mel product on bf16 operands)."""
     hop = cfg.hop_length
     t = _num_frames(cfg, wav.shape[-1])
     bases = bases or stft_bases(cfg, wav.device)
@@ -379,7 +390,7 @@ def stft_features_plain(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
     num_chunks = wav.shape[-1] // hop
     chunks = wav[:, : num_chunks * hop].reshape(wav.shape[0], num_chunks, hop)
     frames = torch.cat([chunks[:, j: j + t] for j in range(j0, j1)], dim=-1)
-    return _live_features(frames, cfg, bases, normalize_linear, bf16_bases)
+    return _live_features(frames, cfg, bases, normalize_linear, bf16_bases or bf16, bf16)
 
 
 def stft_features_frames_plain(frames: torch.Tensor, cfg: AudioConfig, bases=None, *,
@@ -416,7 +427,8 @@ def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConf
                 normalize_linear: bool, bf16_bases: bool = False) -> Features:
     """One launch of K3 or K3′ (``kernel``) on a CUDA wav: float32 through
     the FFT (in shared memory, or on a device-memory scratch past
-    ``MAX_FFT_SIZE``), or K3′'s bf16 bases on clusters of
+    ``MAX_FFT_SIZE``), or on bf16 operands (K3′'s bf16 bases, K3's bf16
+    mode, counted as its ``bf16`` branch) on clusters of
     ``bf16_cluster(n_fft)`` CTAs."""
     refuse_grad(name, wav)
     cw = bf16_cluster(cfg.n_fft) if bf16_bases else 0    # the size limit, before any table
@@ -440,22 +452,25 @@ def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConf
     sizes = [ptr(mel), ptr(lin), b, total, t, cfg.hop_length, j0 * cfg.hop_length, n_live,
              cfg.n_fft, cfg.num_mels, fr, slots, radix, stages,
              *_norm_args(cfg, normalize_linear)]
-    if kernel is FUSED_KERNEL:
-        kernel(ptr(wav), *tables, *frags, *sizes, int(bf16_bases), cw, ptr(scratch),
-               stream_ptr(wav.device))
-    else:
-        kernel(ptr(wav), *tables, *sizes, ptr(scratch), stream_ptr(wav.device))
+    branch = "bf16" if bf16_bases and kernel is KERNEL else None
+    kernel(ptr(wav), *tables, *frags, *sizes, int(bf16_bases), cw, ptr(scratch),
+           stream_ptr(wav.device), branch=branch)
     return mel, lin
 
 
 def stft_features(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
-                  normalize_linear: bool = True) -> Features:
+                  normalize_linear: bool = True, bf16: bool = False) -> Features:
     """K3: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors, for any hop | n_fft. ``bases`` (from ``stft_bases``) may be
-    passed to reuse the device copies."""
+    tensors, for any hop | n_fft (``bf16``: n_fft up to 19711). ``bases``
+    (from ``stft_bases``) may be passed to reuse the device copies.
+    ``bf16`` is the resident Pallas kernel's bf16 operand mode: frames and
+    window-baked bases rounded to bfloat16 with float32 sums, then the
+    magnitude and the mel basis rounded to bfloat16 for the mel product. It
+    differs from K3′'s ``bf16_bases`` by that mel product."""
     if wav.device.type == "cpu":
-        return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear)
-    return _launch_wav(KERNEL, "stft_features", wav, cfg, bases, normalize_linear)
+        return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear,
+                                   bf16=bf16)
+    return _launch_wav(KERNEL, "stft_features", wav, cfg, bases, normalize_linear, bf16)
 
 
 def stft_features_fused(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,

@@ -16,7 +16,10 @@ through the sampling kernel (K5) instead of Griffin-Lim, drawn with seed
 
 On the card every kernel launches; with ``device="cpu"`` the same math runs
 through the kernels' plain versions. ``plain=True`` picks the plain versions
-on the card too, as the reference the kernels are held against.
+on the card too, as the reference the kernels are held against. As the JAX
+``Synthesizer`` on its accelerator, the reference path on the card runs K3
+and K2 in their bf16 operand modes; ``bf16=False`` pins it to float32 (the
+function JAX computes on the CPU).
 ``save_outputs`` writes the eval artifacts: 16-bit wavs, and alignment PNGs
 where matplotlib imports. ``benchmark_synthesis`` times a ``Synthesizer``;
 ``main`` is the command line (``python -m gst_tacotron_tpu_torch.synthesize``),
@@ -59,7 +62,7 @@ class Synthesizer:
     def __init__(self, cfg: Config, model: GSTTacotron, *, device=None,
                  text_pad_multiple: int = 32, deterministic_prenet: bool = False,
                  plain: bool = False, vocoder=None, use_chunked_decoder: bool = False,
-                 chunk_steps: int = 64):
+                 chunk_steps: int = 64, bf16: Optional[bool] = None):
         """deterministic_prenet: turn off the prenet dropout that otherwise
         stays on at inference, in both prenets; synthesis is then a
         deterministic function of (text, style).
@@ -70,7 +73,11 @@ class Synthesizer:
 
         vocoder: a ``vocoder.make_vocoder`` object. None or a
         ``GriffinLimVocoder`` keeps Griffin-Lim inline; a ``WaveRNNVocoder``
-        samples the waveform from the decoded mel."""
+        samples the waveform from the decoded mel.
+
+        bf16: the reference path's bf16 operand modes (K3's resident route,
+        K2's stack); None resolves each as JAX does: on for the card at the
+        shapes where JAX takes them, off on the CPU."""
         self.cfg = cfg
         self.vocoder = vocoder
         self._inline_gl = vocoder is None or getattr(vocoder, "kind", "") == "griffin_lim"
@@ -79,6 +86,7 @@ class Synthesizer:
         self.text_pad_multiple = text_pad_multiple
         self.deterministic_prenet = deterministic_prenet
         self.plain = plain
+        self.bf16 = bf16
         self.chunk_steps = chunk_steps if use_chunked_decoder else None
         self.dsp = TorchDSP(cfg.audio, self.device)
         self._ref_extractor: Optional[DeviceFeatureExtractor] = None
@@ -89,7 +97,7 @@ class Synthesizer:
         frames, at least ``frames``, lengths (B,))."""
         if self._ref_extractor is None:
             self._ref_extractor = DeviceFeatureExtractor(
-                self.cfg.audio, self.device, plain=self.plain)
+                self.cfg.audio, self.device, plain=self.plain, bf16=self.bf16)
         mels = [m for m, _ in self._ref_extractor.extract(
             [np.asarray(w, np.float32) for w in reference_wavs])]
         t_max = _round_up(max([m.shape[0] for m in mels] + [frames or 0]), 64)
@@ -134,7 +142,8 @@ class Synthesizer:
         out = self.model.infer(
             tok, tok_len, ref_mel, ref_lengths, token_weights, speaker_ids=speaker_ids,
             max_steps=max_steps, deterministic_prenet=deterministic_prenet, seed=seed,
-            plain=self.plain, chunk_steps=chunk_steps, stop_all_reduce=stop_all_reduce)
+            plain=self.plain, chunk_steps=chunk_steps, stop_all_reduce=stop_all_reduce,
+            bf16=self.bf16)
         if self._inline_gl:
             out["wav"] = self.dsp.inv_linear_spectrogram(out["linear"].float())
         else:

@@ -339,7 +339,9 @@ def test_stft_frames_kernel(dev, win, n):
                                           (None, None)])
 def test_extractor_route_launches_its_own_kernel(dev, route, kernel):
     """Each extractor route launches its own kernel once per device batch and
-    no other; the plain route (None) launches none."""
+    no other; the plain route (None) launches none. float32 by name: the
+    features are held against the float64 oracle (the resident route's
+    card default, K3's bf16 mode, has its own test below)."""
     import numpy as np
 
     from gst_tacotron_tpu_torch import ops
@@ -350,7 +352,8 @@ def test_extractor_route_launches_its_own_kernel(dev, route, kernel):
     cfg = AudioConfig(n_fft=512, hop_length=128, win_length=256)
     rng = np.random.default_rng(8)
     wavs = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for n in (1000, 2500, 700, 5000, 1001)]
-    ex = DeviceFeatureExtractor(cfg, dev, batch_size=2, frame_bucket=8, stft_kernel=route)
+    ex = DeviceFeatureExtractor(cfg, dev, batch_size=2, frame_bucket=8, stft_kernel=route,
+                                bf16=False)
     ops.reset_launch_counts()
     res = ex.extract(wavs)
     torch.cuda.synchronize()
@@ -360,6 +363,115 @@ def test_extractor_route_launches_its_own_kernel(dev, route, kernel):
     for wav, (mel, lin) in zip(wavs, res):
         np.testing.assert_allclose(mel, dsp_ref.melspectrogram(wav, cfg), atol=5e-4)
         np.testing.assert_allclose(lin, dsp_ref.spectrogram(wav, cfg), atol=5e-4)
+
+
+# the JAX on-chip test's reference-encoder lengths at its (8, 256, 80) shape
+# (tpu_tests/test_kernels_on_chip.py, test_refenc_batched_bf16_compiled)
+ONCHIP_LENGTHS = [256, 250, 64, 199, 31, 128, 256, 7]
+
+
+def test_refenc_stack_kernel_bf16(dev):
+    """K2's bf16 operand mode at the flagship (8, 256, 80) stack with JAX's
+    on-chip lengths: the plain version's bf16 rounding (the same operands,
+    float32 sums; a value on a rounding boundary moves one bf16 step), far
+    closer on average than to float32; the embedding within JAX's 0.05 of
+    float32; counted on its branch; the same bits twice; and a row's bits
+    whatever the batch (no k split)."""
+    from gst_tacotron_tpu_torch.config import GSTConfig
+    from gst_tacotron_tpu_torch.models.gst import ReferenceEncoder
+    from gst_tacotron_tpu_torch.ops.refenc import (KERNEL, ref_encoder, refenc_stack,
+                                                   refenc_stack_plain)
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    mel = torch.randn(8, 256, 80, generator=g).to(dev)
+    lengths = torch.tensor(ONCHIP_LENGTHS, device=dev)
+    enc = ReferenceEncoder(GSTConfig(), 80)
+    init_weights(enc, seed=0)
+    enc = enc.to(dev).eval()
+    ks = [getattr(enc, f"conv_{i}").kernel.detach() for i in range(6)]
+    sc = [(torch.rand(k.shape[-1], generator=g) + 0.5).to(dev) for k in ks]
+    bi = [rand(g, k.shape[-1], scale=0.1).to(dev) for k in ks]
+    before, branch = KERNEL.launches, KERNEL.branch_launches["bf16"]
+    got = refenc_stack(mel, ks, sc, bi, lengths=lengths, bf16=True)
+    again = refenc_stack(mel, ks, sc, bi, lengths=lengths, bf16=True)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2 and KERNEL.branch_launches["bf16"] == branch + 2
+    assert torch.equal(got, again)
+    ref = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths, bf16=True)
+    f32 = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths)
+    assert float((got - ref).abs().max()) < 0.05
+    assert float((got - ref).abs().mean()) < float((got - f32).abs().mean()) / 5
+    half = refenc_stack(mel[4:].contiguous(), ks, sc, bi, lengths=lengths[4:], bf16=True)
+    assert torch.equal(half, got[4:])
+    with torch.no_grad():
+        emb = ref_encoder(enc, mel, lengths)                  # None: bf16 on the card
+        emb32 = ref_encoder(enc, mel, lengths, bf16=False)
+        emb_plain = ref_encoder(enc, mel, lengths, plain=True)
+    assert float((emb - emb32).abs().max()) < 0.05
+    cos = (emb * emb32).sum(-1) / (emb.norm(dim=-1) * emb32.norm(dim=-1)).clamp(min=1e-9)
+    assert float(cos.min()) > 0.995
+    torch.testing.assert_close(emb, emb_plain, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,frames", [(2048, 256, 1024, 128), (512, 128, 512, 21),
+                                                  (6144, 1536, 4608, 30)])
+def test_stft_features_kernel_bf16(dev, n_fft, hop, win, frames):
+    """K3's bf16 operand mode: counted on its branch, the plain version's
+    bf16 rounding of frames, bases, magnitudes and mel basis (float32 sums),
+    far closer on average than to float32 and within tests/test_pallas.py's
+    0.05 of it on loud mel bins; the same bits twice; apart from K3′'s bf16
+    bases (whose mel product stays float32)."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops.stft import (KERNEL, stft_features, stft_features_fused,
+                                                 stft_features_plain)
+
+    cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+    g = torch.Generator().manual_seed(n_fft + frames)
+    wav = ((torch.rand(8, n_fft + hop * (frames - 1), generator=g) - 0.5) * 0.6).to(dev)
+    before, branch = KERNEL.launches, KERNEL.branch_launches["bf16"]
+    got = stft_features(wav, cfg, bf16=True)
+    again = stft_features(wav, cfg, bf16=True)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2 and KERNEL.branch_launches["bf16"] == branch + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = stft_features_plain(wav, cfg, bf16=True)
+    f32 = stft_features_plain(wav, cfg)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, atol=5e-3, rtol=1e-5)
+    assert float((got[0] - ref[0]).abs().mean()) < float((got[0] - f32[0]).abs().mean()) / 5
+    loud = f32[0] > 0.5
+    assert loud.any() and float((got[0] - f32[0]).abs()[loud].max()) < 0.05
+    bases = stft_features_fused(wav, cfg, bf16_bases=True)[0]
+    assert float((bases - ref[0]).abs().mean()) > float((got[0] - ref[0]).abs().mean())
+
+
+def test_extractor_resident_route_runs_k3_bf16_on_the_card(dev):
+    """The resident route's default on the card is K3's bf16 mode (JAX's
+    ``bf16=not self.interpret``): one bf16-branch launch a device batch, the
+    plain route's bf16 rounding of the same batches."""
+    import numpy as np
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
+
+    cfg = AudioConfig(n_fft=512, hop_length=128, win_length=256)
+    rng = np.random.default_rng(8)
+    wavs = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for n in (1000, 2500, 700, 5000, 1001)]
+    ex = DeviceFeatureExtractor(cfg, dev, batch_size=2, frame_bucket=8)
+    assert ex.bf16
+    ops.reset_launch_counts()
+    res = ex.extract(wavs)
+    torch.cuda.synchronize()
+    calls = len(ex.plan([1 + len(w) // cfg.hop_length for w in wavs]))
+    counts = ops.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "stft_features": calls,
+                      "stft_features:bf16": calls}
+    plain = DeviceFeatureExtractor(cfg, dev, batch_size=2, frame_bucket=8, plain=True).extract(wavs)
+    for (mel, lin), (pm, pl) in zip(res, plain):
+        np.testing.assert_allclose(mel, pm, atol=5e-3)
+        np.testing.assert_allclose(lin, pl, atol=5e-3)
 
 
 @pytest.mark.parametrize("use_dropout", [False, True])

@@ -7,7 +7,8 @@ points: the chunked decode, the bench's workload, the parity harness and
 the synthesize CLI on the trainers' workdirs; the parallel subpackage: its
 mesh, sharding rules and ``DistributedSynthesizer`` on a one-rank mesh; the
 exported JAX workdir of tests/fixtures/jax_export, served and resumed; the
-Keras importer's module and the trace server), and no file of the port
+Keras importer's module and the trace server; the kernel microbenchmark's
+quick CPU report), and no file of the port
 (nor chip_smoke.py) imports jax or the JAX package."""
 
 import ast
@@ -117,6 +118,9 @@ def test_port_imports_and_runs_with_jax_blocked():
         "from gst_tacotron_tpu_torch import tf_import\n"
         "from gst_tacotron_tpu_torch.utils.profiling import maybe_start_server\n"
         "assert maybe_start_server(None) is None\n"
+        "from gst_tacotron_tpu_torch import kernel_bench\n"
+        "kr = kernel_bench.run('cpu', steps=4, batch=2, quick=True)\n"
+        "assert len(kr['sections']) == 6 and kr['failures'] == [], kr['sections']\n"
         "assert 'gst_tacotron_tpu' not in sys.modules and sys.modules['tensorflow'] is None\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

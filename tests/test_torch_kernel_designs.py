@@ -545,11 +545,11 @@ def test_bf16_launch_plan():
 
 
 def test_bf16_fragments_use_torchs_rounding():
-    """The host rounds the bases as ``_bf16`` (torch's cast, ties to even)."""
+    """The host rounds the bases as ``round_bf16`` (torch's cast, ties to even)."""
     x = np.array([1.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -2.5e-3, 3e38, 0.0], np.float32)
     bits = tstft.bf16_bits(x)
     back = (bits.astype(np.uint32) << 16).view(np.float32)
-    np.testing.assert_array_equal(back, tstft._bf16(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(back, tstft.round_bf16(torch.from_numpy(x)).numpy())
 
 
 # ---------------------------------------------------------------------------
