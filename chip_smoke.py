@@ -18,7 +18,7 @@ Phases, each of which exits non-zero on failure:
    oracle (5e-4); K3′ and K3″ at n_fft 1536, 1026 and odd 1575: the radix-3
    and -5 stages, the generic stage and the unpacked transform; K3, K3′ and
    K3″ at n_fft 32768 and odd 15625, past one block's shared memory; K3′'s
-   bf16 bases at n_fft 6144, on clusters of 4); each is timed beside its
+   bf16 bases at n_fft 6144, past 8 bin windows); each is timed beside its
    plain version, a PyTorch library yardstick where one exists, and its
    least possible time on an H100 (device time from torch.profiler for K1's
    two phases, K2, the STFT kernels, K5 and K4, K4 also by phase kernel with
@@ -210,10 +210,11 @@ def device_rows(prof):
     return rows
 
 
-def kernel_device_ms(torch, fn, names):
+def kernel_device_ms(torch, fn, names, counts=False):
     """Device ms of one call of ``fn`` by kernel: {label: summed device time
     of the kernels whose name contains names[label]} from torch.profiler
-    ("" sums every device event)."""
+    ("" sums every device event); ``counts`` adds {label + "_launches":
+    their launches}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -221,7 +222,22 @@ def kernel_device_ms(torch, fn, names):
         fn()
         torch.cuda.synchronize()
     rows = device_rows(prof)
-    return {label: sum(ms for key, ms, _ in rows if sub in key) for label, sub in names.items()}
+    out = {label: sum(ms for key, ms, _ in rows if sub in key) for label, sub in names.items()}
+    if counts:
+        out.update({f"{label}_launches": sum(n for key, _, n in rows if sub in key)
+                    for label, sub in names.items()})
+    return out
+
+
+def required_device_ms(torch, fn, names, what, counts=False):
+    """``kernel_device_ms`` of kernels that must have run: a second profile
+    where the first read 0 for a label (the profiler once lost every event
+    of a call), then a failure for any label still at 0."""
+    for _ in range(2):
+        device = kernel_device_ms(torch, fn, names, counts)
+        if all(device[label] > 0 for label in names):
+            return device
+    fail(f"{what}: the profiler saw no device time of {sorted(names.values())}: {device}")
 
 
 # ---------------------------------------------------------------------------
@@ -470,9 +486,10 @@ def check_refenc_bf16(torch, dev):
     ragged and full lengths: against the plain version's bf16 rounding (the
     same operands, float32 sums), apart from float32 by far more on average;
     the same bits twice, and rows 16-31 alone give the 32-row launch's bits
-    (no k split in this mode, so one sum order whatever the batch)."""
+    (the launch plan depends on the shape alone, so one sum order whatever
+    the batch); one launch a stack at this shape."""
     from gst_tacotron_tpu_torch.kernel_bench import refenc_stack_work
-    from gst_tacotron_tpu_torch.ops.refenc import refenc_stack, refenc_stack_plain
+    from gst_tacotron_tpu_torch.ops.refenc import bf16_plan, refenc_stack, refenc_stack_plain
 
     rng = np.random.default_rng(21)
     t, f = REFENC_SHAPE
@@ -502,15 +519,16 @@ def check_refenc_bf16(torch, dev):
                                                       lengths=full, bf16=True), iters=5)
     library = conv2d_chain(torch, mel, kernels, scales, biases, torch.bfloat16)
     lib = time_ms(torch, library, iters=20)
-    device = {}
-    for _ in range(2):      # the profiler once lost every event of a call
-        device = kernel_device_ms(torch, kernel, {"kernel_device_ms": "refenc_layer_kernel"})
-        if device["kernel_device_ms"] > 0:
-            break
+    device = required_device_ms(torch, kernel, {"kernel_device_ms": "refenc_bf16_kernel"},
+                                "refenc_stack:bf16", counts=True)
     device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
+    plan = bf16_plan(t, f, REFENC_CHANNELS)
+    if device["kernel_device_ms_launches"] != len(plan["launches"]) or len(plan["launches"]) > 2:
+        fail(f"refenc_stack:bf16: {device['kernel_device_ms_launches']} launches a stack, the "
+             f"plan's {len(plan['launches'])} (at most 2 at the main shape)")
     b_ms, b_by = bound(refenc_stack_work(B, t, f, REFENC_CHANNELS, bf16=True))
     return dict(name="refenc_stack:bf16", route="cuda",
-                source="gst_tacotron_tpu_torch/csrc/refenc_stack.cu",
+                source="gst_tacotron_tpu_torch/csrc/refenc_bf16.cuh",
                 replaces="gst_tacotron_tpu/ops/refenc_pallas.py:298", max_err=err,
                 tol=BF16_VS_F32_TOL, mean_err=mean, mean_dist_from_f32=gap,
                 tol_reason="tests/test_refenc_pallas.py's bf16 budget; the same bf16 operands "
@@ -521,9 +539,11 @@ def check_refenc_bf16(torch, dev):
                 **device,
                 library="F.pad + F.conv2d on bf16 operands (cuDNN, float32 epilogue) + "
                         "folded BN + ReLU, six layers",
-                work="one (32, 128, 80) stack in the bf16 operand mode: six launches, no k "
-                     "split; bound: its FLOPs at 989 TFLOP/s (bf16 tensor cores), which the "
-                     "kernel does not use yet (CUDA cores)")
+                cluster=plan["launches"][0]["bands"], band_rows=plan["bh"], k_parts=plan["ks"],
+                work="one (32, 128, 80) stack in the bf16 operand mode: one clustered launch "
+                     "(a cluster of CTAs an utterance, layers 1-5 on mma.sync bf16 tensor "
+                     "cores, layer 0 on the CUDA cores); bound: its FLOPs at 989 TFLOP/s "
+                     "(bf16 tensor cores)")
 
 
 # ---------------------------------------------------------------------------
@@ -682,8 +702,8 @@ def check_stft_bf16(torch, dev, cfg):
     version's bf16 rounding (the same operands, float32 sums), apart from
     float32 by far more on average and within 0.05 of it on loud mel bins
     (tests/test_pallas.py's bf16 check); the same bits twice; n_fft 6144
-    (clusters of 4 CTAs); timed beside the plain version and the bf16 GEMMs
-    of the library."""
+    (past 8 bin windows: the magnitudes through the device-memory scratch);
+    timed beside the plain version and the bf16 GEMMs of the library."""
     import dataclasses
 
     from gst_tacotron_tpu_torch.kernel_bench import stft_bf16_work
@@ -733,11 +753,12 @@ def check_stft_bf16(torch, dev, cfg):
     plain = time_ms(torch, lambda: [stft_features_plain(g, a, bases, bf16=True)
                                     for g in groups], iters=10)
     lib = time_ms(torch, library, iters=10)
-    device = kernel_device_ms(torch, kernel, {"kernel_device_ms": "stft_fused_bf16"})
+    device = required_device_ms(torch, kernel, {"kernel_device_ms": "stft_bf16_wgmma"},
+                                "stft_features:bf16")
     device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
     b_ms, b_by = bound(stft_bf16_work(a, B * STFT_FRAMES, 4.0 * sum(g.numel() for g in groups)))
     return dict(name="stft_features:bf16", route="cuda",
-                source="gst_tacotron_tpu_torch/csrc/stft_features.cu",
+                source="gst_tacotron_tpu_torch/csrc/stft_bf16.cuh",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:417",
                 max_err=max(err, err_6144), max_err_n_fft_2048=err, max_err_n_fft_6144=err_6144,
                 mean_err_mel=mean, mean_dist_from_f32_mel=gap, max_err_loud_vs_f32=loud,
@@ -750,9 +771,10 @@ def check_stft_bf16(torch, dev, cfg):
                 **device,
                 library="torch.mm of the bf16 frames and bases, then of the bf16 magnitude "
                         "and mel basis, float32 outputs, + dB normalization",
-                work="K3's 4 launches (32 wavs of 128 frames) in the bf16 mode (K3′'s "
-                     "tensor-core kernel with a bf16 mel product); bound: the dense bf16 "
-                     "products and the mel at 989 TFLOP/s")
+                work="K3's 4 launches (32 wavs of 128 frames) in the bf16 mode (wgmma on "
+                     "TMA-fed bases, 64-frame tiles, clusters of 8 CTAs over the 144-bin "
+                     "windows, a bf16 mel product); bound: the dense bf16 products and the "
+                     "mel at 989 TFLOP/s")
 
 
 # (n_fft, hop, win) whose FFTs run the other stages on the card: 768 =
@@ -786,7 +808,7 @@ def check_stft_fused(torch, dev, cfg):
     cores (held against the plain version's bf16 rounding); both give the
     same bits twice; one float32 and one bf16 call at each of MIXED_SIZES."""
     from gst_tacotron_tpu_torch.kernel_bench import stft_bf16_work, stft_work
-    from gst_tacotron_tpu_torch.ops.stft import (bf16_cluster, db_normalize, dft_bases,
+    from gst_tacotron_tpu_torch.ops.stft import (bf16_plan, db_normalize, dft_bases,
                                                  live_tap_span, stft_bases, stft_features,
                                                  stft_features_fused, stft_features_plain)
 
@@ -815,7 +837,8 @@ def check_stft_fused(torch, dev, cfg):
         torch, dev, cfg, lambda x, c: stft_features_fused(x, c, bf16_bases=True),
         lambda x, c: stft_features_plain(x, c, bf16_bases=True), False, "_bf16"))
     mixed.update(big_errs(torch, dev, cfg, lambda x, c: stft_features_fused(x, c), False))
-    # bf16 bases past the 2-CTA cluster's shared memory: clusters of 4
+    # bf16 bases past 8 bin windows: several windows a CTA, the magnitudes
+    # through the device-memory scratch
     import dataclasses
 
     a6 = dataclasses.replace(a, n_fft=6144, hop_length=1536, win_length=4608)
@@ -851,7 +874,8 @@ def check_stft_fused(torch, dev, cfg):
     lib = time_ms(torch, library, iters=10)
     lib_bf16 = time_ms(torch, library_bf16, iters=10)
     device = kernel_device_ms(torch, f32, {"kernel_device_ms": "stft_wav_kernel"})
-    device.update(kernel_device_ms(torch, bf16, {"kernel_device_ms_bf16": "stft_fused_bf16"}))
+    device.update(required_device_ms(torch, bf16, {"kernel_device_ms_bf16": "stft_bf16_wgmma"},
+                                     "stft_fused (bf16 bases)"))
     device.update(kernel_device_ms(torch, library, {"library_device_ms": ""}))
     device.update(kernel_device_ms(torch, library_bf16, {"library_device_ms_bf16": ""}))
     n_frames = B * STFT_FRAMES
@@ -864,7 +888,8 @@ def check_stft_fused(torch, dev, cfg):
                 source="gst_tacotron_tpu_torch/csrc/stft_fused.cu",
                 replaces="gst_tacotron_tpu/ops/stft_pallas.py:265",
                 max_err=max(err, err_bf16, *mixed.values()), max_err_f32=err,
-                max_err_bf16=err_bf16, **mixed, bf16_cluster_n_fft_6144=bf16_cluster(6144),
+                max_err_bf16=err_bf16, **mixed,
+                bf16_plan_n_fft_6144=bf16_plan(6144, 1536, live_tap_span(a6)[2], a6.num_mels),
                 max_err_vs_k3=err_k3,
                 bits_equal_k3=k3_bits, tol=STFT_TOL, tol_reason=STFT_TOL_REASON,
                 kernel_ms=ms, kernel_ms_bf16=ms_bf16, plain_ms=plain, bound_ms=b_ms,

@@ -1,4 +1,4 @@
-// Shared helpers of the port's CUDA kernels (sm_90a, float32).
+// Shared helpers of the port's CUDA kernels (sm_90a).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,4 +55,22 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
 // 1.0). Unsigned throughout.
 __device__ __forceinline__ float uniform_open01(uint32_t bits) {
   return (static_cast<float>(bits >> 9) + 0.5f) * (1.0f / 8388608.0f);
+}
+
+// c += a * b on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col),
+// C 16x8 float32 (the bf16 kernels' mma.sync)
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// 4 bytes global -> shared without a register, or 4 zero bytes when !in
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
 }

@@ -39,25 +39,12 @@
 // whatever its FLOPs: a layer is latency-bound (PERF.md); a persistent
 // launch with a grid barrier between layers is the alternative.
 //
-// bf16 mode (bf16 = 1): the batched Pallas kernel's bf16 operand mode
-// (refenc_stack_pallas_batched(bf16=True)): each layer's input and its conv
-// taps rounded to bfloat16 (__float2bfloat16_rn, in shared memory right
-// after the copy, or at the load for taps read through the cache), the
-// products summed in float32 on the CUDA cores (a product of two bf16
-// values is exact in float32), the folded-BN epilogue and ReLU in float32.
-// Its launches take no k split (ops/refenc.py::layer_plan(split_k=False)),
-// so each output is summed in one order whatever the batch. Bound: the same
-// FLOPs, at the 989 TFLOP/s of the bf16 tensor cores about 0.8 us at the
-// main-path shape, so the bytes (1.3 MB, about 0.4 us) do not bound it
-// either; a tensor-core form is later work.
-
-#include <cuda_bf16.h>
+// bf16 mode (bf16 = 1): the batched Pallas kernel's bf16 operand mode on
+// the tensor cores, one clustered launch for the stack where it fits
+// (refenc_bf16.cuh, which describes its design and bound).
 
 #include "common.cuh"
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+#include "refenc_bf16.cuh"
 
 #define REFENC_MAX_LAYERS 8
 #define RE_THREADS 256
@@ -96,7 +83,7 @@ __host__ __device__ inline int refenc_patch_rows(int span, int wo) {
 // with every load in flight, the input rows its pixels touch (rows past the
 // length or outside the input as zeros) and, where SW, its channel tile's
 // taps [9 * ci][32] into shared memory; then each thread sums from there.
-template <int VEC, int PX, bool SW, bool BF>
+template <int VEC, int PX, bool SW>
 __global__ void __launch_bounds__(RE_THREADS)
 refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
   extern __shared__ float4 smem4[];
@@ -146,12 +133,6 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  if (BF) {  // the bf16 mode's operands, rounded once where they are staged
-    for (int e = threadIdx.x; e < nrows * rowlen; e += RE_THREADS) Xs[e] = round_bf16(Xs[e]);
-    if (SW)
-      for (int e = threadIdx.x; e < 9 * ci * RE_TC; e += RE_THREADS) Ws[e] = round_bf16(Ws[e]);
-    __syncthreads();
-  }
 
   float acc[PX];
   int pi[PX], pq[PX];
@@ -179,10 +160,6 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             w[j] = SW ? ws[(c + j) * RE_TC] : (ook ? __ldg(kp + (size_t)(c + j) * co) : 0.0f);
-          if (BF && !SW) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w[j] = round_bf16(w[j]);
-          }
 #pragma unroll
           for (int i = 0; i < PX; ++i) {
             if (xp[i] == nullptr) continue;
@@ -195,8 +172,7 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
         }
       } else {
         for (int c = c0; c < c1; ++c) {
-          float w = SW ? ws[c * RE_TC] : (ook ? __ldg(kp + (size_t)c * co) : 0.0f);
-          if (BF && !SW) w = round_bf16(w);
+          const float w = SW ? ws[c * RE_TC] : (ook ? __ldg(kp + (size_t)c * co) : 0.0f);
 #pragma unroll
           for (int i = 0; i < PX; ++i)
             if (xp[i] != nullptr) acc[i] = fmaf(xp[i][c], w, acc[i]);
@@ -233,7 +209,7 @@ refenc_layer_kernel(RefencLayer L, const int* __restrict__ lengths) {
 // HBM3 at 700 W).
 #define RE_STAGE_W_BYTES (80 * 1024)
 
-template <int VEC, bool SW, bool BF>
+template <int VEC, bool SW>
 static cudaError_t launch_layer_sw(const RefencLayer& L, const int* lengths, int px, int B,
                                    cudaStream_t stream) {
   const int slots = RE_GROUPS / L.ks;
@@ -244,10 +220,10 @@ static cudaError_t launch_layer_sw(const RefencLayer& L, const int* lengths, int
   switch (px) {
 #define RE_CASE(P)                                                                              \
   case P:                                                                                       \
-    err = cudaFuncSetAttribute(refenc_layer_kernel<VEC, P, SW, BF>,                              \
+    err = cudaFuncSetAttribute(refenc_layer_kernel<VEC, P, SW>,                                  \
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);         \
     if (err != cudaSuccess) return err;                                                         \
-    refenc_layer_kernel<VEC, P, SW, BF><<<grid, RE_THREADS, smem, stream>>>(L, lengths);        \
+    refenc_layer_kernel<VEC, P, SW><<<grid, RE_THREADS, smem, stream>>>(L, lengths);            \
     break;
     RE_CASE(1)
     RE_CASE(2)
@@ -258,24 +234,96 @@ static cudaError_t launch_layer_sw(const RefencLayer& L, const int* lengths, int
   return cudaGetLastError();
 }
 
-template <int VEC, bool BF>
+template <int VEC>
 static cudaError_t launch_layer(const RefencLayer& L, const int* lengths, int px, int B,
                                 cudaStream_t stream) {
   return 9 * L.ci * RE_TC * sizeof(float) <= RE_STAGE_W_BYTES
-             ? launch_layer_sw<VEC, true, BF>(L, lengths, px, B, stream)
-             : launch_layer_sw<VEC, false, BF>(L, lengths, px, B, stream);
+             ? launch_layer_sw<VEC, true>(L, lengths, px, B, stream)
+             : launch_layer_sw<VEC, false>(L, lengths, px, B, stream);
 }
 
-// channels, ks and px: host arrays of n_layers entries (ops/refenc.py::
-// layer_plan); scratch holds 2 * B * max_act floats (max_act the largest
-// activation but the last); params each layer's kernel, scale and bias;
-// bf16 the bf16 operand mode.
+// The bf16 mode's launches (ops/refenc.py::bf16_plan, host ints): the
+// count, then per launch l0, l1, bands, smem, stage_off, part_off0,
+// part_off1, red_off, then per layer its band rows and k parts. taps: the
+// B fragments of layers 1.. in order; scratch: two bf16 activations of the
+// leading launches' outputs.
+static cudaError_t refenc_bf16_launch(const float* mel, const int* lengths, const float* params,
+                                      const int* channels, int n_layers, const int* plan,
+                                      const int* taps, float* out, float* scratch, int B, int T,
+                                      int F, cudaStream_t stream) {
+  RbLaunch P = {};
+  P.n = n_layers;
+  P.mel = mel;
+  P.lengths = lengths;
+  P.out = out;
+  const int* lay = plan + 1 + 8 * plan[0];
+  const float* K = params;
+  const uint2* tp = reinterpret_cast<const uint2*>(taps);
+  int hi = T, wi = F, ci = 1;
+  long long act = 0;  // one scratch activation's bf16 elements
+  for (int l = 0; l < n_layers; ++l) {
+    RbLayer& Y = P.L[l];
+    const int co = channels[l];
+    if (co < 1) return cudaErrorInvalidValue;
+    Y.hi = hi;
+    Y.wi = wi;
+    Y.cip = (ci + 15) / 16 * 16;
+    Y.ho = (hi + 1) / 2;
+    Y.wo = (wi + 1) / 2;
+    Y.co = co;
+    Y.cop = (co + 15) / 16 * 16;
+    Y.top = max(0, 2 * (Y.ho - 1) + 3 - hi) / 2;
+    Y.left = max(0, 2 * (Y.wo - 1) + 3 - wi) / 2;
+    Y.bh = lay[2 * l];
+    Y.ks = lay[2 * l + 1];
+    if (Y.bh < 1 || Y.ks < 1) return cudaErrorInvalidValue;
+    Y.k0 = K;
+    Y.scale = K + 9LL * ci * co;
+    Y.bias = Y.scale + co;
+    Y.taps = l > 0 ? tp : nullptr;
+    if (l > 0) tp += (size_t)(Y.cop / 8) * (9 * Y.cip / 16) * 32;
+    const long long a = (long long)B * Y.ho * Y.wo * Y.cop;
+    if (l < n_layers - 1 && a > act) act = a;
+    K += 9LL * ci * co + 2LL * co;
+    hi = Y.ho;
+    wi = Y.wo;
+    ci = co;
+  }
+  __nv_bfloat16* acts = reinterpret_cast<__nv_bfloat16*>(scratch);
+  for (int k = 0; k < plan[0]; ++k) {
+    const int* q = plan + 1 + 8 * k;
+    P.l0 = q[0];
+    P.l1 = q[1];
+    if (P.l0 < 0 || P.l1 <= P.l0 || P.l1 > n_layers || q[2] < 1 || q[2] > 65535 ||
+        (P.l1 - P.l0 > 1 && q[2] > 8))
+      return cudaErrorInvalidValue;
+    P.act_in = P.l0 > 0 ? acts + (size_t)((k - 1) & 1) * act : nullptr;
+    P.act_out = P.l1 < n_layers ? acts + (size_t)(k & 1) * act : nullptr;
+    P.stage_off = q[4];
+    P.part_off0 = q[5];
+    P.part_off1 = q[6];
+    P.red_off = q[7];
+    const cudaError_t err = launch_refenc_bf16(P, q[2], B, q[3], stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// float32: channels, ks and px host arrays of n_layers entries
+// (ops/refenc.py::layer_plan); scratch holds 2 * B * max_act floats
+// (max_act the largest activation but the last); params each layer's
+// kernel, scale and bias. bf16 = 1: the bf16 mode (refenc_bf16_launch:
+// plan, taps; ks and px unused).
 extern "C" int refenc_stack_launch(const float* mel, const int* lengths, const float* params,
                                    const int* channels, const int* ks, const int* px,
                                    int n_layers, float* out, float* scratch, int B, int T,
-                                   int F, int bf16, cudaStream_t stream) {
+                                   int F, int bf16, const int* plan, const int* taps,
+                                   cudaStream_t stream) {
   if (n_layers < 1 || n_layers > REFENC_MAX_LAYERS || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)refenc_bf16_launch(mel, lengths, params, channels, n_layers, plan, taps, out,
+                                   scratch, B, T, F, stream);
   long long max_act = 1;
   {
     int h = T, w = F;
@@ -306,11 +354,8 @@ extern "C" int refenc_stack_launch(const float* mel, const int* lengths, const f
     L.ks = ks[l];
     if (L.ks < 1 || L.ks > RE_GROUPS || RE_GROUPS % L.ks != 0 || L.co < 1)
       return (int)cudaErrorInvalidValue;
-    const cudaError_t err =
-        bf16 ? (ci % 4 == 0 ? launch_layer<4, true>(L, lengths, px[l], B, stream)
-                            : launch_layer<1, true>(L, lengths, px[l], B, stream))
-             : (ci % 4 == 0 ? launch_layer<4, false>(L, lengths, px[l], B, stream)
-                            : launch_layer<1, false>(L, lengths, px[l], B, stream));
+    const cudaError_t err = ci % 4 == 0 ? launch_layer<4>(L, lengths, px[l], B, stream)
+                                        : launch_layer<1>(L, lengths, px[l], B, stream);
     if (err != cudaSuccess) return (int)err;
     K += 9LL * ci * L.co + 2LL * L.co;
     in = L.out;

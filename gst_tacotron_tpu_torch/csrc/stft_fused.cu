@@ -22,56 +22,36 @@
 // scratch past one block's); this source has K3' own launcher and
 // launch counter.
 //
-// bf16 bases (stft_bf16.cuh::stft_fused_bf16_kernel<false>, shared with
-// K3's bf16 mode): the frames and the window-baked
-// cos/sin bases rounded to bfloat16, their products summed in float32 (the
-// TPU kernel's MXU form; no FFT computes this function); the mel stays
-// float32. Bound: 2 * 2 * n_live * NF FLOPs a frame, 4.3 GFLOP a launch,
-// about 4.4 us at the 989 TFLOP/s of the bf16 tensor cores (the bytes,
-// about 1.7 us, do not bound it). Every frame tile needs all 4.7 MB of bf16
-// bases, so the design is about streaming them from L2:
-// - a cluster of cw CTAs owns a tile of 16 frames (one m16 row tile) of one
-//   utterance; each CTA takes 1/cw of the 128-bin windows (8 warps x 16
-//   bins), so it streams only its share of the bases. cw is 2 (128 CTAs at
-//   the main shape) while the CTA's shared memory fits, else 4 or 8
-//   (ops/stft.py::bf16_cluster): the windows a CTA holds shrink with it;
-// - the tile's taps stay resident in shared memory as bf16 (1024 at a
-//   time, rounded with __float2bfloat16_rn) and reach the tensor cores
-//   through ldmatrix; each warp keeps 4 k16 steps of its B fragments in
-//   flight in its own cp.async ring (cached in L2 only, no block barrier),
-//   laid out by ops/stft.py::mma_b_fragments so a warp's fragments are 256
-//   consecutive bytes; mma.sync m16n8k16 bf16 x bf16 -> f32;
-// - magnitudes stay in each CTA's shared memory; after a cluster barrier
-//   each CTA gathers the full magnitude rows of its 16 / cw frames from its
-//   peers (distributed shared memory) and sums each mel filter's nonzero bins in
-//   ascending order. One launch, no scratch, the same bits every run.
-// At cw = 8 a CTA fits 77 windows: n_fft up to 19711.
-// Measured on the H100: 16-frame tiles over 2 CTAs beat 32 over 4, the
-// ring's depth (3, 4 or 8) did not matter, and the K loop (a warp's 4 mma a
-// k16 step, two warps a scheduler) holds it, not the L2. wgmma and TMA are
-// later work.
+// bf16 bases (stft_bf16.cuh::stft_bf16_wgmma_kernel<false>, shared with
+// K3's bf16 mode, which stft_bf16.cuh describes): the frames and the
+// window-baked cos/sin bases rounded to bfloat16, their products summed in
+// float32 on wgmma with the bases brought in by TMA (the TPU kernel's MXU
+// form; no FFT computes this function); the mel stays float32. Bound: 2 * 2
+// * n_live * NF FLOPs a frame, 4.3 GFLOP a launch, about 4.4 us at the 989
+// TFLOP/s of the bf16 tensor cores (the bytes, about 1.7 us, do not bound
+// it). Any n_fft: past 8 bin windows the magnitudes go through a
+// device-memory scratch.
 
 #include "stft_bf16.cuh"
 
 // float32 (bf16 = 0): `fr` frames a block, or fr = 0 and `slots` blocks an
-// utterance on `scratch` (stft_wav.cuh); bf16 bases: clusters of `cw` CTAs.
+// utterance on `scratch` (stft_wav.cuh); bf16 bases: the wgmma kernel on
+// `bases` with the host plan `plan` (scratch: its magnitudes past 8 windows).
 extern "C" int stft_fused_launch(const float* wav, const float* table, const float* window,
                                  const int* mel_lo, const int* mel_off, const float* mel_w,
-                                 const int* bcos, const int* bsin, float* mel_out,
+                                 const int* bases, const int* plan, float* mel_out,
                                  float* lin_out, int B, int L, int T, int hop, int n0,
                                  int n_live, int n_fft, int M, int fr, int slots,
                                  const int* radix, int stages, float ref_db, float min_db,
                                  float max_abs, int symmetric, int normalize_linear, int bf16,
-                                 int cw, float* scratch, cudaStream_t stream) {
+                                 float* scratch, cudaStream_t stream) {
   if (B < 1 || T < 1 || B > 65535 || n0 < 0 || n_live < 1 || n0 + n_live > n_fft)
     return (int)cudaErrorInvalidValue;
   NormConsts nc{ref_db, min_db, max_abs, symmetric};
-  if (bf16) {
-    if (fr != BF_TF) return (int)cudaErrorInvalidValue;
-    return (int)launch_bf16(wav, bcos, bsin, mel_lo, mel_off, mel_w, mel_out, lin_out, B, L, T,
-                            hop, n0, n_live, n_fft / 2 + 1, M, cw, nc, normalize_linear, false,
-                            stream);
-  }
+  if (bf16)
+    return (int)launch_bf16(wav, bases, plan, mel_lo, mel_off, mel_w, mel_out, lin_out, scratch,
+                            B, L, T, hop, n0, n_live, n_fft / 2 + 1, M, nc, normalize_linear,
+                            false, stream);
   return (int)launch_stft_wav(wav, table, window, mel_lo, mel_off, mel_w, mel_out, lin_out, B,
                               L, T, hop, n0, n_live, n_fft, M, fr, slots, radix, stages, nc,
                               normalize_linear, scratch, stream);

@@ -9,12 +9,14 @@ filter's nonzero bins, in one launch:
   K3   ``stft_features``        <- ``stft_features_pallas_resident``:
        (B, L) wav (``csrc/stft_features.cu``); ``bf16`` is the resident
        kernel's bf16 operand mode (frames and bases, then magnitudes and the
-       mel basis, rounded to bfloat16, float32 sums), on K3′'s tensor-core
-       kernel with a bf16 mel;
+       mel basis, rounded to bfloat16, float32 sums), on the tensor-core
+       kernel of ``csrc/stft_bf16.cuh`` (wgmma on TMA-fed bases) with a
+       bf16 mel;
   K3′  ``stft_features_fused``  <- ``stft_features_pallas_fused``: the same
        function through the same kernel (``csrc/stft_wav.cuh``), with its own
        launcher and counter; ``bf16_bases`` runs the window-baked DFT
-       products on the tensor cores instead (``csrc/stft_fused.cu``);
+       products on the same tensor-core kernel as K3's ``bf16`` with a
+       float32 mel (``csrc/stft_fused.cu``);
   K3″  ``stft_features_frames`` <- ``stft_features_pallas``: (F, n_fft) raw
        frames -> (F, M), (F, NF) (``csrc/stft_frames.cu``).
 
@@ -46,13 +48,13 @@ from .build import F, I, P, CudaKernel, check_cuda, ptr, refuse_grad, sm_count, 
 # K3 and K3′ share one launcher signature (csrc/stft_features.cu,
 # csrc/stft_fused.cu)
 _WAV_ARGS = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, I,
-             F, F, F, I, I, I, I, P, P]
+             F, F, F, I, I, I, P, P]
 KERNEL = CudaKernel("stft_features.cu", "stft_features_launch", _WAV_ARGS, branches=("bf16",))
 FUSED_KERNEL = CudaKernel("stft_fused.cu", "stft_fused_launch", _WAV_ARGS)
 FRAMES_KERNEL = CudaKernel("stft_frames.cu", "stft_frames_launch",
                            [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, I, F, F, F, I, I,
                             P, P])
-# the bins of a bf16 window (8 warps x 16 bins) and the plain bases' padding
+# the plain bases' and the mel basis's bin padding
 FREQ_TILE = 128
 
 Features = Tuple[torch.Tensor, torch.Tensor]
@@ -158,37 +160,6 @@ def sparse_mel(mel_t: np.ndarray, num_freq: int) -> Tuple[np.ndarray, np.ndarray
             np.concatenate(w).astype(np.float32))
 
 
-def bf16_bits(x: np.ndarray) -> np.ndarray:
-    """The bfloat16 bits (uint16) of x rounded to nearest, ties to even: the
-    rounding of ``round_bf16`` (torch's cast)."""
-    t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16)
-    return t.view(torch.int16).numpy().view(np.uint16)
-
-
-def mma_b_fragments(b: np.ndarray) -> np.ndarray:
-    """A (K, N) float32 matrix as the B operands of ``mma.sync.m16n8k16``
-    bf16 (K padded with zero rows to a multiple of 16, N a multiple of 8):
-    int32 (N/8, K/16, 32, 2), [n8 tile][k16 step][lane][register]; lane
-    g*4 + t holds, low half first, B[2t, g], B[2t+1, g] in register 0 and
-    B[2t+8, g], B[2t+9, g] in register 1 of the tile. A warp reads one tile's
-    fragments as 256 consecutive bytes."""
-    k, n = b.shape
-    if n % 8:
-        raise ValueError(f"mma_b_fragments: N {n} is not a multiple of 8")
-    kp = _round_up(max(k, 1), 16)
-    bits = np.zeros((kp, n), np.uint32)
-    bits[:k] = bf16_bits(b)
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
-    ks = np.arange(kp // 16)[:, None]
-    nt = np.arange(n // 8)[:, None, None]
-    col = nt * 8 + g                                     # (NT, 1, 32)
-    row = ks * 16 + 2 * t                                # (KS, 32)
-    reg0 = bits[row, col] | (bits[row + 1, col] << 16)
-    reg1 = bits[row + 8, col] | (bits[row + 9, col] << 16)
-    return np.stack([reg0, reg1], -1).astype(np.uint32).view(np.int32)
-
-
 @functools.lru_cache(maxsize=4)
 def _fft_tables_np(cfg: AudioConfig):
     """The FFT kernels' tables: the float64 twiddles of ``fft_plan`` and the
@@ -221,12 +192,25 @@ def dft_bases(cfg: AudioConfig, device: str) -> Tuple[torch.Tensor, torch.Tensor
 
 
 @functools.lru_cache(maxsize=4)
-def _bf16_fragments(cfg: AudioConfig, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3′'s bf16 B fragments of the window-baked cos/sin bases on
-    ``device``, built at the first ``bf16_bases`` call and kept."""
-    cos_b, sin_b, _ = _bases_np(cfg)
-    return (torch.from_numpy(mma_b_fragments(cos_b)).to(device),
-            torch.from_numpy(mma_b_fragments(sin_b)).to(device))
+def _bf16_bases(cfg: AudioConfig, device: str) -> torch.Tensor:
+    """The bf16 kernel's tables on ``device``, built at the first bf16 call
+    and kept, as int32 (pairs of bf16): ``wgmma_bases`` of the window-baked
+    cos/sin bases (the launcher's tensor map reads them as bf16), then, at
+    the plan's ``mel_frag`` (in 8-byte units), each window's 144 rows of the
+    mel basis rounded to bfloat16 as ``mma_b_layout`` fragments
+    (windows, mel_nt, 9, 32, 2): the bf16 mel product's B operand."""
+    plan = bf16_plan(cfg.n_fft, cfg.hop_length, live_tap_span(cfg)[2], cfg.num_mels)
+    cos_b, sin_b = dft_bases(cfg, device)
+    bases = wgmma_bases(cos_b, sin_b, plan["windows"], plan["kp"]).view(torch.int32).reshape(-1)
+    nfw, nt = plan["windows"] * BF16_WINDOW, plan["mel_nt"]
+    if nt == 0:                 # past 128 mels the kernel sums the filters instead
+        return bases
+    mel = torch.zeros(nfw, 8 * nt, dtype=torch.float32)
+    mel_t = torch.from_numpy(_mel_t_np(cfg))[:nfw]
+    mel[:mel_t.shape[0], :cfg.num_mels] = mel_t
+    frags = [mma_b_layout(mel[w * BF16_WINDOW:(w + 1) * BF16_WINDOW]).reshape(-1)
+             for w in range(plan["windows"])]
+    return torch.cat([bases, *(f.to(bases.device) for f in frags)])
 
 
 # a block's shared memory, and the FFT kernels' entries of stft_bases
@@ -293,33 +277,72 @@ def check_fft_size(cfg: AudioConfig) -> int:
     return smem if smem <= _MAX_SMEM else 0
 
 
-BF16_TILE = 16                # frames a K3′ bf16 tile (one m16 row tile of mma.sync)
-BF16_CLUSTERS = (2, 4, 8)     # CTAs a tile's cluster, each 1/cw of its 128-bin windows
+# the bf16 kernel's tiles (csrc/stft_bf16.cuh): 64 frames (wgmma m64), 144
+# bins a window (two consumer warpgroups of wgmma n72), 64 taps a ring stage
+# (a 128-byte swizzle row), 2 ring stages of cos and sin; two CTAs an SM
+BF16_TILE, BF16_WINDOW, BF16_K, BF16_STAGES = 64, 144, 64, 2
+BF16_MAX_CW = 8
+_BF16_STAGE = 2 * BF16_WINDOW * BF16_K * 2
+_SM_SMEM = 233472               # an SM's shared memory, 1 KB of it reserved a CTA
+# the launcher's Bf16Plan, field by field
+BF16_PLAN_FIELDS = ("windows", "cw", "kp", "span", "stride", "kch", "stages", "scratch",
+                    "a_bytes", "smem", "mel_nt", "mel_frag")
 
 
-def bf16_smem(n_fft: int, cw: int = 2) -> int:
-    """Shared memory of a K3′ bf16 CTA in clusters of ``cw`` (mirrors
-    ``csrc/stft_fused.cu::bf16_smem``): 8 warps' rings of 4 k16 steps of B
-    fragments (1 KB each), the tile's 1024 resident taps in bf16 (rows of
-    1032), the magnitudes of its 1/cw of the 128-bin windows (rows of 136)
-    and the full magnitude rows of its 16 / cw mel frames."""
-    windows = -(-(n_fft // 2 + 1) // FREQ_TILE)
-    return (8 * 4 * 1024 + 2 * BF16_TILE * 1032
-            + 4 * -(-windows // cw) * BF16_TILE * 136
-            + 4 * -(-BF16_TILE // cw) * windows * FREQ_TILE)
+def wgmma_bases(cos_b: torch.Tensor, sin_b: torch.Tensor, windows: int,
+                kp: int) -> torch.Tensor:
+    """The bf16 kernel's bases: the (n_live, nf) cos and sin bases rounded
+    to bfloat16 (``round_bf16``'s rounding) and laid out K-major as its
+    tensor map reads them, (2 * windows * 144, kp) bf16: row n is bin n's
+    taps (cos rows, then sin rows from windows * 144), zero past the bins
+    and the live taps."""
+    n_live, nf = cos_b.shape
+    nfw = windows * BF16_WINDOW
+    out = torch.zeros(2 * nfw, kp, dtype=torch.bfloat16, device=cos_b.device)
+    out[:nf, :n_live] = cos_b.t().to(torch.bfloat16)
+    out[nfw:nfw + nf, :n_live] = sin_b.t().to(torch.bfloat16)
+    return out
 
 
-def bf16_cluster(n_fft: int) -> int:
-    """The bf16 cluster width for ``n_fft``: the narrowest of
-    ``BF16_CLUSTERS`` whose CTA fits one block (2 up to n_fft 4863, 4 up to
-    9727, 8 up to 19711); ValueError naming n_fft past that."""
-    for cw in BF16_CLUSTERS:
-        if bf16_smem(n_fft, cw) <= _MAX_SMEM:
-            return cw
-    raise ValueError(f"stft_features_fused: bf16_bases at n_fft {n_fft} needs "
-                     f"{bf16_smem(n_fft, BF16_CLUSTERS[-1])} bytes of shared memory at "
-                     f"clusters of {BF16_CLUSTERS[-1]}, more than one block has")
-
+def bf16_plan(n_fft: int, hop: int, n_live: int, num_mels: int) -> Dict[str, int]:
+    """The bf16 kernel's launch for (n_fft, hop, n_live, num_mels) (mirrors
+    ``csrc/stft_bf16.cuh``): ``windows`` of 144 bins over the n_fft/2 + 1,
+    clusters of ``cw`` CTAs (the next power of two of the windows, at most
+    8; one window a CTA up to 8 windows, else several, with the magnitudes
+    through a device-memory ``scratch``, as also past 142 mels, whose
+    partial sums would not fit the ring), the taps padded to ``kp``, and
+    the staged taps: the 64 frames' wav span (``span``, hop-long segments at
+    ``stride`` = hop + pad, stride = 8 mod 64) where hop is even and it
+    fits two CTAs an SM, else rows of ``kch`` taps a chunk at ``stride``
+    kch + 8; ``smem`` the CTA's shared memory (ring, taps, barriers, 1 KB of
+    alignment slack; the magnitude tile reuses the ring); ``mel_nt`` n8 tiles
+    of the bf16 mode's tensor-core mel product (0 past 128 mels: the
+    filters' sums instead) and ``mel_frag`` where its fragments start in
+    the tables (8-byte units)."""
+    windows = -(-(n_fft // 2 + 1) // BF16_WINDOW)
+    cw = 1
+    while cw < min(windows, BF16_MAX_CW):
+        cw *= 2
+    kp = _round_up(n_live, BF16_K)
+    ring = BF16_STAGES * _BF16_STAGE
+    fixed = 1024 + ring + 16 * BF16_STAGES
+    budget = _SM_SMEM // 2 - 1024 - fixed
+    span, stride, kch = 0, 0, 0
+    if hop % 2 == 0:
+        stride = hop + (8 - hop) % 64
+        a_bytes = _round_up((BF16_TILE + (kp - 1) // hop) * stride * 2, 16)
+        span = int(a_bytes <= budget)
+    if not span:
+        kch = min(kp, (budget // (2 * BF16_TILE) - 8) // BF16_K * BF16_K)
+        stride = kch + 8
+        a_bytes = BF16_TILE * stride * 2
+    mel_nt = -(-num_mels // 8)
+    return {"windows": windows, "cw": cw, "kp": kp, "span": span, "stride": stride,
+            "kch": kch, "stages": BF16_STAGES,
+            "scratch": int(windows > cw or 64 * (BF16_WINDOW + 2 + num_mels) * 4 > ring),
+            "a_bytes": a_bytes, "smem": fixed + a_bytes,
+            "mel_nt": mel_nt if mel_nt <= 16 else 0,
+            "mel_frag": windows * BF16_WINDOW * kp // 2}
 
 
 @functools.lru_cache(maxsize=16)
@@ -330,6 +353,15 @@ def _radix_arg(n_fft: int):
     # n_fft 2 has nothing to transform: one radix-1 (copy) stage
     r = fft_radices(n_fft // 2 if n_fft % 2 == 0 else n_fft) or (1,)
     return (ctypes.c_int * len(r))(*r), len(r)
+
+
+@functools.lru_cache(maxsize=16)
+def _bf16_plan_arg(n_fft: int, hop: int, n_live: int, num_mels: int):
+    """``bf16_plan`` as the host C int array the launchers read."""
+    import ctypes
+
+    plan = bf16_plan(n_fft, hop, n_live, num_mels)
+    return (ctypes.c_int * len(BF16_PLAN_FIELDS))(*(plan[k] for k in BF16_PLAN_FIELDS))
 
 
 def db_normalize(x: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
@@ -348,6 +380,19 @@ def _num_frames(cfg: AudioConfig, total: int) -> int:
     if total < cfg.n_fft:
         raise ValueError(f"STFT features: {total} samples < n_fft {cfg.n_fft}")
     return 1 + (total - cfg.n_fft) // cfg.hop_length
+
+
+def mma_b_layout(b: torch.Tensor) -> torch.Tensor:
+    """A (K, N) matrix (K a multiple of 16, N of 8) rounded to bfloat16 as
+    the B operands of ``mma.sync.m16n8k16``: int32 (N/8, K/16, 32, 2),
+    [n8 tile][k16 step][lane][register]; lane g*4 + t holds, low half first,
+    B[2t, g], B[2t+1, g] in register 0 and B[2t+8, g], B[2t+9, g] in
+    register 1 of the tile. A warp reads one tile's fragments as 256
+    consecutive bytes."""
+    k, n = b.shape
+    x = b.to(torch.bfloat16).reshape(k // 16, 2, 4, 2, n // 8, 8)   # (ks, h, t, e, nt, g)
+    x = x.permute(4, 0, 5, 2, 1, 3).contiguous()                   # (nt, ks, g, t, h, e)
+    return x.view(torch.int32).reshape(n // 8, k // 16, 32, 2)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -428,10 +473,9 @@ def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConf
     """One launch of K3 or K3′ (``kernel``) on a CUDA wav: float32 through
     the FFT (in shared memory, or on a device-memory scratch past
     ``MAX_FFT_SIZE``), or on bf16 operands (K3′'s bf16 bases, K3's bf16
-    mode, counted as its ``bf16`` branch) on clusters of
-    ``bf16_cluster(n_fft)`` CTAs."""
+    mode, counted as its ``bf16`` branch) on the wgmma kernel of
+    ``bf16_plan``."""
     refuse_grad(name, wav)
-    cw = bf16_cluster(cfg.n_fft) if bf16_bases else 0    # the size limit, before any table
     wav, bases, mel, lin = _wav_launch_args(wav, cfg, bases, name, _FFT_TABLES)
     b, total = wav.shape
     if b == 0:
@@ -439,21 +483,27 @@ def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConf
     if b > 65535:
         raise ValueError(f"{name}: batch {b} > 65535")
     t = mel.shape[1]
-    slots, scratch, frags = 0, None, (None, None)
+    j0, _, n_live = live_tap_span(cfg)
+    slots, scratch, bf16_args = 0, None, (None, None)
     if bf16_bases:
-        fr, (bcos, bsin) = BF16_TILE, _bf16_fragments(cfg, str(wav.device))
-        frags = (ptr(bcos), ptr(bsin))
+        fr = 0
+        plan = bf16_plan(cfg.n_fft, cfg.hop_length, n_live, cfg.num_mels)
+        wb = _bf16_bases(cfg, str(wav.device))
+        if plan["scratch"]:     # the magnitudes of every window, past 8 windows
+            scratch = torch.empty(b, t, plan["windows"] * BF16_WINDOW, device=wav.device,
+                                  dtype=torch.float32)
+        check_cuda(name, wb, scratch)
+        bf16_args = (ptr(wb), _bf16_plan_arg(cfg.n_fft, cfg.hop_length, n_live, cfg.num_mels))
     else:
         fr = fft_frames_per_block(cfg.n_fft, b, t, sm_count(wav.device.index))
         slots, scratch = _fft_scratch(cfg.n_fft, b, t, fr, wav.device)
     radix, stages = _radix_arg(cfg.n_fft)
-    j0, _, n_live = live_tap_span(cfg)
     tables = [ptr(bases[k]) for k in _FFT_TABLES]
     sizes = [ptr(mel), ptr(lin), b, total, t, cfg.hop_length, j0 * cfg.hop_length, n_live,
              cfg.n_fft, cfg.num_mels, fr, slots, radix, stages,
              *_norm_args(cfg, normalize_linear)]
     branch = "bf16" if bf16_bases and kernel is KERNEL else None
-    kernel(ptr(wav), *tables, *frags, *sizes, int(bf16_bases), cw, ptr(scratch),
+    kernel(ptr(wav), *tables, *bf16_args, *sizes, int(bf16_bases), ptr(scratch),
            stream_ptr(wav.device), branch=branch)
     return mel, lin
 
@@ -461,7 +511,7 @@ def _launch_wav(kernel: CudaKernel, name: str, wav: torch.Tensor, cfg: AudioConf
 def stft_features(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
                   normalize_linear: bool = True, bf16: bool = False) -> Features:
     """K3: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors, for any hop | n_fft (``bf16``: n_fft up to 19711). ``bases``
+    tensors, for any hop | n_fft. ``bases``
     (from ``stft_bases``) may be passed to reuse the device copies.
     ``bf16`` is the resident Pallas kernel's bf16 operand mode: frames and
     window-baked bases rounded to bfloat16 with float32 sums, then the
@@ -479,8 +529,8 @@ def stft_features_fused(wav: torch.Tensor, cfg: AudioConfig, bases=None, *,
     """K3′: K3's function for any hop | n_fft through K3's kernel, with its
     own launcher and counter. ``bf16_bases`` rounds the frames and the
     window-baked cos/sin bases to bfloat16 and sums their products in float32
-    on the tensor cores (the mel stays float32; n_fft up to 19711). The
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    on the tensor cores (the mel stays float32). The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if wav.device.type == "cpu":
         return stft_features_plain(wav, cfg, bases, normalize_linear=normalize_linear,
                                    bf16_bases=bf16_bases)

@@ -282,11 +282,12 @@ def test_stft_fft_kernels_give_k3s_features(dev):
 @pytest.mark.parametrize("n_fft,hop,route", [
     (29058, 14529, "frames"), (32768, 4096, "fused"), (32768, 4096, "resident"),
     (15625, 3125, "frames"), (15625, 3125, "fused"),   # odd, 5^6: past one block's 14527
-    (6144, 1536, "fused_bf16"), (8192, 2048, "fused_bf16")])  # bf16 clusters of 4
+    (6144, 1536, "fused_bf16"), (8192, 2048, "fused_bf16")])  # bf16: past 8 bin windows
 def test_stft_fft_kernels_past_shared_memory(dev, n_fft, hop, route):
     """Sizes the kernels once refused: past one frame's shared memory the
-    FFT runs on a device-memory scratch (float32), and bf16 bases widen
-    their cluster; each agrees with the plain features."""
+    FFT runs on a device-memory scratch (float32), and bf16 bases walk
+    several bin windows a CTA with the magnitudes on a device-memory
+    scratch (one launch a call); each agrees with the plain features."""
     from gst_tacotron_tpu_torch.config import AudioConfig
     from gst_tacotron_tpu_torch.dsp.torch_dsp import TorchDSP
     from gst_tacotron_tpu_torch.ops import stft
@@ -299,7 +300,10 @@ def test_stft_fft_kernels_past_shared_memory(dev, n_fft, hop, route):
         x = dsp.frame_precentered(wav).reshape(-1, n_fft).contiguous()
         got = [y.reshape(2, -1, y.shape[-1]) for y in stft.stft_features_frames(x, cfg)]
     elif route == "fused_bf16":
+        assert stft.bf16_plan(n_fft, hop, stft.live_tap_span(cfg)[2], cfg.num_mels)["scratch"] == 1
+        before = stft.FUSED_KERNEL.launches
         got = stft.stft_features_fused(wav, cfg, bf16_bases=True)
+        assert stft.FUSED_KERNEL.launches == before + 1
     else:
         run = stft.stft_features if route == "resident" else stft.stft_features_fused
         got = run(wav, cfg)
@@ -414,6 +418,41 @@ def test_refenc_stack_kernel_bf16(dev):
     torch.testing.assert_close(emb, emb_plain, atol=1e-3, rtol=0)
 
 
+def test_refenc_stack_kernel_bf16_leading_layers_alone(dev):
+    """K2's bf16 mode at a T the one-launch form cannot hold, (2, 4096, 80):
+    the plan runs layers 0, 1 and 2 one launch each over bands of rows
+    (bf16 activations in device memory), then layers 3-5 on clusters; one
+    branch count a stack, the plain version's bf16 rounding, the same bits
+    twice, and row 1 alone gives the 2-row launch's bits."""
+    from gst_tacotron_tpu_torch.ops.refenc import (KERNEL, bf16_plan, refenc_stack,
+                                                   refenc_stack_plain)
+
+    channels = [32, 32, 64, 64, 128, 128]
+    plan = bf16_plan(4096, 80, channels)
+    assert [(q["l0"], q["l1"]) for q in plan["launches"]] == [(0, 1), (1, 2), (2, 3), (3, 6)]
+    g = torch.Generator().manual_seed(4096)
+    ks, c_in = [], 1
+    for c in channels:
+        ks.append(rand(g, 3, 3, c_in, c, scale=1.0 / (3 * c_in ** 0.5)).to(dev))
+        c_in = c
+    sc = [(torch.rand(k.shape[-1], generator=g) + 0.5).to(dev) for k in ks]
+    bi = [rand(g, k.shape[-1], scale=0.1).to(dev) for k in ks]
+    mel = torch.rand(2, 4096, 80, generator=g).to(dev)
+    lengths = torch.tensor([4096, 2999], device=dev)
+    before, branch = KERNEL.launches, KERNEL.branch_launches["bf16"]
+    got = refenc_stack(mel, ks, sc, bi, lengths=lengths, bf16=True)
+    again = refenc_stack(mel, ks, sc, bi, lengths=lengths, bf16=True)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2 and KERNEL.branch_launches["bf16"] == branch + 2
+    assert torch.equal(got, again)
+    ref = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths, bf16=True)
+    f32 = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths)
+    assert float((got - ref).abs().max()) < 0.05
+    assert float((got - ref).abs().mean()) < float((got - f32).abs().mean()) / 5
+    one = refenc_stack(mel[1:].contiguous(), ks, sc, bi, lengths=lengths[1:], bf16=True)
+    assert torch.equal(one, got[1:])
+
+
 @pytest.mark.parametrize("n_fft,hop,win,frames", [(2048, 256, 1024, 128), (512, 128, 512, 21),
                                                   (6144, 1536, 4608, 30)])
 def test_stft_features_kernel_bf16(dev, n_fft, hop, win, frames):
@@ -444,6 +483,28 @@ def test_stft_features_kernel_bf16(dev, n_fft, hop, win, frames):
     assert loud.any() and float((got[0] - f32[0]).abs()[loud].max()) < 0.05
     bases = stft_features_fused(wav, cfg, bf16_bases=True)[0]
     assert float((bases - ref[0]).abs().mean()) > float((got[0] - ref[0]).abs().mean())
+
+
+@pytest.mark.parametrize("num_mels", [8, 200])
+def test_stft_features_kernel_bf16_mel_widths(dev, num_mels):
+    """K3's bf16 mode where the mel is unusual: 8 mels at n_fft 2048 (each
+    filter spans up to 8 of the 144-bin windows, whose partial sums the
+    owning CTAs add in order) and 200 mels (past 128: each filter summed
+    whole through the scratch); both modes against their plain versions."""
+    from gst_tacotron_tpu_torch.config import AudioConfig
+    from gst_tacotron_tpu_torch.ops.stft import (bf16_plan, live_tap_span, stft_features,
+                                                 stft_features_fused, stft_features_plain)
+
+    cfg = AudioConfig(n_fft=2048, hop_length=256, win_length=1024, num_mels=num_mels)
+    plan = bf16_plan(2048, 256, live_tap_span(cfg)[2], num_mels)
+    assert (plan["mel_nt"] == 0) == (num_mels > 128)
+    g = torch.Generator().manual_seed(num_mels)
+    wav = ((torch.rand(3, 2048 + 256 * 70, generator=g) - 0.5) * 0.6).to(dev)
+    for got, ref in ((stft_features(wav, cfg, bf16=True), stft_features_plain(wav, cfg, bf16=True)),
+                     (stft_features_fused(wav, cfg, bf16_bases=True),
+                      stft_features_plain(wav, cfg, bf16_bases=True))):
+        for x, y in zip(got, ref):
+            torch.testing.assert_close(x, y, atol=5e-3, rtol=1e-5)
 
 
 def test_extractor_resident_route_runs_k3_bf16_on_the_card(dev):

@@ -1,6 +1,7 @@
 """The CUDA designs of K3, K3′ and K3″ (mel-STFT as a shared-memory FFT,
-K3′'s bf16 bases on tensor cores) and K1 (GRU scan on thread-block
-clusters), checked on the CPU without a card:
+the bf16 modes on wgmma), K1 (GRU scan on thread-block clusters) and K2
+(float32 one launch a layer; bf16 one clustered tensor-core launch),
+checked on the CPU without a card:
 
 - the STFT kernels' host tables: float64 twiddles rounded once, the live
   window taps, and the sparse mel, which rebuilds the dense basis exactly
@@ -14,12 +15,18 @@ clusters), checked on the CPU without a card:
   to 1e-6 of the frame's largest bin (float32 arithmetic, as on the card);
   ``fft_plan``'s table, the frames a block and the scratch mode past the
   shared-memory size;
-- K3′'s bf16 tile: the ldmatrix and ``mma.sync.m16n8k16`` fragment index
-  maps over ``mma_b_fragments`` against a plain product, and its cluster
-  width by n_fft;
-- K2's layer kernels: ``layer_plan``'s grids at the main shape, and a numpy
-  emulation of a layer's tiles (pixel slots, k parts, SAME padding, the
-  length mask) against the plain stack.
+- the bf16 STFT tile (``csrc/stft_bf16.cuh``): the staged wav span or
+  rows, each thread's A fragments, the TMA boxes' 128-byte swizzle and the
+  wgmma descriptor's k16 steps over ``wgmma_bases``, the accumulator map
+  into the magnitude tile, and the mel's window partials, against the
+  bf16-rounded product; ``bf16_plan`` from n_fft 400 to 19711;
+- K2's float32 layer kernels: ``layer_plan``'s grids at the main shape, and
+  a numpy emulation of a layer's tiles (pixel slots, k parts, SAME padding,
+  the length mask) against the plain stack;
+- K2's bf16 kernel (``csrc/refenc_bf16.cuh``): ``bf16_plan``, and a float64
+  emulation of its launches (the cluster's bands, halo rows read from the
+  owning CTA, ldmatrix addresses, ``mma_b_layout`` fragments, k parts)
+  against the plain bf16 stack.
 """
 
 from pathlib import Path
@@ -452,7 +459,7 @@ def test_fft_frames_per_block_and_size_limit():
 
 
 # ---------------------------------------------------------------------------
-# K3′ bf16: the tensor-core tile's fragment maps
+# The bf16 STFT kernel (K3's bf16 mode, K3′'s bf16 bases): wgmma on TMA-fed bases
 # ---------------------------------------------------------------------------
 
 
@@ -461,95 +468,324 @@ def _bf16_values(x):
         .to(torch.float32).numpy()
 
 
+def _bf16_as_float(bits):
+    """bf16 bit patterns (int16) as float64."""
+    u = (np.asarray(bits).astype(np.int64) & 0xFFFF) << 16
+    return u.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
 def _pair(reg):
-    """The two bf16 halves of int32 registers as float32 (low half first)."""
+    """The two bf16 halves of int32 registers as float64 (low half first)."""
     u = np.asarray(reg).astype(np.int64) & 0xFFFFFFFF
-    lo = ((u & 0xFFFF) << 16).astype(np.uint32).view(np.float32)
-    hi = (u & 0xFFFF0000).astype(np.uint32).view(np.float32)
-    return lo, hi
+    return _bf16_as_float(u & 0xFFFF), _bf16_as_float(u >> 16)
 
 
-@pytest.mark.parametrize("n_live,nfp", [(1024, 1152), (100, 256), (1500, 128)])
-def test_bf16_tile_fragment_maps(n_live, nfp):
-    """The kernel's tile, lane by lane: A from the staged taps through
-    ldmatrix.x4 (lane l addresses row l % 16, column block l / 16), B from
-    ``mma_b_fragments``, each m16n8k16 product per the PTX fragment layouts,
-    C scattered to (row g + 8*(i/2), bin nt*8 + 2*t + i%2). The
-    sum over the k16 steps equals the plain product of the bf16-rounded
-    operands (float64 sums here, so exactly)."""
-    rng = np.random.default_rng(n_live)
-    tf, mt = 16, 1                                   # BF_TF: one m16 row tile
-    a = rng.uniform(-1, 1, (tf, n_live)).astype(np.float32)
-    b = rng.uniform(-1, 1, (n_live, nfp)).astype(np.float32)
-    frag = tstft.mma_b_fragments(b)
-    ks_n = -(-n_live // 16)
-    assert frag.shape == (nfp // 8, ks_n, 32, 2) and frag.dtype == np.int32
-    ka, kas = 1024, 1024 + 8                         # BF_KA taps resident, row stride BF_KAS
-    staged = np.zeros((tf, ks_n * 16 + ka), np.float32)
-    staged[:, :n_live] = _bf16_values(a)
-    lane = np.arange(32)
+def _staged_taps(wav, plan, t0, hop, n0, n_live, chunk=0):
+    """The kernel's staged taps (load_span / load_chunk) as float64: the 64
+    frames' wav span in hop-long segments at the plan's stride, or chunk
+    ``chunk`` of each frame's taps as rows; bf16-rounded, zero past the
+    wav and (rows) the live taps."""
+    kp, stride = plan["kp"], plan["stride"]
+    r = lambda v: _bf16_values(np.asarray(v, np.float32)).astype(np.float64)
+    if plan["span"]:
+        nseg = 64 + (kp - 1) // hop
+        out = np.full(nseg * stride, np.nan)
+        i = np.arange(nseg * hop)
+        s = t0 * hop + n0 + i
+        out[(i // hop) * stride + i % hop] = r(np.where(s < len(wav), wav[np.minimum(s, len(wav) - 1)], 0))
+        return out
+    kch = plan["kch"]
+    out = np.full(64 * stride, np.nan)
+    rr, e = np.divmod(np.arange(64 * kch), kch)
+    k = chunk * kch + e
+    s = (t0 + rr) * hop + n0 + k
+    ok = (k < n_live) & (s < len(wav))
+    out[rr * stride + e] = r(np.where(ok, wav[np.minimum(s, len(wav) - 1)], 0))
+    return out
+
+
+def _a_fragments(wav, plan, t0, hop, n0, n_live, ksteps):
+    """Each consumer thread's A registers, k16 step by k16 step, through the
+    kernel's address arithmetic (the span's per-thread (segment, offset)
+    trackers, or the chunk's row offsets), rebuilt as the 64 x 16 A tiles
+    of mma.m16n8k16's layout a warp (rows 16w + g, + 8; taps 2t, + 8)."""
+    w, lane = np.divmod(np.arange(128), 32)
     g, t = lane // 4, lane % 4
-    out = np.zeros((tf, nfp))
-    for ks in range(ks_n):
-        c, kk = divmod(ks, ka // 16)                 # resident chunk, its k16 step
-        smem = np.zeros((tf, kas), np.float32)
-        smem[:, :ka] = staged[:, c * ka:(c + 1) * ka]
-        flat = smem.reshape(-1)
-        for m in range(mt):
-            # ldmatrix.x4: matrix j's row r is at the address lane 8j + r gives
-            addr = (m * 16 + (lane & 15)) * kas + kk * 16 + (lane >> 4) * 8
-            regs = [(flat[addr[8 * j + g] + 2 * t], flat[addr[8 * j + g] + 2 * t + 1])
-                    for j in range(4)]
-            # PTX A layout: reg0 (g, 2t..), reg1 (g+8, 2t..), reg2 (g, 2t+8..), reg3 (g+8, 2t+8..)
-            atile = np.zeros((16, 16))
-            for j, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
-                atile[g + dr, 2 * t + dc], atile[g + dr, 2 * t + dc + 1] = regs[j]
-            np.testing.assert_array_equal(atile, staged[m * 16:(m + 1) * 16, ks * 16:ks * 16 + 16])
-            for nt in range(nfp // 8):
-                b0 = _pair(frag[nt, ks, :, 0])
-                b1 = _pair(frag[nt, ks, :, 1])
-                btile = np.zeros((16, 8))
-                btile[2 * t, g], btile[2 * t + 1, g] = b0
-                btile[2 * t + 8, g], btile[2 * t + 9, g] = b1
-                ctile = atile @ btile
-                for i in range(4):              # C layout: (g + 8*(i//2), 2t + i%2)
-                    out[m * 16 + g + 8 * (i // 2), nt * 8 + 2 * t + i % 2] += \
-                        ctile[g + 8 * (i // 2), 2 * t + i % 2]
-    want = _bf16_values(a).astype(np.float64) @ _bf16_values(b).astype(np.float64)
-    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+    r0 = 16 * w + g
+    stride = plan["stride"]
+    qa, ra = (2 * t) // hop, (2 * t) % hop
+    qb, rb = (2 * t + 8) // hop, (2 * t + 8) % hop
+    chunks = 1 if plan["span"] else -(-plan["kp"] // plan["kch"])
+    staged = _staged_taps(wav, plan, t0, hop, n0, n_live)
+    kl = 0
+    tiles = []
+    for ks in range(ksteps):
+        if not plan["span"] and chunks > 1 and (ks * 64) % plan["kch"] == 0:
+            staged = _staged_taps(wav, plan, t0, hop, n0, n_live, ks * 64 // plan["kch"])
+            kl = 0
+        for _ in range(4):
+            if plan["span"]:
+                pa, pb = (r0 + qa) * stride + ra, (r0 + qb) * stride + rb
+                ra = ra + 16
+                qa, ra = qa + ra // hop, ra % hop
+                rb = rb + 16
+                qb, rb = qb + rb // hop, rb % hop
+            else:
+                pa = r0 * stride + kl + 2 * t
+                pb = pa + 8
+                kl += 16
+            tile = np.full((64, 16), np.nan)
+            for reg, (addr, dr) in enumerate([(pa, 0), (pa + 8 * stride, 8), (pb, 0),
+                                              (pb + 8 * stride, 8)]):
+                col = 2 * t + (8 if reg >= 2 else 0)
+                tile[r0 + dr, col] = staged[addr]
+                tile[r0 + dr, col + 1] = staged[addr + 1]
+            tiles.append(tile)
+    return np.concatenate(tiles, axis=1)
+
+
+def _b_tiles(bases_bits, win, ks):
+    """The TMA boxes of ring stage (win, ks), cos and sin (144 bin rows x 64
+    taps, each row's 16-byte chunk c at c ^ (row % 8): the 128-byte
+    swizzle), read back as wgmma's four k16 steps see them through the
+    descriptor (start + 32 bytes a step, the same swizzle of the address):
+    two (64 taps x 144 bins) B matrices."""
+    out = []
+    nfw = bases_bits.shape[0] // 2
+    for row0 in (win * 144, nfw + win * 144):
+        box = bases_bits[row0:row0 + 144, ks * 64:(ks + 1) * 64]
+        image = np.zeros((144, 8, 8), np.int64)
+        n = np.arange(144)[:, None]
+        image[n, np.arange(8)[None, :] ^ (n % 8)] = box.reshape(144, 8, 8)
+        b = np.zeros((64, 144))
+        for s in range(4):
+            for kk in range(16):
+                chunk = (2 * s + kk // 8) ^ (np.arange(144) % 8)
+                b[16 * s + kk] = _bf16_as_float(image[np.arange(144), chunk, kk % 8])
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("n_fft,hop,win", [(2048, 256, 1024), (400, 100, 400),
+                                           (1575, 525, 1500), (6144, 1536, 4608)])
+def test_bf16_tile_fragment_maps(n_fft, hop, win):
+    """The bf16 kernel's first frame tile, lane by lane: the A fragments
+    from the staged span (n_fft 2048, 400: even hops) or rows (odd hop 525;
+    6144, whose span does not fit: chunks of 256 taps) equal the frames'
+    bf16 taps; the swizzled TMA boxes read through the descriptor's k16
+    steps equal ``wgmma_bases``; the two warpgroups' accumulators (72 bins
+    each), scattered as the epilogue does (fragment 4j + i: row r0 + 8 *
+    (i / 2), bin 72 * half + 8j + 2t + i % 2), give every magnitude of the
+    tile once; the mel (each filter's share of window w taken by CTA w: in
+    the bf16 mode a tensor-core product of the packed bf16 magnitudes and
+    the window's mel fragments, every partial written once; then the window
+    partials added in ascending order by the CTA that owns the frame) gives
+    the plain bf16 version's mel (float64 sums here: within float32
+    rounding)."""
+    cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+    j0, _, n_live = tstft.live_tap_span(cfg)
+    n0 = j0 * hop
+    plan = tstft.bf16_plan(n_fft, hop, n_live, cfg.num_mels)
+    assert plan["span"] == (n_fft in (2048, 400))
+    rng = np.random.default_rng(n_fft)
+    frames = 70
+    wav = (rng.uniform(-1, 1, n_fft + hop * (frames - 1)) * 0.4).astype(np.float32)
+    ksteps = plan["kp"] // 64
+    a = _a_fragments(wav, plan, 0, hop, n0, n_live, ksteps)
+    want_a = np.zeros((64, plan["kp"]))
+    for r in range(64):
+        want_a[r, :n_live] = wav[r * hop + n0: r * hop + n0 + n_live]
+    want_a = _bf16_values(want_a.astype(np.float32))
+    live = np.arange(plan["kp"]) < n_live
+    np.testing.assert_array_equal(a[:, live], want_a[:, live])
+    assert np.isfinite(a).all()
+
+    cos_b, sin_b = tstft.dft_bases(cfg, "cpu")
+    bits = tstft.wgmma_bases(cos_b, sin_b, plan["windows"], plan["kp"]).view(torch.int16).numpy()
+    nf = cfg.num_freq
+    mags = np.zeros((64, plan["windows"] * 144))
+    writes = np.zeros_like(mags, int)
+    warp, lane = np.divmod(np.arange(256), 32)       # the two consumer warpgroups
+    half, g, t = warp >> 2, lane // 4, lane % 4
+    r0 = 16 * (warp & 3) + g
+    for win in {0, plan["windows"] - 1}:
+        acc = [np.zeros((64, 144)), np.zeros((64, 144))]
+        for ks in range(ksteps):
+            bc, bs = _b_tiles(bits, win, ks)
+            acc[0] += a[:, 64 * ks:64 * ks + 64] @ bc
+            acc[1] += a[:, 64 * ks:64 * ks + 64] @ bs
+        # each warpgroup's accumulator fragments (wgmma's D layout over its
+        # 72 bins, the boxes' rows 72 * half on), then the epilogue's map
+        # into the magnitude tile
+        for j in range(9):
+            for i in range(4):
+                row, col = r0 + 8 * (i // 2), 72 * half + 8 * j + 2 * t + i % 2
+                re, im = acc[0][row, col], acc[1][row, col]
+                mags[r0 + 8 * (i // 2), win * 144 + 72 * half + 8 * j + 2 * t + i % 2] = \
+                    np.sqrt(re * re + im * im)
+                writes[row, win * 144 + col] += 1
+        assert (writes[:, win * 144:(win + 1) * 144] == 1).all()
+    frames_bf = want_a[:, :n_live].astype(np.float64)
+    c64, s64 = (_bf16_values(x.numpy()).astype(np.float64) for x in (cos_b, sin_b))
+    want = np.sqrt((frames_bf @ c64) ** 2 + (frames_bf @ s64) ** 2)
+    for win in {0, plan["windows"] - 1}:
+        sl = slice(win * 144, min(nf, (win + 1) * 144))
+        np.testing.assert_allclose(mags[:, sl], want[:, sl], rtol=1e-12, atol=1e-12)
+
+    if plan["scratch"] or n_fft != 2048:
+        return
+    # the mel (one window a CTA): CTA w sums each filter's bins of window w in
+    # ascending order for every row; CTA rank adds, for its frames
+    # [rank * fpr, ...), each filter's window partials in ascending order
+    for win in range(plan["windows"]):
+        sl = slice(win * 144, (win + 1) * 144)
+        mags[:, sl] = want[:, sl] if win < plan["windows"] - 1 else \
+            np.pad(want[:, win * 144:], ((0, 0), (0, (win + 1) * 144 - nf)))
+    tables = tstft._fft_tables_np(cfg)
+    lo, off, mw = tables["mel_lo"], tables["mel_off"], _bf16_values(tables["mel_w"])
+    m_n = cfg.num_mels
+    parts = np.zeros((plan["windows"], 64, m_n))
+    for w in range(plan["windows"]):
+        b0 = w * 144
+        for m in range(m_n):
+            c0, c1 = max(lo[m], b0), min(lo[m] + off[m + 1] - off[m], b0 + 144)
+            if c0 < c1:
+                seg = _bf16_values(mags[:, c0:c1].astype(np.float32)).astype(np.float64)
+                parts[w, :, m] = seg @ mw[off[m] + c0 - lo[m]: off[m] + c1 - lo[m]]
+    # the bf16 mode's partials as the kernel takes them: warp w's A
+    # fragments packed from the tile (rows 16 (w % 4) + g, + 8; bins 16s +
+    # 2t, + 8), its half of the n8 tiles of the window's mel fragments, and
+    # each fragment stored to (row, filter); every partial written once
+    melf = tstft._bf16_bases(cfg, "cpu")[plan["mel_frag"] * 2:].numpy().reshape(
+        plan["windows"], plan["mel_nt"], 9, 32, 2)
+    nt_n = plan["mel_nt"]
+    for w in range(plan["windows"]):
+        tile = _bf16_values(mags[:, w * 144:(w + 1) * 144].astype(np.float32)).astype(np.float64)
+        got_p = np.full((64, m_n), np.nan)
+        for warp in range(8):
+            lane = np.arange(32)
+            g, t = lane // 4, lane % 4
+            r0 = (warp & 3) * 16 + g
+            nh = (nt_n + 1) // 2
+            nt0 = (warp >> 2) * nh
+            for j in range(min(nh, nt_n - nt0)):
+                bmat = _mma_b_matrix(melf[w, nt0 + j], 9, 1)          # (144, 8)
+                acc = np.zeros((32, 4))
+                for s9 in range(9):
+                    a = np.zeros((16, 16))
+                    for dr, dc, in [(0, 0), (8, 0), (0, 8), (8, 8)]:
+                        for e in range(2):
+                            a[g + dr, 2 * t + dc + e] = tile[r0 + dr, 16 * s9 + 2 * t + dc + e]
+                    c = a @ bmat[16 * s9:16 * s9 + 16]
+                    for i in range(4):
+                        acc[:, i] += c[g + 8 * (i // 2), 2 * t + i % 2]
+                for i in range(4):
+                    m = (nt0 + j) * 8 + 2 * t + i % 2
+                    ok = m < m_n
+                    assert np.isnan(got_p[(r0 + 8 * (i // 2))[ok], m[ok]]).all()
+                    got_p[(r0 + 8 * (i // 2))[ok], m[ok]] = acc[ok, i]
+        np.testing.assert_allclose(got_p, parts[w], rtol=1e-12, atol=1e-12)
+    cw = plan["cw"]
+    fpr = -(-64 // cw)
+    mel = np.zeros((64, m_n))
+    covered = np.zeros((64, m_n), int)
+    for rank in range(cw):
+        for rl in range(fpr):
+            r = rank * fpr + rl
+            for m in range(m_n):
+                n = off[m + 1] - off[m]
+                for w in range(lo[m] // 144, (lo[m] + n - 1) // 144 + 1) if n else ():
+                    mel[r, m] += parts[w, r, m]
+                covered[r, m] += 1
+    assert (covered == 1).all()
+    wav_t = torch.from_numpy(wav[None])
+    ref = tstft.stft_features_plain(wav_t, cfg, bf16=True)[0][0, :64].numpy()
+    got = tstft.db_normalize(torch.from_numpy(mel), cfg).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-4)
 
 
 def test_bf16_launch_plan():
-    """16-frame tiles over clusters of 2 CTAs, each half of the 128-bin
-    windows, while the CTA's shared memory fits (up to n_fft 4863, 19
-    windows); then 4 and 8 CTAs, each holding fewer windows (n_fft 4864,
-    8192 and 19711, which a cluster of 2 once refused, now run); past 19711,
-    ValueError naming the size. The fragment tables are not among
-    ``stft_bases``: the first bf16 call builds them."""
-    assert (tstft.BF16_TILE, tstft.BF16_CLUSTERS) == (16, (2, 4, 8))
-    for n_fft in (400, 1024, 1536, 1575, 2048, 4096, 4863):
-        assert tstft.bf16_cluster(n_fft) == 2
-        assert tstft.bf16_smem(n_fft) <= 232448
-    assert tstft.bf16_smem(2048) == 146176             # 9 windows
-    for n_fft, cw in ((4864, 4), (6144, 4), (8192, 4), (9727, 4), (9728, 8), (19711, 8)):
-        assert tstft.bf16_cluster(n_fft) == cw
-        assert tstft.bf16_smem(n_fft, cw) <= 232448 < tstft.bf16_smem(n_fft, cw // 2)
-    with pytest.raises(ValueError, match="n_fft 19712"):
-        tstft.bf16_cluster(19712)
+    """``bf16_plan`` from n_fft 400 to 19711: 144-bin windows, clusters of
+    the next power of two of them (at most 8: 8 at n_fft 2048, 128 CTAs for
+    the main path's 1024 frames), one window a CTA up to 8 windows and the
+    device-memory scratch past them; the wav span where hop is even and it
+    fits (the main path: 67 segments at stride 264, 35 KB), else rows of a
+    multiple of 64 taps; segments and rows at a stride of 8 mod 64 (the 8
+    rows of a fragment on 8 bank groups); two CTAs fit an SM. No n_fft past the old 19711 limit is refused. The bases
+    are built at the first bf16 call, not among ``stft_bases``."""
+    main = tstft.bf16_plan(2048, 256, 1024, 80)
+    assert main == {"windows": 8, "cw": 8, "kp": 1024, "span": 1, "stride": 264, "kch": 0,
+                    "stages": 2, "scratch": 0, "a_bytes": 35376, "smem": 110160,
+                    "mel_nt": 10, "mel_frag": 8 * 144 * 1024 // 2}
+    assert (tstft.BF16_TILE, tstft.BF16_WINDOW, tstft.BF16_K) == (64, 144, 64)
+    for n_fft in (400, 512, 1024, 1026, 1200, 1536, 1575, 2048, 4096, 4863, 4864, 6144, 8192,
+                  9727, 9728, 15625, 19711, 19712, 32768):
+        for hop in (n_fft // 4, n_fft // 8 if n_fft % 8 == 0 else n_fft // 4):
+            win = n_fft - hop
+            cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+            n_live = tstft.live_tap_span(cfg)[2]
+            p = tstft.bf16_plan(n_fft, hop, n_live, 80)
+            assert p["windows"] * 144 >= n_fft // 2 + 1 > (p["windows"] - 1) * 144
+            assert p["cw"] in (1, 2, 4, 8) and p["cw"] >= min(p["windows"], 8)
+            assert p["scratch"] == int(p["windows"] > p["cw"])
+            assert p["kp"] % 64 == 0 and p["kp"] - 64 < n_live <= p["kp"]
+            assert 2 * (p["smem"] + 1024) <= 233472 and p["stride"] % 64 == 8   # two CTAs an SM
+            if p["span"]:
+                assert hop % 2 == 0
+                assert p["a_bytes"] >= (64 + (p["kp"] - 1) // hop) * p["stride"] * 2
+            else:
+                assert p["kch"] % 64 == 0 and p["kch"] >= 64 and p["stride"] == p["kch"] + 8
+            assert p["a_bytes"] % 16 == 0
+    assert tstft.bf16_plan(1575, 525, 1500, 80)["span"] == 0          # odd hop: rows
+    assert tstft.bf16_plan(6144, 1536, 4608, 80)["kch"] == 256        # the span would not fit
+    # 143 mels: the partial sums do not fit the ring past the tile
+    assert [tstft.bf16_plan(2048, 256, 1024, m)["scratch"] for m in (142, 143)] == [0, 1]
     cfg = AudioConfig(n_fft=512, hop_length=128, win_length=512)
-    assert not any(k.startswith("bf16") for k in tstft.stft_bases(cfg, "cpu"))
-    bcos, bsin = tstft._bf16_fragments(cfg, "cpu")
-    cos_b, sin_b, _ = tstft._bases_np(cfg)
-    np.testing.assert_array_equal(bcos.numpy(), tstft.mma_b_fragments(cos_b))
-    np.testing.assert_array_equal(bsin.numpy(), tstft.mma_b_fragments(sin_b))
+    assert not any("bf16" in k for k in tstft.stft_bases(cfg, "cpu"))
+    wb = tstft._bf16_bases(cfg, "cpu")
+    plan = tstft.bf16_plan(512, 128, 512, 80)
+    cos_b, sin_b = tstft.dft_bases(cfg, "cpu")
+    nfw, nt = plan["windows"] * 144, plan["mel_nt"]
+    assert wb.dtype == torch.int32 and plan["mel_frag"] * 2 == nfw * 512 and nt == 10
+    np.testing.assert_array_equal(
+        wb[:nfw * 512].numpy(),
+        tstft.wgmma_bases(cos_b, sin_b, plan["windows"], 512).view(torch.int32).reshape(-1))
+    # then each window's 144 rows of the mel basis, bf16, as mma B fragments
+    frags = wb[plan["mel_frag"] * 2:].numpy().reshape(plan["windows"], nt, 9, 32, 2)
+    mel_t = np.zeros((nfw, 8 * nt), np.float32)
+    mel_t[:, :80] = tstft._mel_t_np(cfg)[:nfw]
+    for w in range(plan["windows"]):
+        np.testing.assert_array_equal(_mma_b_matrix(frags[w], 9, nt),
+                                      _bf16_values(mel_t[w * 144:(w + 1) * 144]))
+    assert tstft.bf16_plan(2048, 256, 1024, 129)["mel_nt"] == 0       # past 128 mels: the sums
 
 
 def test_bf16_fragments_use_torchs_rounding():
-    """The host rounds the bases as ``round_bf16`` (torch's cast, ties to even)."""
+    """The host rounds the bf16 kernels' operands as ``round_bf16`` (torch's
+    cast, ties to even): the STFT bases of ``wgmma_bases`` and K2's taps in
+    ``mma_b_layout``, whose registers hold B[2t, g], B[2t+1, g] (low half
+    first) and B[2t+8, g], B[2t+9, g] of lane 4g + t."""
     x = np.array([1.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -2.5e-3, 3e38, 0.0], np.float32)
-    bits = tstft.bf16_bits(x)
-    back = (bits.astype(np.uint32) << 16).view(np.float32)
-    np.testing.assert_array_equal(back, tstft.round_bf16(torch.from_numpy(x)).numpy())
+    want = tstft.round_bf16(torch.from_numpy(x)).numpy()
+    cos_b = torch.from_numpy(np.tile(x, (16, 1))[:, :6])           # (n_live 16, 6 bins)
+    wb = tstft.wgmma_bases(cos_b, cos_b, 1, 64).view(torch.int16).numpy()
+    np.testing.assert_array_equal(_bf16_as_float(wb[:6, 0]), want)
+    np.testing.assert_array_equal(wb[6:144], 0)
+    b = torch.from_numpy(np.resize(x, (32, 16)).astype(np.float32))
+    frag = trefenc.mma_b_layout(b).numpy()
+    assert frag.shape == (2, 2, 32, 2) and frag.dtype == np.int32
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rb = tstft.round_bf16(b).numpy()
+    for nt in range(2):
+        for ks in range(2):
+            lo0, hi0 = _pair(frag[nt, ks, :, 0])
+            lo1, hi1 = _pair(frag[nt, ks, :, 1])
+            col = nt * 8 + g
+            np.testing.assert_array_equal(lo0, rb[16 * ks + 2 * t, col])
+            np.testing.assert_array_equal(hi0, rb[16 * ks + 2 * t + 1, col])
+            np.testing.assert_array_equal(lo1, rb[16 * ks + 2 * t + 8, col])
+            np.testing.assert_array_equal(hi1, rb[16 * ks + 2 * t + 9, col])
 
 
 # ---------------------------------------------------------------------------
@@ -558,8 +794,11 @@ def test_bf16_fragments_use_torchs_rounding():
 
 
 def test_refenc_layer_plan_spreads_each_layer():
-    """At the main shape every layer gives the 132 SMs two blocks each; the
-    late layers split their input-channel sums (ks) to get there."""
+    """float32: at the main shape every layer gives the 132 SMs two blocks
+    each; the late layers split their input-channel sums (ks) to get there.
+    bf16: one launch for the whole stack, clusters of 4 CTAs an utterance
+    (128 CTAs for 32 utterances), each owning 16, 8, 4, 2, 1, 1 rows of the
+    six layers; the late layers' few units split their taps into k parts."""
     plan = trefenc.layer_plan(32, 128, 80, [32, 32, 64, 64, 128, 128], 132)
     assert [p["blocks"] for p in plan] == [2560, 640, 320, 320, 384, 512]
     assert [(p["ks"], p["px"]) for p in plan] == [(1, 4), (1, 4), (1, 4), (2, 2), (2, 1),
@@ -569,6 +808,12 @@ def test_refenc_layer_plan_spreads_each_layer():
     c_in = [1, 4, 4]
     for p, c in zip(small, c_in):
         assert trefenc.GROUPS % p["ks"] == 0 and p["ks"] <= c and p["px"] in (1, 2, 4)
+    bf = trefenc.bf16_plan(128, 80, [32, 32, 64, 64, 128, 128])
+    assert [(q["l0"], q["l1"], q["bands"]) for q in bf["launches"]] == [(0, 6, 4)]
+    assert bf["launches"][0]["smem"] <= 232448
+    assert bf["bh"] == [16, 8, 4, 2, 1, 1] and bf["ks"] == [1, 1, 1, 4, 2, 2]
+    # the plan depends on the shape alone: any batch gives the same launches
+    assert trefenc.bf16_plan(128, 80, [32, 32, 64, 64, 128, 128]) == bf
 
 
 def emulate_refenc_layer(x, kern, scale, bias, lengths, ks, px):
@@ -642,3 +887,263 @@ def test_refenc_layer_emulation_matches_plain(t, f, channels, lengths):
         [t32(v) for v in biases], lengths=None if lens is None else torch.from_numpy(lens))
     np.testing.assert_allclose(act.reshape(ref.shape), ref.numpy(), atol=1e-5)
     assert len(splits) > 1
+
+
+# ---------------------------------------------------------------------------
+# K2 bf16: one clustered tensor-core launch (csrc/refenc_bf16.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _r16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).to(torch.float64).numpy()
+
+
+def _mma_b_matrix(table, ks_n, nt_n):
+    """A (K, N) B matrix back from ``mma_b_layout``'s fragments through the
+    PTX layout (lane 4g + t: register 0 rows 2t, 2t + 1, register 1 rows
+    2t + 8, 2t + 9, of column g of its n8 tile)."""
+    frag = table.reshape(nt_n, ks_n, 32, 2)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    out = np.full((ks_n * 16, nt_n * 8), np.nan)
+    for nt in range(nt_n):
+        for k in range(ks_n):
+            lo0, hi0 = _pair(frag[nt, k, :, 0])
+            lo1, hi1 = _pair(frag[nt, k, :, 1])
+            col = nt * 8 + g
+            out[16 * k + 2 * t, col], out[16 * k + 2 * t + 1, col] = lo0, hi0
+            out[16 * k + 2 * t + 8, col], out[16 * k + 2 * t + 9, col] = lo1, hi1
+    return out
+
+
+def emulate_refenc_bf16(mel, lengths, kernels, scales, biases, plan):
+    """``refenc_bf16_kernel``'s launches of ``plan`` in float64: per
+    utterance and band CTA, each layer's staged input rows (zero-padded
+    pixels, taken from the CTA that owns each row, or from the previous
+    launch's device-memory activation), layer 0 on the CUDA cores, layers
+    1+ as warp items (16 pixels x 32 channels x a k part) whose A tiles come
+    from the lanes' ldmatrix addresses into the flat staging buffer and
+    whose B tiles from ``bf16_tap_tables``, k parts added in order, the
+    epilogue through the accumulator map; outputs stored once each (bf16
+    between layers, float32 at the end). Returns the output and the count
+    of writes of each final output."""
+    b_n, t, f = mel.shape
+    channels = [k.shape[-1] for k in kernels]
+    shapes = trefenc.stack_shapes(t, f, channels)
+    n = len(shapes)
+    tables = trefenc.bf16_tap_tables([torch.from_numpy(k) for k in kernels]).numpy()
+    taps, off = [None], 0
+    for s in shapes[1:]:
+        ks_n, nt_n = 9 * s["cip"] // 16, s["cop"] // 8
+        size = ks_n * nt_n * 32 * 2
+        taps.append(_mma_b_matrix(tables[off:off + size], ks_n, nt_n))
+        off += size
+    last = shapes[-1]
+    out = np.full((b_n, last["ho"], last["wo"] * last["co"]), np.nan)
+    writes = np.zeros(out.shape, int)
+    acts = {}                                  # device-memory activations between launches
+    lane = np.arange(32)
+    g, t4 = lane // 4, lane % 4
+    for q in plan["launches"]:
+        for b in range(b_n):
+            parts = {}                         # (layer, band) -> the band's bf16 outputs
+            for l in range(q["l0"], q["l1"]):
+                y = shapes[l]
+                bh, ks = plan["bh"][l], plan["ks"][l]
+                top = max(0, 2 * (y["ho"] - 1) + 3 - y["hi"]) // 2
+                left = max(0, 2 * (y["wo"] - 1) + 3 - y["wi"]) // 2
+                sc, bi = scales[l].astype(np.float64), biases[l].astype(np.float64)
+                for band in range(q["bands"]):
+                    i0 = min(y["ho"], band * bh)
+                    i1 = min(y["ho"], i0 + bh)
+                    npx, u0, nr = (i1 - i0) * y["wo"], 2 * i0 - top, 2 * (i1 - i0) + 1
+                    if npx == 0:
+                        continue
+                    res = np.full((npx, y["cop"]), np.nan)
+
+                    def store(p, o, v):
+                        res[p, o] = v if o < y["co"] else 0.0
+
+                    epi = lambda o, a: max(a * sc[o] + bi[o], 0.0) if o < y["co"] else 0.0
+                    ws = y["wi"] + 2
+                    if l == 0:
+                        lim = min(y["hi"], lengths[b]) if lengths is not None else y["hi"]
+                        stg = np.zeros((nr, ws))
+                        for r in range(nr):
+                            u = u0 + r
+                            if 0 <= u < lim:
+                                stg[r, 1:f + 1] = _r16(mel[b, u])
+                        k0 = _r16(kernels[0].reshape(9, -1))
+                        for p in range(npx):
+                            i, qq = divmod(p, y["wo"])
+                            x = [stg[2 * i + tap // 3, 2 * qq + tap % 3 - left + 1]
+                                 for tap in range(9)]
+                            for o in range(y["cop"]):
+                                acc = sum(x[tap] * k0[tap, o] for tap in range(9)) \
+                                    if o < y["co"] else 0.0
+                                store(p, o, epi(o, acc))
+                    else:
+                        cip = y["cip"]
+                        ps = cip + 8
+                        stg = np.full((nr, ws, ps), np.nan)
+                        stg[:, :, :cip] = 0.0
+                        prev = plan["bh"][l - 1]
+                        for r in range(nr):
+                            u = u0 + r
+                            if not 0 <= u < y["hi"]:
+                                continue
+                            if l == q["l0"]:
+                                stg[r, 1:y["wi"] + 1, :cip] = acts[l - 1][b, u]
+                            else:      # the owner of row u, read across the cluster
+                                owner = u // prev
+                                stg[r, 1:y["wi"] + 1, :cip] = parts[(l - 1, owner)][u - owner * prev]
+                        flat = stg.reshape(-1)
+                        KS, cpt = 9 * cip // 16, cip // 16
+                        mt, ng = -(-npx // 16), -(-y["cop"] // 32)
+                        red = {}
+                        for item in range(mt * ng * ks):
+                            unit, kpart = divmod(item, ks)
+                            mtile, grp = divmod(unit, ng)
+                            nt0, ntl = grp * 4, min(4, y["cop"] // 8 - grp * 4)
+                            pa = mtile * 16 + (lane & 15)
+                            valid = pa < npx
+                            ia, qa = np.where(valid, pa // y["wo"], 0), np.where(valid, pa % y["wo"], 0)
+                            abase = np.where(valid, 2 * ia * ws + 2 * qa - left + 1, 0) * ps \
+                                + (lane >> 4) * 8
+                            acc = np.zeros((16, 32))
+                            s0, s1 = kpart * KS // ks, (kpart + 1) * KS // ks
+                            # the kernel's walk: the address of step s0, then 16
+                            # channels a step, the next tap (dj, then di) past a tap
+                            tap, c16 = divmod(s0, cpt)
+                            dj = tap % 3
+                            off = np.where(valid, ((tap // 3) * ws + dj) * ps, 0)
+                            addr0 = abase + off + 16 * c16
+                            for ss in range(s0, s1):
+                                assert (addr0 == abase + np.where(
+                                    valid, ((ss // cpt // 3) * ws + ss // cpt % 3) * ps, 0)
+                                    + 16 * (ss % cpt)).all()
+                                addr = addr0
+                                tap = ss // cpt
+                                a = np.zeros((16, 16))
+                                for ln in range(32):     # ldmatrix.x4: lane ln's 8-element row
+                                    a[ln & 15, 8 * (ln >> 4):8 * (ln >> 4) + 8] = \
+                                        flat[addr[ln]:addr[ln] + 8]
+                                bt = taps[l][16 * ss:16 * ss + 16, nt0 * 8:(nt0 + ntl) * 8]
+                                acc[:, :8 * ntl] += a @ bt
+                                c16 += 1
+                                if c16 < cpt:
+                                    addr0 = addr0 + 16
+                                else:
+                                    c16 = 0
+                                    off = off + np.where(valid, ((ws - 2) if dj == 2 else 1) * ps, 0)
+                                    dj = 0 if dj == 2 else dj + 1
+                                    addr0 = abase + off
+                            if ks == 1:
+                                for j in range(ntl):
+                                    for i in range(4):
+                                        pr = mtile * 16 + g + 8 * (i // 2)
+                                        o = (nt0 + j) * 8 + 2 * t4 + i % 2
+                                        for pp, oo, v in zip(pr, o, acc[g + 8 * (i // 2), j * 8 + 2 * t4 + i % 2]):
+                                            if pp < npx:
+                                                store(pp, oo, epi(oo, v))
+                            else:
+                                red[item] = acc
+                        if ks > 1:
+                            for unit in range(mt * ng):
+                                mtile, grp = divmod(unit, ng)
+                                v = sum(red[unit * ks + k] for k in range(ks))
+                                for row in range(16):
+                                    for col in range(32):
+                                        pp, o = mtile * 16 + row, grp * 32 + col
+                                        if pp < npx and o < y["cop"]:
+                                            store(pp, o, epi(o, v[row, col]))
+                    assert not np.isnan(res).any()
+                    res = res.reshape(i1 - i0, y["wo"], y["cop"])
+                    if l == n - 1:
+                        for i in range(i0, i1):
+                            out[b, i] = res[i - i0, :, :y["co"]].astype(np.float32).reshape(-1)
+                            writes[b, i] += 1
+                    elif l == q["l1"] - 1:
+                        acts.setdefault(l, np.full((b_n, y["ho"], y["wo"], y["cop"]), np.nan))
+                        acts[l][b, i0:i1] = _r16(res)
+                    else:
+                        parts[(l, band)] = _r16(res)
+    return out, writes
+
+
+def _refenc_inputs(rng, b, t, f, channels):
+    mel = rng.uniform(0, 1, (b, t, f)).astype(np.float32)
+    kerns, scales, biases, c_in = [], [], [], 1
+    for c in channels:
+        kerns.append(rng.uniform(-0.5, 0.5, (3, 3, c_in, c)).astype(np.float32) / np.sqrt(c_in))
+        scales.append(rng.uniform(0.5, 1.5, c).astype(np.float32))
+        biases.append(rng.normal(0, 0.1, c).astype(np.float32))
+        c_in = c
+    return mel, kerns, scales, biases
+
+
+@pytest.mark.parametrize("t,f,channels,lengths,max_smem", [
+    (19, 16, (4, 8, 8), (19, 7), None),        # odd T, ragged lengths, C_in 4: channel padding
+    (24, 12, (8, 12, 16), None, None),         # C_out 12: a padded n8 tile
+    (37, 20, (16, 32, 32), (30, 37), None),    # clusters of 2: halo rows from the next CTA
+    (37, 20, (16, 32, 32), (30, 37), 20000),   # too little shared memory: layer 0 alone
+])
+def test_refenc_bf16_emulation_matches_plain(monkeypatch, t, f, channels, lengths, max_smem):
+    """The bf16 kernel's plan emulated launch by launch in float64 (see
+    ``emulate_refenc_bf16``): every output written once, within float32
+    rounding of ``refenc_stack_plain(bf16=True)`` (a value on a bf16
+    rounding boundary may move one bf16 step between layers); with a small
+    shared memory the plan peels the leading layers into launches of their
+    own over bands of rows, and the result is the same."""
+    if max_smem:
+        monkeypatch.setattr(trefenc, "_MAX_SMEM", max_smem)
+    plan = trefenc.bf16_plan(t, f, channels)
+    if max_smem:
+        assert len(plan["launches"]) > 1 and plan["launches"][0]["l1"] == 1
+    if t == 37 and not max_smem:
+        assert plan["launches"][0]["bands"] == 2
+    rng = np.random.default_rng(t + f)
+    mel, kerns, scales, biases = _refenc_inputs(rng, 2, t, f, channels)
+    lens = None if lengths is None else np.array(lengths)
+    got, writes = emulate_refenc_bf16(mel, lens, kerns, scales, biases, plan)
+    assert (writes == 1).all()
+    t32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    ref = trefenc.refenc_stack_plain(
+        t32(mel), [t32(k) for k in kerns], [t32(v) for v in scales], [t32(v) for v in biases],
+        lengths=None if lens is None else torch.from_numpy(lens), bf16=True).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-2)
+    assert np.abs(got - ref).mean() < 1e-4
+
+
+@pytest.mark.parametrize("t,f", [(128, 80), (256, 80), (101, 80), (1, 80), (4096, 80),
+                                 (8192, 80), (64, 513), (3, 1)])
+def test_refenc_bf16_plan_takes_every_shape(t, f):
+    """Every shape the mode took as one launch a layer still runs: the whole
+    stack in one clustered launch where an utterance's bands fit (T up to
+    256 at 80 bins), else its leading layers one launch each over bands of
+    rows (no cluster); every launch within one block's shared memory, at
+    most 8 CTAs a cluster, each layer in exactly one launch, at most 8 k
+    part items a band."""
+    channels = [32, 32, 64, 64, 128, 128]
+    plan = trefenc.bf16_plan(t, f, channels)
+    shapes = trefenc.stack_shapes(t, f, channels)
+    covered = []
+    for q in plan["launches"]:
+        assert q["smem"] <= 232448
+        covered += list(range(q["l0"], q["l1"]))
+        if q["l1"] - q["l0"] > 1:
+            assert q["bands"] in (1, 2, 4, 8)
+        for l in range(q["l0"], q["l1"]):
+            ho, bh = shapes[l]["ho"], plan["bh"][l]
+            if q["l1"] - q["l0"] > 1:      # the cluster's CTAs split every layer's rows
+                assert bh == -(-ho // q["bands"])
+            else:                          # bands of up to 16 rows, no cluster
+                assert q["bands"] == -(-ho // bh) and bh <= 16
+    assert covered == list(range(len(channels)))
+    for l, s in enumerate(shapes):
+        units = -(-plan["bh"][l] * s["wo"] // 16) * -(-s["cop"] // 32)
+        assert plan["ks"][l] == 1 or units * plan["ks"][l] <= 8
+    if t <= 256 and f == 80:
+        assert len(plan["launches"]) == 1
+    if t == 4096:
+        assert [(q["l0"], q["l1"]) for q in plan["launches"]] == [(0, 1), (1, 2), (2, 3), (3, 6)]
