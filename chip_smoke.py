@@ -111,14 +111,28 @@ Phases, each of which exits non-zero on failure:
 16. kernel_bench (after the bench): ``python -m
    gst_tacotron_tpu_torch.kernel_bench`` at the JAX tool's defaults (see
    ``run_kernel_bench``): every section launched its kernels, parity
-   within the JAX kernel tests' tolerances, every roofline share <= 1.05.
+   within the JAX kernel tests' tolerances, every roofline share <= 1.05;
+17. alignment_gate (a process of its own, started after the three paths
+   and waited for after the style phase: its 800 host-bound steps run
+   beside the phases between): tests/test_alignment_gate.py's gate on the
+   port's ``Trainer`` (``alignment_gate.run_gate``: config 3 at the JAX
+   gate's widths, its token-pattern corpus, 800 steps), the trained
+   teacher-forced diagonality above 0.85 and more than 0.3 above the
+   untrained; then the probe batch synthesized from the trained state,
+   K4-LSA and K1 counted (``GATE_LAUNCHES``), the mel within 2e-3 of the
+   plain path's;
+18. determinism (after the train phase): tests/test_determinism.py on the
+   card, gst_lj at its published widths, B=32, over the corpus phase's
+   patterns: two ``Trainer`` runs with seed 7, 3 steps each, agree in every
+   bit of every parameter, buffer and Adam moment; seed 8 differs.
 
 It prints one JSON line per kernel check, per path and per training run
 (``{"train": ...}``), per chunked, bf16 and CLI run, the parallel phase's
 ``{"parallel": ...}``, the taco2 phase's ``{"taco2": ...}``, the
 ``{"jax_export": ...}`` line, the ``{"scaling": ...}`` and ``{"style":
 ...}`` lines, the bench's two lines, the ``{"kernel_bench": ...}`` line, the
-``{"train_bench": ...}`` line, one ``{"kernels": [...]}`` line (every
+``{"train_bench": ...}`` line, the ``{"alignment_gate": ...}`` and
+``{"determinism": ...}`` lines, one ``{"kernels": [...]}`` line (every
 kernel and both bf16 modes, their bounds from ``kernel_bench``'s work
 counts), the card's name and power limit, and last ``{"ok": true,
 "device": ...}``.
@@ -1932,6 +1946,190 @@ def run_train_phase(torch, dev, corpus_dir, work):
 
 
 # ---------------------------------------------------------------------------
+# the alignment gate and same-seed determinism
+# ---------------------------------------------------------------------------
+
+# the gate's synthesis with GST off: K1 for the encoder and post-net BiGRUs,
+# K4's location-sensitive branch at r=1
+GATE_LAUNCHES = {"gru_scan": 2, "decode_scan": 1, "decode_scan:location_sensitive": 1}
+GATE_MEL_TOL = 2e-3
+GATE_WAIT_S = 900
+DETERMINISM_STEPS = 3
+DETERMINISM_SEEDS = (7, 7, 8)
+
+
+def alignment_gate_checks(torch, dev, work):
+    """``alignment_gate.run_gate`` on the card: the JAX gate's config 3
+    (location-sensitive attention, r=1), its token-pattern corpus and its
+    800 ``Trainer`` steps; the trained teacher-forced diagonality must end
+    above 0.85 and more than 0.3 above the untrained, the loss finite.
+    Then ``GSTTacotron.infer`` synthesizes the probe batch's tokens from the
+    trained state (the gate's 33 linear bins have no waveform), kernel path
+    (counted: ``GATE_LAUNCHES``) and plain path, prenets deterministic,
+    stop threshold 1.0, the probe's frames as the step budget: the mels
+    within ``GATE_MEL_TOL``. Returns (the phase's line, what failed)."""
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.alignment_gate import gate_failures, run_gate
+    from gst_tacotron_tpu_torch.models.attention import alignment_diagonality
+
+    t0 = time.perf_counter()
+    res = run_gate(work, device=dev)
+    bad = gate_failures(res)
+    _, model = with_threshold(torch, res.trainer.state.model, res.trainer.cfg, 1.0)
+    tok, tok_len = res.probe["tokens"].long(), res.probe["token_lengths"].long()
+    r = res.trainer.cfg.model.decoder.reduction_factor
+    steps = res.probe["mel"].shape[1] // r
+    outs, launches = {}, {}
+    for plain in (False, True):
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            outs[plain] = model.infer(tok, tok_len, max_steps=steps, deterministic_prenet=True,
+                                      seed=0, plain=plain)
+        torch.cuda.synchronize()
+        launches[plain] = ops.launch_counts()
+    mel = outs[False]["mel"]
+    mel_err = float((mel - outs[True]["mel"]).abs().max())
+    diag = alignment_diagonality(outs[False]["alignments"], tok_len,
+                                 torch.clamp(outs[False]["frame_lengths"] // r, min=1))
+    expected = {**dict.fromkeys(launches[False], 0), **GATE_LAUNCHES}
+    info = {**res.summary(), "config": "gst_r1_location at the JAX gate's widths",
+            "batch": int(tok.shape[0]), "probe_frames": int(res.probe["mel"].shape[1]),
+            "synthesis_steps": steps, "launches": {k: n for k, n in launches[False].items() if n},
+            "plain_launches": {k: n for k, n in launches[True].items() if n},
+            "mel_max_abs_err_vs_plain": mel_err, "mel_tol": GATE_MEL_TOL,
+            "synthesis_diagonality": float(diag.mean()),
+            "finite": bool(torch.isfinite(mel).all()), "seconds": time.perf_counter() - t0}
+    if launches[False] != expected or any(launches[True].values()):
+        bad.append(f"the trained-state synthesis launched {launches[False]} (plain path "
+                   f"{launches[True]}), expected {expected}")
+    if not (info["finite"] and mel_err <= GATE_MEL_TOL):
+        bad.append(f"K4-LSA's mel differs from the plain path's by {mel_err} > "
+                   f"{GATE_MEL_TOL} (finite: {info['finite']})")
+    return info, bad
+
+
+def alignment_gate_process(out):
+    """The alignment gate in a spawned process on card 0: loads the built
+    kernels, runs ``alignment_gate_checks`` and puts (ok, (line, failures)
+    or traceback) on ``out``."""
+    import traceback
+
+    import torch
+
+    try:
+        from gst_tacotron_tpu_torch import ops
+        from gst_tacotron_tpu_torch.ops.build import build_all
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        build_all(ops.all_kernels())     # built by the parent: loads them
+        with tempfile.TemporaryDirectory() as work:
+            out.put((True, alignment_gate_checks(torch, dev, work)))
+    except Exception:
+        out.put((False, traceback.format_exc()))
+
+
+def start_alignment_gate():
+    """Start the alignment gate phase in a process of its own: its 800
+    steps are host-bound (~0.5 s each on the card), so it runs beside the
+    other host-bound phases; the timed kernel checks and paths come before
+    it starts and the benches after ``finish_alignment_gate``. A daemon:
+    if the script fails first, the process ends with it."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=alignment_gate_process, args=(out,), daemon=True)
+    proc.start()
+    return proc, out, time.perf_counter()
+
+
+def finish_alignment_gate(gate):
+    """Wait for the gate's process, print its ``{"alignment_gate": ...}``
+    line and fail on anything it found."""
+    import queue
+
+    proc, out, t0 = gate
+    t_wait = time.perf_counter()
+    try:
+        ok, value = out.get(timeout=GATE_WAIT_S)
+    except queue.Empty:
+        fail(f"alignment_gate: no result within {GATE_WAIT_S} s of waiting")
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+    if not ok:
+        fail(f"alignment_gate: the process failed:\n{value}")
+    info, bad = value
+    info["waited_s"] = time.perf_counter() - t_wait
+    info["note"] = "ran beside the phases from taco2 to style, in a process of its own"
+    print(json.dumps({"alignment_gate": info}), flush=True)
+    if bad:
+        fail("alignment_gate: " + "; ".join(bad))
+    log(f"alignment_gate phase done in {time.perf_counter() - t0:.1f} s "
+        f"(waited {info['waited_s']:.1f} s for it)")
+
+
+def host_train_state(torch, state):
+    """A trainer state's parameters, BatchNorm buffers, Adam moments and
+    update count, copied to the host by name."""
+    cpu = lambda prefix, d: {f"{prefix}/{k}": v.detach().cpu().clone() for k, v in d.items()}
+    return {**cpu("model", state.model.state_dict()), **cpu("mu", state.opt.mu),
+            **cpu("nu", state.opt.nu), "count": torch.tensor(state.opt.count)}
+
+
+def state_diff(torch, a, b):
+    """(names of the tensors that differ in any bit, largest |a - b|)."""
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    largest = max((float((a[k].double() - b[k].double()).abs().max()) for k in differ),
+                  default=0.0)
+    return differ, largest
+
+
+def run_determinism(torch, dev, pattern_dir, work):
+    """The counterpart of tests/test_determinism.py on the card: gst_lj at
+    its published widths, B=32, over the corpus phase's patterns; one
+    ``Trainer`` a seed of ``DETERMINISM_SEEDS``, ``DETERMINISM_STEPS`` steps
+    each through ``Trainer.train``. The two same-seed runs must agree in
+    every bit of every parameter, buffer and Adam moment; the other seed
+    must differ."""
+    from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
+    from gst_tacotron_tpu_torch.train import Trainer
+
+    cfg = apply_overrides(get_preset("gst_lj"), {
+        "train.log_every": 10 ** 6, "train.checkpoint_every": 10 ** 7,
+        "train.eval_every": 10 ** 8})
+    states, seconds = [], []
+    for i, seed in enumerate(DETERMINISM_SEEDS):
+        t0 = time.perf_counter()
+        trainer = Trainer(apply_overrides(cfg, {"train.seed": seed}), pattern_dir,
+                          f"{work}/det{i}", device=dev)
+        state = trainer.train(DETERMINISM_STEPS)
+        states.append(host_train_state(torch, state))
+        seconds.append(time.perf_counter() - t0)
+        del trainer, state
+    same, same_max = state_diff(torch, states[0], states[1])
+    other, other_max = state_diff(torch, states[0], states[2])
+    info = {"config": "gst_lj", "batch": cfg.data.batch_size, "steps": DETERMINISM_STEPS,
+            "seeds": list(DETERMINISM_SEEDS), "tensors": len(states[0]),
+            "same_seed_tensors_differing": len(same), "same_seed_max_abs_diff": same_max,
+            "same_seed_differing": same[:10],
+            "other_seed_tensors_differing": len(other), "other_seed_max_abs_diff": other_max,
+            "trainer_seconds": seconds}
+    print(json.dumps({"determinism": info}), flush=True)
+    if same:
+        fail(f"determinism: two trainers with seed {DETERMINISM_SEEDS[0]} differ after "
+             f"{DETERMINISM_STEPS} steps in {len(same)} tensors (largest {same_max}): "
+             f"{same[:10]}")
+    if not other:
+        fail(f"determinism: seeds {DETERMINISM_SEEDS[0]} and {DETERMINISM_SEEDS[2]} gave the "
+             "same state")
+
+
+# ---------------------------------------------------------------------------
 # the taco2 encoder, JAX workdirs exported into the port, the train bench
 # ---------------------------------------------------------------------------
 
@@ -2886,6 +3084,7 @@ def main() -> None:
             if "launches" not in r and counts[r["name"]]:
                 r["launches"] = counts[r["name"]]
         log(f"{name} path done in {time.perf_counter() - t0:.1f} s")
+    gate = start_alignment_gate()
     t0 = time.perf_counter()
     run_taco2(torch, dev, cfg, taco)
     log(f"taco2 phase done in {time.perf_counter() - t0:.1f} s")
@@ -2907,6 +3106,9 @@ def main() -> None:
         log(f"corpus path done in {time.perf_counter() - t0:.1f} s")
         run_train_phase(torch, dev, corpus_dir, work)
         t0 = time.perf_counter()
+        run_determinism(torch, dev, corpus_dir, work)
+        log(f"determinism phase done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         run_bf16(torch, dev, cfg, corpus_dir, work)
         log(f"bf16 phase done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -2918,6 +3120,7 @@ def main() -> None:
         t0 = time.perf_counter()
         run_style(torch, work)
         log(f"style phase done in {time.perf_counter() - t0:.1f} s")
+    finish_alignment_gate(gate)
     run_bench(torch, card)
     t0 = time.perf_counter()
     run_kernel_bench(torch, card)

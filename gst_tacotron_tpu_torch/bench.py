@@ -4,7 +4,7 @@
 
     python -m gst_tacotron_tpu_torch.bench [--quick] [--batch B]
         [--checkpoint WORKDIR] [--config5 [--vocoder-workdir DIR]]
-        [--details FILE]
+        [--details FILE] [--watchdog SECONDS]
 
 The workload is ``bench.py::build``'s: ``gst_lj`` at its published widths,
 200 decode steps, Griffin-Lim 15 iterations at momentum 0.99, stop
@@ -64,15 +64,24 @@ It prints one JSON line of rows (ranks; each workload's slowest-rank time,
 global rate and efficiency against one rank, under the JAX names; the
 synthesis ``chunks_run`` and the launch counts of each rank); on one card,
 its one point, and says so.
+
+``--watchdog SECONDS`` (default 2400, 0 off; ``bench.py``'s flag) guards
+the headline run and ``--scaling``: if no result line is printed in time
+(a wedged card, a hung rank), every live child process is killed, one
+line with the run's metric, value 0.0 and an ``error`` is printed, and the
+bench exits with code 3. ``--train-bench`` is not guarded, as in
+``bench.py``, which returns from that mode before arming its watchdog.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import statistics
 import sys
+import threading
 import time
 import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -91,6 +100,7 @@ T_TEXT, T_MEL = 64, 128
 # (bench.py's local eager-dispatch estimate), so vs_baseline favours the
 # baseline
 STEP_CAP_S = 0.002
+WATCHDOG_S = 2400.0     # bench.py's default
 
 
 def log(*a) -> None:
@@ -539,8 +549,6 @@ def bench_scaling(device: str = "cuda", counts: Optional[Sequence[int]] = None,
     its rate is its global work over that time, and its efficiency the rate
     a rank over one rank's (``EFFICIENCIES``). On the card the kernels are
     built here first, so the ranks only load them."""
-    import multiprocessing
-
     from .parallel.mesh import free_port
 
     cpu = device == "cpu"
@@ -732,6 +740,37 @@ def train_bench_line(steps: int = TRAIN_STEPS, device=None,
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)}
 
 
+def watchdog_line(scaling: bool) -> Dict[str, Any]:
+    """The line a fired watchdog prints, less its ``error``: the keys and
+    values of ``bench.py::_arm_watchdog``'s line, under the metric of the
+    mode that was running."""
+    if scaling:
+        return {"metric": "weak_scaling_efficiency", "value": 0.0,
+                "unit": "rate a rank / one rank's", "vs_baseline": 0.0}
+    return {"metric": "audio_seconds_per_sec_per_chip", "value": 0.0,
+            "unit": "audio-s/s/chip", "vs_baseline": 0.0}
+
+
+def arm_watchdog(seconds: float, line: Dict[str, Any]) -> threading.Timer:
+    """``bench.py::_arm_watchdog`` for the card: a daemon timer that, unless
+    cancelled within ``seconds``, kills every live child process (the
+    spawned scaling ranks, which would hold the card), prints ``line`` with
+    an ``error``, flushes and ends the process with exit code 3."""
+
+    def fire():
+        for child in multiprocessing.active_children():
+            child.kill()
+            child.join(5)
+        print(json.dumps({**line, "error": f"watchdog: no result within {seconds:.0f}s — "
+                                           "the device did not respond"}), flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Synthesis throughput of the PyTorch port")
     p.add_argument("--quick", action="store_true", help="smaller workload (50 steps)")
@@ -754,6 +793,10 @@ def main(argv=None) -> None:
     p.add_argument("--train-bench", action="store_true",
                    help="train-step time per batch transport (features, wav, corpus) "
                         "instead; prints one JSON line")
+    p.add_argument("--watchdog", type=float, default=WATCHDOG_S,
+                   help="seconds before a failure line is printed and the bench exits with "
+                        "code 3 when no result came (a wedged card, a hung rank); 0 "
+                        "disables; not armed for --train-bench")
     args = p.parse_args(argv)
     if args.batch < 1:
         p.error(f"--batch {args.batch}: must be >= 1")
@@ -764,13 +807,20 @@ def main(argv=None) -> None:
                 json.dump(line, f, indent=2)
         print(json.dumps(line))
         return
-    if args.scaling:
-        print(json.dumps(scaling_line(args.device or "cuda", args.steps or 3)))
-        return
-    result, details = run(args)
-    if args.details:
-        with open(args.details, "w") as f:
-            json.dump(details, f, indent=2)
+    watchdog = None
+    if args.watchdog > 0:
+        watchdog = arm_watchdog(args.watchdog, watchdog_line(args.scaling))
+    try:
+        if args.scaling:
+            result = scaling_line(args.device or "cuda", args.steps or 3)
+        else:
+            result, details = run(args)
+            if args.details:
+                with open(args.details, "w") as f:
+                    json.dump(details, f, indent=2)
+    finally:
+        if watchdog is not None:
+            watchdog.cancel()
     print(json.dumps(result))
 
 

@@ -5,7 +5,18 @@ and its timed functions run end to end at small widths on CPU tensors (the
 numbers of a CPU run are no device metric and are not read here); its
 ``--scaling`` curve runs on gloo processes on the CPU; its ``--train-bench``
 draws ``bench.py::bench_train``'s arrays and runs its three transports at a
-cut size on the CPU."""
+cut size on the CPU; its ``--watchdog`` prints the JAX watchdog's line
+and exits 3 over a blocked run (against JAX's ``_arm_watchdog``), under
+``--scaling`` too, and kills the spawned children it leaves; a run that
+finishes cancels it."""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -187,3 +198,119 @@ def test_train_bench_runs_every_transport_on_cpu_tensors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench.main(["--train-bench"])
+
+
+# --watchdog: each run is a subprocess, since a fired watchdog ends its
+# process with os._exit(3)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WATCHDOG_TIMEOUT = 120     # a subprocess's own limit: torch's import and a 1-3 s timer
+
+
+def run_script(script):
+    """(exit code, the stdout lines, seconds) of ``script`` in a fresh
+    interpreter at the repo's root. Its stdout goes to a file, not a pipe:
+    the wait ends with the process, not with the last holder of its
+    stdout."""
+    with tempfile.TemporaryFile("w+") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(script)], cwd=REPO,
+                                env={**os.environ, "PYTHONPATH": REPO}, stdout=out)
+        try:
+            rc = proc.wait(timeout=WATCHDOG_TIMEOUT)
+        finally:
+            proc.kill()
+        seconds = time.perf_counter() - t0
+        out.seek(0)
+        return rc, out.read().strip().splitlines(), seconds
+
+
+PORT_BLOCKED = """
+    import time
+    from gst_tacotron_tpu_torch import bench
+    bench.{name} = lambda *a, **k: time.sleep(60)
+    bench.main({argv})
+"""
+
+
+def test_watchdog_prints_the_jax_line_and_exits_3():
+    """``--watchdog 1`` over a blocked run prints the line of JAX's
+    ``bench.py::_arm_watchdog`` (loaded by path: its top level imports only
+    numpy), fired over a sleep: the same keys, metric, unit, value and
+    vs_baseline, and the same exit code."""
+    rc, lines, seconds = run_script(PORT_BLOCKED.format(name="run",
+                                                        argv='["--watchdog", "1"]'))
+    jrc, jlines, _ = run_script("""
+        import importlib.util, time
+        spec = importlib.util.spec_from_file_location("jax_bench", "bench.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod._arm_watchdog(1)
+        time.sleep(60)
+    """)
+    assert rc == jrc == 3 and seconds < 60
+    line, jline = json.loads(lines[-1]), json.loads(jlines[-1])
+    assert line.keys() == jline.keys()
+    for key in ("metric", "unit", "value", "vs_baseline"):
+        assert line[key] == jline[key], key
+    assert line["value"] == 0.0 and "watchdog" in line["error"]
+
+
+def test_watchdog_guards_scaling():
+    """Under ``--scaling`` the line carries the scaling metric."""
+    rc, lines, _ = run_script(PORT_BLOCKED.format(
+        name="bench_scaling", argv='["--scaling", "--device", "cpu", "--watchdog", "1"]'))
+    line = json.loads(lines[-1])
+    assert rc == 3
+    assert (line["metric"], line["value"], line["vs_baseline"]) == (
+        "weak_scaling_efficiency", 0.0, 0.0)
+    assert "watchdog" in line["error"]
+
+
+def test_watchdog_cancelled_by_the_result():
+    """A run that finishes prints its own line and exits 0; the cancelled
+    timer does not fire while the process lives on past it."""
+    rc, lines, _ = run_script("""
+        import time
+        from gst_tacotron_tpu_torch import bench
+        line = {"metric": "audio_seconds_per_sec_per_chip", "value": 1.5,
+                "unit": "audio-s/s/chip", "vs_baseline": 2.0}
+        bench.run = lambda args: (line, {})
+        bench.main(["--watchdog", "2"])
+        time.sleep(3)
+    """)
+    assert rc == 0
+    assert [json.loads(x) for x in lines] == [{"metric": "audio_seconds_per_sec_per_chip",
+                                              "value": 1.5, "unit": "audio-s/s/chip",
+                                              "vs_baseline": 2.0}]
+
+
+def pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def test_fired_watchdog_kills_spawned_children():
+    """The handler kills every live child (the scaling ranks) before it
+    exits: a spawned child that would sleep on is gone."""
+    rc, lines, _ = run_script("""
+        import multiprocessing, time
+        from gst_tacotron_tpu_torch import bench
+        child = multiprocessing.get_context("spawn").Process(target=time.sleep, args=(60,))
+        child.start()
+        print(child.pid, flush=True)
+        bench.arm_watchdog(1, bench.watchdog_line(True))
+        time.sleep(60)
+    """)
+    assert rc == 3 and json.loads(lines[-1])["metric"] == "weak_scaling_efficiency"
+    pid = int(lines[0])
+    deadline = time.time() + 10
+    while pid_alive(pid) and time.time() < deadline:
+        time.sleep(0.1)
+    assert not pid_alive(pid)

@@ -867,3 +867,15 @@ def test_kernel_entry_points_refuse_grad(dev, name):
         _entry_point_call(name, dev, grad=True)
     _entry_point_call(name, dev, grad=False)
     torch.cuda.synchronize()
+
+
+def test_alignment_gate_on_the_card(dev, tmp_path):
+    """tests/test_alignment_gate.py's gate on the port's ``Trainer`` on the
+    card: config 3 at the JAX gate's widths, its token-pattern corpus, 800
+    steps; the trained teacher-forced diagonality above 0.85 and more than
+    0.3 above the untrained, the loss finite."""
+    from gst_tacotron_tpu_torch.alignment_gate import GATE_STEPS, gate_failures, run_gate
+
+    res = run_gate(str(tmp_path), device=dev)
+    assert res.steps == GATE_STEPS
+    assert not gate_failures(res), res.summary()
