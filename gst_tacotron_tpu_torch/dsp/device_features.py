@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from ..config import AudioConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_numpy
 from ..ops import stft
+from ..utils.profiling import span
 from . import ref as dsp_ref
 from .torch_dsp import TorchDSP
 
@@ -114,19 +115,24 @@ class DeviceFeatureExtractor:
 
     def extract(self, wavs: Sequence[np.ndarray]) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Bucket by padded frame count, batch same-bucket utterances, one
-        device call per batch, slice to the true frame counts."""
-        prepped = [self._prep(w) for w in wavs]
+        device call per batch, slice to the true frame counts. The copies
+        back are counted (``device.to_numpy``)."""
+        with span("gst.features.prep"):
+            prepped = [self._prep(w) for w in wavs]
         results: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * len(wavs)
         for group in self.plan([t for _, t in prepped]):
-            length = self._bucket_len(prepped[group[0]][1])
-            batch = np.zeros((len(group), length), np.float32)
-            for row, idx in enumerate(group):
-                # a signal whose length is not a multiple of hop runs a few
-                # samples past the bucket; no kept frame reads them
-                sig = prepped[idx][0][:length]
-                batch[row, : len(sig)] = sig
-            mel, lin = self._compute(torch.from_numpy(batch).to(self.device))
-            mel, lin = mel.cpu().numpy(), lin.cpu().numpy()
+            with span("gst.features.prep"):
+                length = self._bucket_len(prepped[group[0]][1])
+                batch = np.zeros((len(group), length), np.float32)
+                for row, idx in enumerate(group):
+                    # a signal whose length is not a multiple of hop runs a
+                    # few samples past the bucket; no kept frame reads them
+                    sig = prepped[idx][0][:length]
+                    batch[row, : len(sig)] = sig
+            with span("gst.features.stft"):
+                mel, lin = self._compute(torch.from_numpy(batch).to(self.device))
+            with span("gst.features.to_host"):
+                mel, lin = to_numpy(mel), to_numpy(lin)
             for row, idx in enumerate(group):
                 t = prepped[idx][1]
                 results[idx] = (mel[row, :t], lin[row, :t])

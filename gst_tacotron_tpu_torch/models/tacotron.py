@@ -26,6 +26,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..decode import chunked_decode
 from ..ops.refenc import gst_style_from_params
+from ..utils.profiling import span
 from .decoder import Decoder
 from .encoder import ENCODERS
 from .gst import GST
@@ -80,16 +81,18 @@ class GSTTacotron(nn.Module):
         default to 0) broadcast-concatenated to every frame.
         ``precomputed_style`` (B, style_dim) skips the GST block; ``train``
         takes the BatchNorms' batch statistics and the plain scans."""
-        enc = self.encoder(tokens, token_lengths, deterministic_prenet=deterministic_prenet,
-                           generator=generator, plain=plain, train=train)
+        with span("gst.model.encoder"):
+            enc = self.encoder(tokens, token_lengths, deterministic_prenet=deterministic_prenet,
+                               generator=generator, plain=plain, train=train)
         b, t = enc.shape[:2]
         parts, aux = [enc], {}
         if self.gst is not None:
             if precomputed_style is not None:
                 style = precomputed_style
             else:
-                style, aux["style_attention"] = self.gst(
-                    ref_mel, ref_mel_lengths, token_weights, plain=plain, train=train)
+                with span("gst.model.gst"):
+                    style, aux["style_attention"] = self.gst(
+                        ref_mel, ref_mel_lengths, token_weights, plain=plain, train=train)
             aux["style_embedding"] = style
             parts.append(style[:, None, :].expand(b, t, style.shape[-1]))
         if self.speaker_embedding is not None:
@@ -119,10 +122,12 @@ class GSTTacotron(nn.Module):
             tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
             speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,
             generator=gen, train=train)
-        mel, stops, aligns = self.decoder.teacher_forced(
-            memory, token_lengths, mel_targets, deterministic_prenet=deterministic_prenet,
-            seed=seed + 1)
-        linear = self.postnet(mel, None, train=train)
+        with span("gst.model.decoder_teacher_forced"):
+            mel, stops, aligns = self.decoder.teacher_forced(
+                memory, token_lengths, mel_targets, deterministic_prenet=deterministic_prenet,
+                seed=seed + 1)
+        with span("gst.model.postnet"):
+            linear = self.postnet(mel, None, train=train)
         return {"mel": mel, "linear": linear, "stop_logits": stops, "alignments": aligns,
                 **aux}
 
@@ -146,25 +151,29 @@ class GSTTacotron(nn.Module):
         gen = _generator(seed, tokens.device, deterministic_prenet)
         style_attn = None
         if self.gst is not None and precomputed_style is None:
-            precomputed_style, style_attn = gst_style_from_params(
-                self.gst, ref_mel, ref_mel_lengths, token_weights, plain=plain, bf16=bf16)
+            with span("gst.model.gst"):
+                precomputed_style, style_attn = gst_style_from_params(
+                    self.gst, ref_mel, ref_mel_lengths, token_weights, plain=plain,
+                    bf16=bf16)
         memory, aux = self.build_memory(
             tokens, token_lengths, ref_mel, ref_mel_lengths, token_weights,
             speaker_ids=speaker_ids, deterministic_prenet=deterministic_prenet,
             generator=gen, precomputed_style=precomputed_style, plain=plain)
-        if chunk_steps is None:
-            mel, stops, aligns, frame_lengths = self.decoder.decode(
-                memory, token_lengths, max_steps=max_steps,
-                deterministic_prenet=deterministic_prenet, seed=seed + 1, plain=plain)
-        else:
-            dec = chunked_decode(self, memory, token_lengths, chunk_steps=chunk_steps,
-                                 max_steps=max_steps, all_reduce=stop_all_reduce,
-                                 deterministic_prenet=deterministic_prenet, seed=seed + 1,
-                                 plain=plain)
-            mel, stops, aligns, frame_lengths = (
-                dec["mel"], dec["stop_logits"], dec["alignments"], dec["frame_lengths"])
-            aux["chunks_run"] = dec["chunks_run"]
-        linear = self.postnet(mel, frame_lengths, plain=plain)
+        with span("gst.model.decoder_ar_scan"):
+            if chunk_steps is None:
+                mel, stops, aligns, frame_lengths = self.decoder.decode(
+                    memory, token_lengths, max_steps=max_steps,
+                    deterministic_prenet=deterministic_prenet, seed=seed + 1, plain=plain)
+            else:
+                dec = chunked_decode(self, memory, token_lengths, chunk_steps=chunk_steps,
+                                     max_steps=max_steps, all_reduce=stop_all_reduce,
+                                     deterministic_prenet=deterministic_prenet,
+                                     seed=seed + 1, plain=plain)
+                mel, stops, aligns, frame_lengths = (
+                    dec["mel"], dec["stop_logits"], dec["alignments"], dec["frame_lengths"])
+                aux["chunks_run"] = dec["chunks_run"]
+        with span("gst.model.postnet"):
+            linear = self.postnet(mel, frame_lengths, plain=plain)
         if style_attn is not None:
             aux["style_attention"] = style_attn
         return {"mel": mel, "linear": linear, "stop_logits": stops,

@@ -38,6 +38,7 @@ from ..models.modules import data_parallel
 from ..models.tacotron import GSTTacotron
 from ..ops.philox import philox4x32_10, seed_key
 from ..synthesize import Synthesizer
+from ..utils.profiling import next_call, span
 from ..weights import build_model
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather, rank_device, shard_rows
 from .sharding import whole_copy
@@ -78,7 +79,7 @@ class DistributedSynthesizer:
         mesh = self.mesh
         steps = max_steps or self.cfg.model.decoder.max_decode_steps
         kw = dict(max_steps=steps, deterministic_prenet=deterministic_prenet)
-        with torch.no_grad():
+        with torch.no_grad(), span("gst.dsynth.local"):
             if chunked:
                 if mesh.shape[MODEL_AXIS] != 1:
                     raise ValueError("chunked consensus decoding shards over `data` with "
@@ -99,9 +100,10 @@ class DistributedSynthesizer:
                                            token_weights, speaker_ids, seed=seed,
                                            chunk_steps=None, **kw)
         b = tok.shape[0]
-        return {k: all_gather(v, mesh.data_group)
-                if torch.is_tensor(v) and v.dim() and v.shape[0] == b else v
-                for k, v in out.items()}
+        with span("gst.dsynth.gather"):
+            return {k: all_gather(v, mesh.data_group)
+                    if torch.is_tensor(v) and v.dim() and v.shape[0] == b else v
+                    for k, v in out.items()}
 
     def _to_device(self, a) -> Optional[torch.Tensor]:
         if a is None or torch.is_tensor(a):
@@ -140,28 +142,32 @@ class DistributedSynthesizer:
         chunked, chunk_steps, deterministic_prenet)."""
         cfg = self.cfg
         n = len(texts)
-        from_wavs = cfg.model.gst.enabled and reference_wavs is not None
-        host = self.synth.text_inputs(texts, from_wavs, token_weights, speaker_ids)
-        pad_b = -n % self.mesh.shape[DATA_AXIS]
+        with span("gst.dsynth", call=next_call()):
+            from_wavs = cfg.model.gst.enabled and reference_wavs is not None
+            with span("gst.synth.frontend"):
+                host = self.synth.text_inputs(texts, from_wavs, token_weights, speaker_ids)
+            pad_b = -n % self.mesh.shape[DATA_AXIS]
 
-        def pad_rows(a):
-            if a is None or pad_b == 0:
-                return a
-            return np.concatenate([a, np.repeat(a[-1:], pad_b, axis=0)], 0)
+            def pad_rows(a):
+                if a is None or pad_b == 0:
+                    return a
+                return np.concatenate([a, np.repeat(a[-1:], pad_b, axis=0)], 0)
 
-        host = {k: pad_rows(v) for k, v in host.items()}
-        lo, hi = shard_rows(n + pad_b, self.mesh)
-        ref_mel = ref_lengths = None
-        if from_wavs:
-            wavs = list(reference_wavs) + [reference_wavs[-1]] * pad_b
-            # every rank pads to the longest reference of the whole batch (a
-            # wav's frames as DeviceFeatureExtractor frames it)
-            frames = max(1 + len(w) // cfg.audio.hop_length for w in wavs)
-            ref_mel, ref_lengths = self.synth._reference_mels(wavs[lo:hi], frames)
-        put = lambda a: None if a is None else self._to_device(a[lo:hi])
-        out = self._local(put(host["tokens"]), put(host["token_lengths"]), ref_mel,
-                          ref_lengths, put(host["token_weights"]), put(host["speaker_ids"]),
-                          **call_kwargs)
-        result = self.synth.to_host(out, self._to_device(host["token_lengths"]))
+            host = {k: pad_rows(v) for k, v in host.items()}
+            lo, hi = shard_rows(n + pad_b, self.mesh)
+            ref_mel = ref_lengths = None
+            if from_wavs:
+                wavs = list(reference_wavs) + [reference_wavs[-1]] * pad_b
+                # every rank pads to the longest reference of the whole batch
+                # (a wav's frames as DeviceFeatureExtractor frames it)
+                frames = max(1 + len(w) // cfg.audio.hop_length for w in wavs)
+                with span("gst.synth.ref_mels"):
+                    ref_mel, ref_lengths = self.synth._reference_mels(wavs[lo:hi], frames)
+            put = lambda a: None if a is None else self._to_device(a[lo:hi])
+            out = self._local(put(host["tokens"]), put(host["token_lengths"]), ref_mel,
+                              ref_lengths, put(host["token_weights"]),
+                              put(host["speaker_ids"]), **call_kwargs)
+            with span("gst.dsynth.to_host"):
+                result = self.synth.to_host(out, self._to_device(host["token_lengths"]))
         return {k: v[:n] if isinstance(v, np.ndarray) and v.ndim and v.shape[0] == n + pad_b
                 else v for k, v in result.items()}

@@ -40,13 +40,14 @@ import torch
 from scipy.io import wavfile
 
 from .config import Config
-from .device import resolve_device
+from .device import resolve_device, to_numpy
 from .dsp.device_features import DeviceFeatureExtractor
 from .dsp.torch_dsp import TorchDSP
 from .metrics import synthesis_metrics
 from .models.attention import alignment_diagonality
 from .models.tacotron import GSTTacotron
 from .text import batch_text_to_ids
+from .utils.profiling import next_call, span
 
 # the vocoder's seed offset from the call's seed (the JAX package's)
 VOCODER_SEED_OFFSET = 104729
@@ -144,20 +145,23 @@ class Synthesizer:
             max_steps=max_steps, deterministic_prenet=deterministic_prenet, seed=seed,
             plain=self.plain, chunk_steps=chunk_steps, stop_all_reduce=stop_all_reduce,
             bf16=self.bf16)
-        if self._inline_gl:
-            out["wav"] = self.dsp.inv_linear_spectrogram(out["linear"].float())
-        else:
-            out["wav"] = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET, plain=self.plain)
+        with span("gst.synth.vocoder"):
+            if self._inline_gl:
+                out["wav"] = self.dsp.inv_linear_spectrogram(out["linear"].float())
+            else:
+                out["wav"] = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET,
+                                          plain=self.plain)
         return out
 
     def to_host(self, out: Dict[str, torch.Tensor], tok_len: torch.Tensor
                 ) -> Dict[str, np.ndarray]:
         """Outputs -> host arrays, with the alignments' diagonality and the
-        waveforms' lengths."""
+        waveforms' lengths. Each copy from the card is counted
+        (``d2h_bytes``, ``host_syncs``)."""
         r = self.cfg.model.decoder.reduction_factor
         out["diagonality"] = alignment_diagonality(
             out["alignments"], tok_len, torch.clamp(out["frame_lengths"] // r, min=1))
-        result = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+        result = {k: to_numpy(v.float() if v.is_floating_point() else v)
                   if torch.is_tensor(v) else v for k, v in out.items()}
         result["wav_lengths"] = result["frame_lengths"] * self.cfg.audio.hop_length
         return result
@@ -172,19 +176,25 @@ class Synthesizer:
         """``speaker_ids`` (a multi-speaker config) default to speaker 0."""
         cfg = self.cfg
         dev = self.device
-        from_wavs = cfg.model.gst.enabled and reference_wavs is not None
-        host = self.text_inputs(texts, from_wavs, token_weights, speaker_ids)
-        ref_mel = ref_lengths = None
-        if from_wavs:
-            ref_mel, ref_lengths = self._reference_mels(reference_wavs)
-        put = lambda a: None if a is None else torch.from_numpy(a).to(dev)
-        tok_len = put(host["token_lengths"])
-        out = self.infer(put(host["tokens"]), tok_len, ref_mel, ref_lengths,
-                         put(host["token_weights"]), put(host["speaker_ids"]),
-                         max_steps=max_steps or cfg.model.decoder.max_decode_steps, seed=seed,
-                         deterministic_prenet=self.deterministic_prenet,
-                         chunk_steps=self.chunk_steps)
-        return self.to_host(out, tok_len)
+        with span("gst.synth", call=next_call()):
+            from_wavs = cfg.model.gst.enabled and reference_wavs is not None
+            with span("gst.synth.frontend"):
+                host = self.text_inputs(texts, from_wavs, token_weights, speaker_ids)
+            ref_mel = ref_lengths = None
+            if from_wavs:
+                with span("gst.synth.ref_mels"):
+                    ref_mel, ref_lengths = self._reference_mels(reference_wavs)
+            with span("gst.synth.h2d"):
+                tok, tok_len, weights, spk = (
+                    None if host[k] is None else torch.from_numpy(host[k]).to(dev)
+                    for k in ("tokens", "token_lengths", "token_weights", "speaker_ids"))
+            with span("gst.synth.infer"):
+                out = self.infer(tok, tok_len, ref_mel, ref_lengths, weights, spk,
+                                 max_steps=max_steps or cfg.model.decoder.max_decode_steps,
+                                 seed=seed, deterministic_prenet=self.deterministic_prenet,
+                                 chunk_steps=self.chunk_steps)
+            with span("gst.synth.to_host"):
+                return self.to_host(out, tok_len)
 
     # -- artifacts ----------------------------------------------------------
 

@@ -63,7 +63,7 @@ from .metrics import MetricLogger
 from .models.tacotron import GSTTacotron
 from .parallel import mesh as pmesh
 from .parallel import sharding
-from .utils.profiling import StepWindowProfiler
+from .utils.profiling import StepWindowProfiler, next_call, span
 from .weights import build_model
 
 # the eval step's dropout stream (the JAX step's fold_in(rng, 2**31 - 1))
@@ -248,10 +248,13 @@ def _model_kwargs(cfg: Config, batch: Dict[str, Any]) -> Dict[str, Any]:
 
 def _forward_losses(cfg: Config, model: torch.nn.Module, batch, *, train: bool, seed: int,
                     shard=None):
-    outputs = model(batch["tokens"], batch["token_lengths"], batch["mel"], train=train,
-                    seed=seed, **_model_kwargs(cfg, batch))
-    return compute_losses(outputs, batch, cfg.loss, cfg.audio,
-                          reduction_factor=cfg.model.decoder.reduction_factor, shard=shard)
+    with span("gst.train.forward"):
+        outputs = model(batch["tokens"], batch["token_lengths"], batch["mel"], train=train,
+                        seed=seed, **_model_kwargs(cfg, batch))
+    with span("gst.train.loss"):
+        return compute_losses(outputs, batch, cfg.loss, cfg.audio,
+                              reduction_factor=cfg.model.decoder.reduction_factor,
+                              shard=shard)
 
 
 def train_step(tx: Optimizer, cfg: Config, state: TrainState,
@@ -261,31 +264,36 @@ def train_step(tx: Optimizer, cfg: Config, state: TrainState,
     backward, one optimizer update. Returns the loss, its terms and
     ``grad_norm`` (before clipping) as device scalars; the step's gradients
     stay in the parameters' ``.grad`` until the next step."""
-    batch = _materialize_features(cfg, batch)
-    model = state.model
-    params = sharding.named_parameters(model)
-    for p in params.values():
-        p.grad = None
-    with torch.enable_grad(), sharding.on_mesh(model, state.mesh):
-        losses = _forward_losses(cfg, model, batch, train=True,
-                                 seed=dropout_seed(state.seed, state.step),
-                                 shard=state.data_shard())
-        losses["loss"].backward()
-    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-             for k, p in params.items()}
-    metrics = {k: v.detach() for k, v in losses.items()}
-    mesh = state.mesh
-    if mesh is not None:
-        # the global gradient (this rank's block of a sharded kernel's) stays
-        # in .grad, as the single-device step leaves it
-        grads = sharding.step_gradients(mesh, grads, state.sharded)
-        for k, p in params.items():
-            p.grad = grads[k]
-        metrics = pmesh.sum_over_data(mesh, metrics)
-    metrics["grad_norm"] = tx.update(params, grads, state.opt, state.sharded,
-                                     None if mesh is None else mesh.model_sum)
-    state.step += 1
-    return metrics
+    with span("gst.train.step", call=next_call()):
+        if "wav" in batch:
+            with span("gst.train.features"):
+                batch = _materialize_features(cfg, batch)
+        model = state.model
+        params = sharding.named_parameters(model)
+        for p in params.values():
+            p.grad = None
+        with torch.enable_grad(), sharding.on_mesh(model, state.mesh):
+            losses = _forward_losses(cfg, model, batch, train=True,
+                                     seed=dropout_seed(state.seed, state.step),
+                                     shard=state.data_shard())
+            with span("gst.train.backward"):
+                losses["loss"].backward()
+        with span("gst.train.optimizer"):
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in params.items()}
+            metrics = {k: v.detach() for k, v in losses.items()}
+            mesh = state.mesh
+            if mesh is not None:
+                # the global gradient (this rank's block of a sharded
+                # kernel's) stays in .grad, as the single-device step leaves it
+                grads = sharding.step_gradients(mesh, grads, state.sharded)
+                for k, p in params.items():
+                    p.grad = grads[k]
+                metrics = pmesh.sum_over_data(mesh, metrics)
+            metrics["grad_norm"] = tx.update(params, grads, state.opt, state.sharded,
+                                             None if mesh is None else mesh.model_sum)
+        state.step += 1
+        return metrics
 
 
 def corpus_batch(corpus_wav: torch.Tensor, corpus_ints: torch.Tensor, idx: torch.Tensor,

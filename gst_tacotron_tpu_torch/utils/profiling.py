@@ -10,11 +10,26 @@ process (every thread's host ops and, on the card, its CUDA activity) for
 MS milliseconds, writes ``DIR/trace.json`` and answers ``{"trace": path}``
 (``request_trace`` is the client). One capture at a time; another request
 meanwhile gets 409.
+
+``span(name)`` marks a stage of the program (every name starts ``gst.``).
+While a torch profiler records (any of the three above, or one the caller
+runs) it is a ``torch.profiler.record_function``: a ``user_annotation``
+event in the same trace as the CUDA activity, on the profiler's clock.
+Otherwise it costs one check of a flag: no dispatcher call, no allocation,
+no synchronize. The top-level span of a synthesis call or a train step
+takes the process's next ``next_call()`` number; the three tracers above
+write it into that event's ``args`` as ``call``, and the stages of the call
+are the spans nested in it on its thread. ``count``, ``counters`` and
+``reset_counters`` are the program's counters (bytes copied to the host,
+blocking copies, calls and steps begun), always on, as the kernels' launch
+counters are.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
 import threading
@@ -22,7 +37,111 @@ import time
 import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
+
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+_calls = itertools.count(1)
+# (thread, span name, call number) of each numbered span entered while a
+# profiler recorded, in order; the tracers here clear it when they start
+_numbered: collections.deque = collections.deque(maxlen=1 << 16)
+_counters: Dict[str, int] = {}
+_counters_lock = threading.Lock()
+
+
+def span(name: str, call: Optional[int] = None):
+    """A context manager marking a stage ``name`` of the program; ``call``
+    (a top-level span's ``next_call()``) is written into its trace event's
+    ``args`` by the tracers of this module."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    if call is not None:
+        _numbered.append((threading.get_native_id(), name, call))
+    return _autograd_profiler.record_function(name)
+
+
+def next_call() -> int:
+    """The process's next sequence number of a synthesis call or a train
+    step; each adds one to the counter ``calls``."""
+    count("calls")
+    return next(_calls)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name``."""
+    with _counters_lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the program's counters."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    """Set every counter back to 0."""
+    with _counters_lock:
+        _counters.clear()
+
+
+def _events(lines):
+    """(first line, last line, text) of each event of a Chrome trace as the
+    torch profiler writes it: from a line ``  {`` to a line ``  }`` or
+    ``  },``."""
+    block = None
+    for i, line in enumerate(lines):
+        if line.rstrip() == "  {":
+            block = (i, [line])
+        elif block is not None:
+            block[1].append(line)
+            if line.rstrip() in ("  }", "  },"):
+                yield block[0], i, "".join(block[1]).rstrip().rstrip(",")
+                block = None
+
+
+def _export(prof, path: str, numbered) -> None:
+    """``prof``'s Chrome trace to ``path``, each numbered span's event with
+    ``args["call"]``: the k-th numbered span a thread entered under a name is
+    that thread's k-th event of the name, in time order. The trace is read
+    and written a line at a time; only those events are parsed."""
+    prof.export_chrome_trace(path)
+    if not numbered:
+        return
+    calls = collections.defaultdict(list)
+    for tid, name, call in numbered:
+        calls[tid, name].append(call)
+    found = collections.defaultdict(list)
+    with open(path) as f:
+        for first, last, text in _events(f):
+            if '"user_annotation"' in text and '"gst.' in text:
+                e = json.loads(text)
+                if (e.get("tid"), e.get("name")) in calls:
+                    found[e["tid"], e["name"]].append((e["ts"], first, last, e))
+    edits = {}
+    for key, evs in found.items():
+        for (_, first, last, e), call in zip(sorted(evs, key=lambda r: r[0]), calls[key]):
+            e.setdefault("args", {})["call"] = call
+            edits[first] = (last, json.dumps(e))
+    with open(path) as src, open(path + ".tmp", "w") as dst:
+        skip_to = -1
+        for i, line in enumerate(src):
+            if i in edits:
+                skip_to, text = edits[i]
+                dst.write(text)
+            elif i == skip_to:
+                dst.write("," if line.rstrip().endswith(",") else "")
+                dst.write("\n")
+            elif i > skip_to:
+                dst.write(line)
+    os.replace(path + ".tmp", path)
+
+
+def _take_numbered() -> list:
+    out = list(_numbered)
+    _numbered.clear()
+    return out
 
 
 def _activities():
@@ -45,9 +164,10 @@ def profile_trace(log_dir: Optional[str], enabled: bool = True) -> Iterator[None
     from torch.profiler import profile
 
     os.makedirs(log_dir, exist_ok=True)
+    _take_numbered()
     with profile(activities=_activities()) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    _export(prof, os.path.join(log_dir, "trace.json"), _take_numbered())
 
 
 class StepWindowProfiler:
@@ -75,6 +195,7 @@ class StepWindowProfiler:
             from torch.profiler import profile
 
             os.makedirs(self.log_dir, exist_ok=True)
+            _take_numbered()
             self._prof = profile(activities=_activities())
             self._prof.__enter__()
         elif self._n == self.warmup + self.active:
@@ -84,7 +205,7 @@ class StepWindowProfiler:
     def stop(self) -> None:
         if self._prof is not None:
             self._prof.__exit__(None, None, None)
-            self._prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))
+            _export(self._prof, os.path.join(self.log_dir, "trace.json"), _take_numbered())
             self._prof = None
         self._done = True
 
@@ -154,10 +275,11 @@ class ProfilerServer:
             os.makedirs(log_dir, exist_ok=True)
             prof = profile(activities=_activities(),
                            experimental_config=_ExperimentalConfig(profile_all_threads=True))
+            _take_numbered()
             with prof:
                 time.sleep(ms / 1e3)
             path = os.path.join(os.path.abspath(log_dir), "trace.json")
-            prof.export_chrome_trace(path)
+            _export(prof, path, _take_numbered())
             return path
         finally:
             self._lock.release()

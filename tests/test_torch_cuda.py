@@ -879,3 +879,62 @@ def test_alignment_gate_on_the_card(dev, tmp_path):
     res = run_gate(str(tmp_path), device=dev)
     assert res.steps == GATE_STEPS
     assert not gate_failures(res), res.summary()
+
+
+def test_spans_place_kernels_and_count_copies_on_the_card(dev, tmp_path, monkeypatch):
+    """A traced small ``Synthesizer`` call: K4's kernels are launched inside
+    ``gst.model.decoder_ar_scan`` (each kernel matched to its launch by
+    ``args.correlation``), the call's ``gst.synth`` carries its number, and
+    ``d2h_bytes`` is the bytes of the host arrays that ``to_host`` and the
+    extractor produced, one blocking copy each."""
+    import json
+    import os
+    import re
+
+    import numpy as np
+
+    from gst_tacotron_tpu_torch.config import load_config
+    from gst_tacotron_tpu_torch.dsp.device_features import DeviceFeatureExtractor
+    from gst_tacotron_tpu_torch.synthesize import Synthesizer
+    from gst_tacotron_tpu_torch.utils import profiling
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    cfg = load_config(os.path.join(os.path.dirname(__file__), "fixtures", "golden",
+                                   "config.json"))
+    synth = Synthesizer(cfg, build_model(cfg, seed=0, device=dev), device=dev)
+    rng = np.random.default_rng(0)
+    wavs = [rng.uniform(-0.5, 0.5, n * cfg.audio.hop_length).astype(np.float32)
+            for n in (20, 33, 150)]
+    texts = ["the first sentence.", "a second one.", "third."]
+    synth(texts, reference_wavs=wavs, max_steps=8, seed=1)      # builds the kernels
+    features = []
+    real = DeviceFeatureExtractor._compute
+
+    def compute(self, batch):
+        out = real(self, batch)
+        features.extend(t.numel() * t.element_size() for t in out)
+        return out
+
+    monkeypatch.setattr(DeviceFeatureExtractor, "_compute", compute)
+    profiling.reset_counters()
+    with profiling.profile_trace(str(tmp_path)):
+        out = synth(texts, reference_wavs=wavs, max_steps=8, seed=1)
+    counted = profiling.counters()
+    host = [v.nbytes for k, v in out.items() if isinstance(v, np.ndarray) and k != "wav_lengths"]
+    assert counted["d2h_bytes"] == sum(host) + sum(features)
+    assert counted["host_syncs"] == len(host) + len(features)
+
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    scans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == "gst.model.decoder_ar_scan"]
+    assert len(scans) == 1
+    assert [e["args"].get("call") for e in events if e.get("cat") == "user_annotation"
+            and e["name"] == "gst.synth"] == [profiling.next_call() - 1]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    inside = [e["name"] for e in events if e.get("cat") == "kernel"
+              and re.match(r"(void )?decode_", e["name"])
+              and scans[0][0] <= launched.get(e["args"].get("correlation"), -1) <= scans[0][1]]
+    assert inside

@@ -234,3 +234,26 @@ def trainer_losses(rank, cfg, patterns, work, steps):
     trainer = Trainer(cfg, patterns, work, device="cpu", mesh=make_mesh(1))
     trainer.train(steps, on_step=lambda tr, step, m, frames: losses.append(float(m["loss"])))
     return losses
+
+
+def dsynth_spans(rank, cfg, kwargs, log_dir):
+    """``DistributedSynthesizer.synthesize(**kwargs)`` at dp = world under
+    ``profile_trace(log_dir)`` -> the trace's ``gst.*`` events as (name,
+    start, end, args) and the program's counters after the call."""
+    import json
+    import os
+
+    from gst_tacotron_tpu_torch.parallel import DistributedSynthesizer, make_mesh
+    from gst_tacotron_tpu_torch.utils import profiling
+    from gst_tacotron_tpu_torch.weights import build_model
+
+    ds = DistributedSynthesizer(cfg, build_model(cfg, seed=0, device="cpu"), make_mesh(1),
+                                device="cpu")
+    profiling.reset_counters()
+    with profiling.profile_trace(log_dir):
+        ds.synthesize(**kwargs)
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return ([(e["name"], e["ts"], e["ts"] + e["dur"], e["args"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("gst.")],
+            profiling.counters())
