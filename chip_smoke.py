@@ -123,8 +123,10 @@ Phases, each of which exits non-zero on failure:
    plain path's;
 18. determinism (after the train phase): tests/test_determinism.py on the
    card, gst_lj at its published widths, B=32, over the corpus phase's
-   patterns: two ``Trainer`` runs with seed 7, 3 steps each, agree in every
-   bit of every parameter, buffer and Adam moment; seed 8 differs.
+   patterns: two ``Trainer`` runs with seed 7, 6 steps each (the second
+   1200-frame batch captures the step's CUDA graph, the next two replay
+   it), agree in every bit of every parameter, buffer and Adam moment;
+   seed 8 differs.
 
 It prints one JSON line per kernel check, per path and per training run
 (``{"train": ...}``), per chunked, bf16 and CLI run, the parallel phase's
@@ -1954,7 +1956,9 @@ def run_train_phase(torch, dev, corpus_dir, work):
 GATE_LAUNCHES = {"gru_scan": 2, "decode_scan": 1, "decode_scan:location_sensitive": 1}
 GATE_MEL_TOL = 2e-3
 GATE_WAIT_S = 900
-DETERMINISM_STEPS = 3
+# seed 7's bucket order over the corpus is 800, 400, 1200, 1200, 1200, 1200
+# frames: six steps reach the graph's capture and two replays
+DETERMINISM_STEPS = 6
 DETERMINISM_SEEDS = (7, 7, 8)
 
 
@@ -2095,21 +2099,27 @@ def run_determinism(torch, dev, pattern_dir, work):
     ``Trainer`` a seed of ``DETERMINISM_SEEDS``, ``DETERMINISM_STEPS`` steps
     each through ``Trainer.train``. The two same-seed runs must agree in
     every bit of every parameter, buffer and Adam moment; the other seed
-    must differ."""
+    must differ. The same-seed runs must have replayed the step's CUDA
+    graph (``train_graph_replays``)."""
     from gst_tacotron_tpu_torch.config import apply_overrides, get_preset
     from gst_tacotron_tpu_torch.train import Trainer
+    from gst_tacotron_tpu_torch.utils.profiling import counters
 
     cfg = apply_overrides(get_preset("gst_lj"), {
         "train.log_every": 10 ** 6, "train.checkpoint_every": 10 ** 7,
         "train.eval_every": 10 ** 8})
-    states, seconds = [], []
+    states, seconds, graphs = [], [], []
     for i, seed in enumerate(DETERMINISM_SEEDS):
         t0 = time.perf_counter()
+        before = counters()
         trainer = Trainer(apply_overrides(cfg, {"train.seed": seed}), pattern_dir,
                           f"{work}/det{i}", device=dev)
         state = trainer.train(DETERMINISM_STEPS)
         states.append(host_train_state(torch, state))
         seconds.append(time.perf_counter() - t0)
+        graphs.append({k: counters().get(k, 0) - before.get(k, 0)
+                       for k in ("train_graph_captures", "train_graph_replays",
+                                 "train_graph_failures")})
         del trainer, state
     same, same_max = state_diff(torch, states[0], states[1])
     other, other_max = state_diff(torch, states[0], states[2])
@@ -2118,8 +2128,10 @@ def run_determinism(torch, dev, pattern_dir, work):
             "same_seed_tensors_differing": len(same), "same_seed_max_abs_diff": same_max,
             "same_seed_differing": same[:10],
             "other_seed_tensors_differing": len(other), "other_seed_max_abs_diff": other_max,
-            "trainer_seconds": seconds}
+            "trainer_seconds": seconds, "graphs": graphs}
     print(json.dumps({"determinism": info}), flush=True)
+    if not all(g["train_graph_replays"] for g in graphs[:2]):
+        fail(f"determinism: the same-seed runs replayed no CUDA graph: {graphs}")
     if same:
         fail(f"determinism: two trainers with seed {DETERMINISM_SEEDS[0]} differ after "
              f"{DETERMINISM_STEPS} steps in {len(same)} tensors (largest {same_max}): "

@@ -108,7 +108,7 @@ class Decoder(nn.Module):
 
     def teacher_forced(self, memory: torch.Tensor, memory_lengths: Optional[torch.Tensor],
                        mel_targets: torch.Tensor, *, deterministic_prenet: bool = False,
-                       seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       seed=0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Teacher-forced decode of ``mel_targets`` (B, T_mel, M), T_mel % r
         == 0 -> (mel (B, T_mel, M), stop_logits (B, T_mel), alignments (B, S,
         T)); prenet dropout from the Philox stream ``seed``."""

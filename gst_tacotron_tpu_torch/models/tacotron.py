@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..decode import chunked_decode
+from ..ops.philox import DeviceSeed
 from ..ops.refenc import gst_style_from_params
 from ..utils.profiling import span
 from .decoder import Decoder
@@ -34,9 +35,13 @@ from .modules import Embed, set_compute_dtype
 from .postnet import PostCBHG
 
 
-def _generator(seed: int, device, deterministic: bool) -> Optional[torch.Generator]:
+def _generator(seed, device, deterministic: bool) -> Optional[torch.Generator]:
+    """A generator seeded ``seed``; a ``DeviceSeed``'s own, which its caller
+    seeds before each replay."""
     if deterministic:
         return None
+    if isinstance(seed, DeviceSeed):
+        return seed.generator
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
@@ -108,13 +113,15 @@ class GSTTacotron(nn.Module):
                 speaker_ids: Optional[torch.Tensor] = None,
                 token_weights: Optional[torch.Tensor] = None, *,
                 train: bool = False, deterministic_prenet: bool = False,
-                seed: int = 0) -> Dict[str, torch.Tensor]:
+                seed=0) -> Dict[str, torch.Tensor]:
         """Teacher-forced pass (training and eval losses): encode (prenet
         and, in training, Taco2 conv-stack dropout from a generator seeded
         ``seed``), decode the targets
         (dropout stream ``seed + 1``), post-net over the whole decoded mel.
         In training the GST reference is the target mel itself; pass
-        ``ref_mel=mel_targets``."""
+        ``ref_mel=mel_targets``. ``seed`` is an int, or the
+        ``ops.philox.DeviceSeed`` of a train step captured in a CUDA
+        graph."""
         # training draws the Taco2 conv stack's dropout from it even with the
         # prenets deterministic
         gen = _generator(seed, tokens.device, deterministic_prenet and not train)

@@ -155,11 +155,12 @@ def initial_decode_state(packed: Dict[str, torch.Tensor], memory: torch.Tensor) 
                        zeros(packed["g2wh"].shape[0]), zeros(m_dim), prev, zeros(t))
 
 
-def prenet_keep(seed: int, steps: int, batch: int, p1: int, p2: int, rate: float,
+def prenet_keep(seed, steps: int, batch: int, p1: int, p2: int, rate: float,
                 device, step0: int = 0, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(steps, batch, P) keep masks of the two prenet layers at steps
     ``step0`` on, rows ``row0`` on: the kernel's Philox draw
-    (``dropout_uniforms``), made on ``device``."""
+    (``dropout_uniforms``), made on ``device``. ``seed`` is an int, or the
+    ``philox.DeviceSeed`` of a train step captured in a CUDA graph."""
     idx = torch.arange(step0, step0 + steps, device=device)
     return tuple(stream_uniforms(seed, idx, layer, batch, units, row0) >= rate
                  for layer, units in ((0, p1), (1, p2)))
@@ -306,13 +307,14 @@ def decode_scan_plain(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
 def teacher_forced_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                         keys: torch.Tensor, lengths: torch.Tensor,
                         mel_targets: torch.Tensor, *, dec_cfg: DecoderConfig,
-                        attn_cfg: AttentionConfig, num_mels: int, seed: int = 0,
+                        attn_cfg: AttentionConfig, num_mels: int, seed=0,
                         use_dropout: bool = False, row0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The teacher-forced decode (the JAX ``Decoder.teacher_forced``): step i
     takes the target's last frame of group i - 1, the go frame (zeros)
     first, through the same ``decode_step`` as the AR decode. ``mel_targets``
-    (B, T_mel, num_mels) with T_mel % r == 0. No kernel: with a
+    (B, T_mel, num_mels) with T_mel % r == 0; ``seed`` as ``prenet_keep``
+    takes it. No kernel: with a
     differentiable pack (``pack_decoder_weights(differentiable=True)``) a
     loss on the outputs reaches every decoder parameter."""
     r = dec_cfg.reduction_factor

@@ -2,7 +2,9 @@
 kernels' plain versions.
 
 ``philox4x32_10`` takes numpy ``uint64`` arrays or torch ``int64`` tensors
-holding 32-bit values and returns the four 32-bit outputs in the same type.
+holding 32-bit values and returns the four 32-bit outputs in the same type;
+its key is two ints or, for a step captured in a CUDA graph, two int64
+device scalars (a ``DeviceSeed``'s words), which give the same bits.
 Its 32 x 32-bit products go through 16-bit limbs, so no intermediate exceeds
 2^49 and signed 64-bit tensors (all that torch has on the card) give the same
 bits as the kernels' unsigned arithmetic. ``uniform_open01`` maps 32 random
@@ -36,9 +38,10 @@ def _mulhilo(m: int, c):
 
 def philox4x32_10(c, key):
     """Ten Philox rounds of the counter ``c`` (four arrays) under ``key``
-    (two Python ints); returns four arrays of 32-bit values."""
+    (two Python ints, or two int64 tensor scalars on the counter's device);
+    returns four arrays of 32-bit values."""
     c0, c1, c2, c3 = c
-    k0, k1 = int(key[0]) & _MASK32, int(key[1]) & _MASK32
+    k0, k1 = ((k if isinstance(k, torch.Tensor) else int(k)) & _MASK32 for k in key)
     for _ in range(10):
         hi0, lo0 = _mulhilo(_M0, c0)
         hi1, lo1 = _mulhilo(_M1, c2)
@@ -47,8 +50,29 @@ def philox4x32_10(c, key):
     return c0, c1, c2, c3
 
 
-def seed_key(seed: int):
-    """The kernels' Philox key: the seed's low and high 32 bits."""
+class DeviceSeed:
+    """A 64-bit seed held on the device, as a step captured in a CUDA graph
+    reads it: ``words``, an int64 tensor of its low and high 32-bit words
+    (what ``seed_key`` gives of the same seed as an int), and ``generator``,
+    the CUDA generator that the seed's ``torch.Generator`` draws take, which
+    the caller seeds with the same number before each replay. ``seed + n``
+    adds on the device, carrying into the high word and wrapping at 64 bits
+    as an int seed's key does."""
+
+    def __init__(self, words: torch.Tensor, generator: torch.Generator):
+        self.words, self.generator = words, generator
+
+    def __add__(self, n: int) -> "DeviceSeed":
+        lo = self.words[0] + n
+        hi = (self.words[1] + (lo >> 32)) & _MASK32
+        return DeviceSeed(torch.stack([lo & _MASK32, hi]), self.generator)
+
+
+def seed_key(seed):
+    """The kernels' Philox key: the seed's low and high 32 bits (a
+    ``DeviceSeed``'s two words, as device scalars)."""
+    if isinstance(seed, DeviceSeed):
+        return seed.words[0], seed.words[1]
     return seed & _MASK32, (seed >> 32) & _MASK32
 
 
@@ -62,13 +86,15 @@ def uniform_open01(bits):
     return (top.astype(np.float32) + np.float32(0.5)) * np.float32(1.0 / 8388608.0)
 
 
-def stream_uniforms(seed: int, steps, stream: int, batch: int, n: int, row0: int = 0):
+def stream_uniforms(seed, steps, stream: int, batch: int, n: int, row0: int = 0):
     """(len(steps), batch, n) float32 uniforms: the kernels' draw for item
     ``i`` of row ``b`` at step ``s`` of ``stream``, counted by (i >> 2, s,
     stream, row0 + b) and taking output word i & 3. ``row0`` is the first
     row's index in the global batch (a data-parallel rank's shard draws the
     rows the whole batch would). ``steps`` is a numpy array or a torch tensor
-    of step indices; the result is of the same kind, on the same device."""
+    of step indices; the result is of the same kind, on the same device.
+    ``seed`` is an int, or with tensor steps a ``DeviceSeed`` on their
+    device."""
     quads = (n + 3) // 4
     if isinstance(steps, torch.Tensor):
         dev = steps.device

@@ -24,6 +24,13 @@ draws from a generator seeded with ``dropout_seed``, the decoder prenet from
 the decode kernel's Philox stream keyed by it plus one, so a resumed run
 replays the same masks.
 
+On one card the step is launched as a CUDA graph (``StepGraphs``): each
+padded batch shape runs its first step eager, captures ``_step_body`` at
+its second and replays that graph from then on, one launch a step in place
+of Python and autograd dispatching each kernel. The kernels, their order
+and their bits are the eager step's. A mesh, wav-transport batches and the
+CPU stay eager.
+
 Under a mesh (``parallel.make_mesh``; ``Trainer(..., mesh=)``) a step is
 the single-device step on the global batch, as GSPMD computes the JAX step:
 each rank loads its rows (``parallel.process_data_shard``), its losses are
@@ -47,8 +54,9 @@ import argparse
 import os
 import time
 import traceback
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, FrozenSet, Optional, Tuple
+from typing import Any, Callable, Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,9 +69,10 @@ from .dsp.torch_dsp import TorchDSP
 from .losses import compute_losses
 from .metrics import MetricLogger
 from .models.tacotron import GSTTacotron
+from .ops.philox import DeviceSeed, seed_key
 from .parallel import mesh as pmesh
 from .parallel import sharding
-from .utils.profiling import StepWindowProfiler, next_call, span
+from .utils.profiling import StepWindowProfiler, count, next_call, recording, span
 from .weights import build_model
 
 # the eval step's dropout stream (the JAX step's fold_in(rng, 2**31 - 1))
@@ -131,16 +140,27 @@ class Optimizer:
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
         return OptState(0, zeros(), zeros())
 
+    def scalars(self, count: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Adam's two bias corrections and the learning rate of the update
+        that follows ``count`` updates, as float32 scalars on the CPU."""
+        c = self.cfg
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+        return (1 - f32(c.beta1) ** (count + 1), 1 - f32(c.beta2) ** (count + 1),
+                self.schedule(count))
+
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                state: OptState, sharded: FrozenSet[str] = frozenset(),
-               model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
-               ) -> torch.Tensor:
-        """Apply one update to ``params`` in place and advance ``state``;
-        returns the gradients' global norm before clipping. ``sharded`` keys
-        hold one model rank's column block each: their squares are summed
-        over the model axis by ``model_sum`` (Adam works element by element
-        on the block)."""
+               model_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+               scalars: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+        """Apply one update to ``params`` and Adam's moments in place and
+        advance ``state``; returns the gradients' global norm before
+        clipping. ``sharded`` keys hold one model rank's column block each:
+        their squares are summed over the model axis by ``model_sum`` (Adam
+        works element by element on the block). ``scalars`` are the update's
+        ``self.scalars`` already on the device (a step captured in a CUDA
+        graph reads them from its buffer); by default they are made from
+        ``state.count``."""
         c = self.cfg
         if not sharded:
             norm = global_norm(grads.values())
@@ -149,21 +169,19 @@ class Optimizer:
             norm = torch.sqrt(sq([k for k in grads if k not in sharded])
                               + model_sum(sq(sorted(sharded))))
         keep = norm < c.grad_clip_norm
-        count = state.count + 1
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32)
-        bc1 = (1 - f32(c.beta1) ** count).to(norm.device)
-        bc2 = (1 - f32(c.beta2) ** count).to(norm.device)
-        lr = self.schedule(state.count).to(norm.device)
+        if scalars is None:
+            scalars = self.scalars(state.count)
+        bc1, bc2, lr = (x.to(norm.device) for x in scalars)
         for k, p in params.items():
             g = torch.where(keep, grads[k], (grads[k] / norm) * c.grad_clip_norm)
-            mu = (1 - c.beta1) * g + c.beta1 * state.mu[k]
-            nu = (1 - c.beta2) * (g * g) + c.beta2 * state.nu[k]
-            state.mu[k], state.nu[k] = mu, nu
+            mu, nu = state.mu[k], state.nu[k]
+            torch.add((1 - c.beta1) * g, c.beta1 * mu, out=mu)
+            torch.add((1 - c.beta2) * (g * g), c.beta2 * nu, out=nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + c.eps)
             if c.weight_decay > 0:
                 u = u + c.weight_decay * p
             p.add_(-(lr * u))
-        state.count = count
+        state.count += 1
         return norm
 
 
@@ -188,6 +206,9 @@ class TrainState:
     seed: int
     mesh: Optional[pmesh.Mesh] = None
     sharded: FrozenSet[str] = field(default_factory=frozenset)
+    # the CUDA graphs of the single-device step (made at its first step on
+    # the card, freed with the state)
+    graphs: Optional["StepGraphs"] = field(default=None, repr=False, compare=False)
 
     def data_shard(self):
         """The modules' ``DataShard`` of this rank (None without a mesh)."""
@@ -246,7 +267,7 @@ def _model_kwargs(cfg: Config, batch: Dict[str, Any]) -> Dict[str, Any]:
     return kwargs
 
 
-def _forward_losses(cfg: Config, model: torch.nn.Module, batch, *, train: bool, seed: int,
+def _forward_losses(cfg: Config, model: torch.nn.Module, batch, *, train: bool, seed,
                     shard=None):
     with span("gst.train.forward"):
         outputs = model(batch["tokens"], batch["token_lengths"], batch["mel"], train=train,
@@ -257,41 +278,181 @@ def _forward_losses(cfg: Config, model: torch.nn.Module, batch, *, train: bool, 
                               shard=shard)
 
 
+def _step_body(tx: Optimizer, cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor],
+               seed, scalars: Optional[Tuple[torch.Tensor, ...]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """The step's work on ``state``'s tensors: forward with dropout from
+    ``seed``, losses, backward, one optimizer update (which advances
+    ``state.opt.count``). The eager step runs it; ``StepGraphs`` captures it
+    as it is, with a ``DeviceSeed`` and the update's ``scalars`` read from a
+    device buffer."""
+    model = state.model
+    params = sharding.named_parameters(model)
+    for p in params.values():
+        p.grad = None
+    with torch.enable_grad(), sharding.on_mesh(model, state.mesh):
+        losses = _forward_losses(cfg, model, batch, train=True, seed=seed,
+                                 shard=state.data_shard())
+        with span("gst.train.backward"):
+            losses["loss"].backward()
+    with span("gst.train.optimizer"):
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        metrics = {k: v.detach() for k, v in losses.items()}
+        mesh = state.mesh
+        if mesh is not None:
+            # the global gradient (this rank's block of a sharded
+            # kernel's) stays in .grad, as the single-device step leaves it
+            grads = sharding.step_gradients(mesh, grads, state.sharded)
+            for k, p in params.items():
+                p.grad = grads[k]
+            metrics = pmesh.sum_over_data(mesh, metrics)
+        metrics["grad_norm"] = tx.update(params, grads, state.opt, state.sharded,
+                                         None if mesh is None else mesh.model_sum, scalars)
+    return metrics
+
+
+@dataclass
+class _Graph:
+    """One padded batch shape's captured step: its static inputs and
+    outputs, and each parameter with the ``.grad`` tensor the graph writes."""
+    graph: torch.cuda.CUDAGraph
+    batch: Dict[str, torch.Tensor]
+    metrics: Dict[str, torch.Tensor]
+    grads: List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class StepGraphs:
+    """A state's single-device step on the card as one CUDA graph a padded
+    batch shape (every batch tensor's shape and dtype), all in one memory
+    pool. A shape's first step runs eager on the capture stream (the
+    warm-up), its second is captured and then replayed, as is every later
+    one; a profiler recording defers the capture, and a capture that fails
+    leaves the shape eager (counted, ``train_graph_failures``).
+
+    The graph is ``_step_body`` as the eager step runs it. What changes
+    from step to step reaches it through device memory: the batch, copied
+    into the graph's inputs; the dropout seed's two words and Adam's two
+    bias corrections and learning rate, written by the host into one
+    pinned buffer and copied to ``buffer``, which the graph reads
+    (``DeviceSeed``, ``Optimizer.update(scalars=)``); and the encoder's
+    generator, seeded before each replay (the replay's prologue reads its
+    seed at offset 0, as a fresh generator's draws start)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.generator = torch.Generator(device=device)
+        # int64 words 0-1: the dropout seed; float32 words 4-6: bc1, bc2, lr
+        self.host = torch.zeros(32, dtype=torch.uint8).pin_memory()
+        self.buffer = torch.zeros(32, dtype=torch.uint8, device=device)
+        self.copied = torch.cuda.Event()      # the last copy of ``host`` is done
+        self.warm: set = set()
+        self.graphs: Dict[tuple, Optional[_Graph]] = {}
+
+    def step(self, tx: Optimizer, cfg: Config, state: TrainState,
+             batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step of ``state`` on ``batch``: replayed, captured, or eager
+        where the shape has no graph yet (or cannot have one)."""
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        with torch.cuda.device(self.device):
+            if key not in self.graphs and key in self.warm and not recording():
+                self.graphs[key] = self._capture(tx, cfg, state, batch, key)
+            g = self.graphs.get(key)
+            if g is None:
+                self.warm.add(key)
+                return self._eager(tx, cfg, state, batch)
+            with span("gst.train.replay"):
+                return self._replay(g, tx, state, batch)
+
+    def _eager(self, tx, cfg, state, batch):
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            metrics = _step_body(tx, cfg, state, batch, dropout_seed(state.seed, state.step))
+        current.wait_stream(self.stream)
+        return metrics
+
+    def _capture(self, tx, cfg, state, batch, key) -> Optional[_Graph]:
+        params = sharding.named_parameters(state.model)
+        static = {k: v.clone() for k, v in batch.items()}
+        words, f32 = self.buffer.view(torch.int64), self.buffer.view(torch.float32)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        updates = state.opt.count
+        self.stream.wait_stream(torch.cuda.current_stream())
+        try:
+            # backward on the calling thread: from autograd's device thread
+            # the capture takes three times as long on an H100 (the same
+            # kernels, in the same order)
+            with torch.autograd.set_multithreading_enabled(False), \
+                    torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                metrics = _step_body(tx, cfg, state, static,
+                                     DeviceSeed(words[:2], self.generator),
+                                     (f32[4], f32[5], f32[6]))
+        except RuntimeError as e:
+            for p in params.values():
+                p.grad = None
+            count("train_graph_failures")
+            warnings.warn(f"the train step stays eager for batch shape {key}: "
+                          f"its CUDA graph capture failed ({e})")
+            return None
+        finally:
+            state.opt.count = updates     # each replay advances it
+        count("train_graph_captures")
+        return _Graph(graph, static, metrics, [(p, p.grad) for p in params.values()])
+
+    def _replay(self, g: _Graph, tx, state, batch):
+        seed = dropout_seed(state.seed, state.step)
+        self.copied.synchronize()             # the last replay's copy has read it
+        self.host.view(torch.int64)[:2] = torch.tensor(seed_key(seed))
+        self.host.view(torch.float32)[4:7] = torch.stack(tx.scalars(state.opt.count))
+        self.buffer.copy_(self.host, non_blocking=True)
+        self.copied.record()
+        self.generator.manual_seed(seed)
+        for k, v in batch.items():
+            g.batch[k].copy_(v)
+        g.graph.replay()
+        for p, grad in g.grads:
+            p.grad = grad
+        state.opt.count += 1
+        count("train_graph_replays")
+        return {k: v.clone() for k, v in g.metrics.items()}
+
+
+def _step_graphs(state: TrainState, batch: Dict[str, torch.Tensor]) -> Optional[StepGraphs]:
+    """The state's ``StepGraphs`` where its step can be one graph: on the
+    card, without a mesh (its collectives stay eager), on a feature batch,
+    with anomaly detection off (its checks read values on the host)."""
+    if state.mesh is not None or "wav" in batch or torch.is_anomaly_enabled():
+        return None
+    device = next(state.model.parameters()).device
+    if device.type != "cuda":
+        return None
+    if state.graphs is None:
+        state.graphs = StepGraphs(device)
+    return state.graphs
+
+
 def train_step(tx: Optimizer, cfg: Config, state: TrainState,
                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """One step on ``state`` in place: teacher-forced forward with the
     BatchNorms' batch statistics (their running buffers move), losses,
     backward, one optimizer update. Returns the loss, its terms and
     ``grad_norm`` (before clipping) as device scalars; the step's gradients
-    stay in the parameters' ``.grad`` until the next step."""
+    stay in the parameters' ``.grad`` until the next step. On the card,
+    without a mesh, a feature batch's step from the second of its padded
+    shape on is a replay of one CUDA graph (``StepGraphs``)."""
     with span("gst.train.step", call=next_call()):
-        if "wav" in batch:
-            with span("gst.train.features"):
-                batch = _materialize_features(cfg, batch)
-        model = state.model
-        params = sharding.named_parameters(model)
-        for p in params.values():
-            p.grad = None
-        with torch.enable_grad(), sharding.on_mesh(model, state.mesh):
-            losses = _forward_losses(cfg, model, batch, train=True,
-                                     seed=dropout_seed(state.seed, state.step),
-                                     shard=state.data_shard())
-            with span("gst.train.backward"):
-                losses["loss"].backward()
-        with span("gst.train.optimizer"):
-            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for k, p in params.items()}
-            metrics = {k: v.detach() for k, v in losses.items()}
-            mesh = state.mesh
-            if mesh is not None:
-                # the global gradient (this rank's block of a sharded
-                # kernel's) stays in .grad, as the single-device step leaves it
-                grads = sharding.step_gradients(mesh, grads, state.sharded)
-                for k, p in params.items():
-                    p.grad = grads[k]
-                metrics = pmesh.sum_over_data(mesh, metrics)
-            metrics["grad_norm"] = tx.update(params, grads, state.opt, state.sharded,
-                                             None if mesh is None else mesh.model_sum)
+        graphs = _step_graphs(state, batch)
+        if graphs is not None:
+            metrics = graphs.step(tx, cfg, state, batch)
+        else:
+            if "wav" in batch:
+                with span("gst.train.features"):
+                    batch = _materialize_features(cfg, batch)
+            metrics = _step_body(tx, cfg, state, batch, dropout_seed(state.seed, state.step))
         state.step += 1
         return metrics
 

@@ -21,8 +21,9 @@ takes the process's next ``next_call()`` number; the three tracers above
 write it into that event's ``args`` as ``call``, and the stages of the call
 are the spans nested in it on its thread. ``count``, ``counters`` and
 ``reset_counters`` are the program's counters (bytes copied to the host,
-blocking copies, calls and steps begun), always on, as the kernels' launch
-counters are.
+blocking copies, calls and steps begun, train steps captured in a CUDA
+graph and replayed from one), always on, as the kernels' launch counters
+are.
 """
 
 from __future__ import annotations
@@ -59,6 +60,11 @@ def span(name: str, call: Optional[int] = None):
     if call is not None:
         _numbered.append((threading.get_native_id(), name, call))
     return _autograd_profiler.record_function(name)
+
+
+def recording() -> bool:
+    """Whether a torch profiler records in this process."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def next_call() -> int:
