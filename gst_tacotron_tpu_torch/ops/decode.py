@@ -39,6 +39,8 @@ advances it; on a continuation the kernel skips its prologue (the state's
 zeroing, the keys' and weights' transposes), and the Philox draw takes the
 global step, so any split into calls gives the bits of one call. Every call
 of one carry takes the same weights, memory, keys, lengths and seed.
+Each call that decodes adds its ``steps`` to the program's counter
+``decode_steps`` (``utils/profiling.py``), on either route.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch.nn.functional as Fn
 
 from ..config import AttentionConfig, DecoderConfig
 from ..models.attention import attention_step
+from ..utils import profiling
 from .build import (F, I, P, U64, CudaKernel, check_cuda, ptr, refuse_grad, sm_count,
                     stream_ptr)
 from .gru import gru_update
@@ -228,7 +231,8 @@ def decode_carry(memory: torch.Tensor, *, dec_cfg: DecoderConfig, num_mels: int,
 
 def _run_carried(carry: Optional[DecodeCarry], memory, steps, dec_cfg, num_mels, run):
     """Run ``run(carry)`` for ``steps`` steps of ``carry`` (a fresh one of
-    ``steps`` steps when None), advance it, return its buffers."""
+    ``steps`` steps when None), count them, advance it, return its
+    buffers."""
     if carry is None:
         carry = decode_carry(memory, dec_cfg=dec_cfg, num_mels=num_mels, total_steps=steps)
     if carry.step + steps > carry.total:
@@ -236,6 +240,7 @@ def _run_carried(carry: Optional[DecodeCarry], memory, steps, dec_cfg, num_mels,
                          f"carry's {carry.total}")
     if steps > 0 and memory.shape[0] > 0:
         run(carry)
+        profiling.count("decode_steps", steps)
     carry.step += steps
     return carry.mel, carry.stop_logits, carry.aligns
 

@@ -21,9 +21,9 @@ takes the process's next ``next_call()`` number; the three tracers above
 write it into that event's ``args`` as ``call``, and the stages of the call
 are the spans nested in it on its thread. ``count``, ``counters`` and
 ``reset_counters`` are the program's counters (bytes copied to the host,
-blocking copies, calls and steps begun, train steps captured in a CUDA
-graph and replayed from one), always on, as the kernels' launch counters
-are.
+blocking copies, calls and steps begun, decoder steps run, train steps
+captured in a CUDA graph and replayed from one), always on, as the kernels'
+launch counters are.
 """
 
 from __future__ import annotations
