@@ -11,22 +11,34 @@ operands rounded to bfloat16 with float32 sums (``low_precision``); the last
 inverse is float32 either way. The inverse preemphasis IIR runs blockwise: a
 lower-triangular product inside each block, then the carries across blocks
 as a second triangular product.
+
+The tables that depend only on the config and a length (the window-square
+norm of ``istft_ri`` by frame count, and the inverse preemphasis's three
+tables by padded block count) are built on the host once per length and
+kept on the device (``TorchDSP._tables``); the counters ``dsp_table_builds``
+and ``dsp_table_hits`` count each table built and each taken from there.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import threading
+from collections import OrderedDict
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import AudioConfig
+from ..utils.profiling import count
 from .mel import mel_filterbank
 from .ref import live_tap_span, padded_window
 
 IIR_BLOCK = 256
+# lengths of each kind of shape-only table a TorchDSP keeps on its device;
+# the preemphasis carry table is nb x nb floats (4 MB at 999 blocks)
+TABLE_LENGTHS = 8
 
 
 def amp_to_db(x: torch.Tensor) -> torch.Tensor:
@@ -106,14 +118,36 @@ class TorchDSP:
             cfg.mel_fmax)).to(self.device)                     # (M, F)
         self._winsq = win * win
         self._bf16_bases = None
+        # (n0, n_live): the first sample and the count of the padded
+        # window's live hop-chunks (JaxDSP's tap_j0 * hop and its span)
+        j0, _, n_live = live_tap_span(cfg)
+        self._live_span = (j0 * cfg.hop_length, n_live)
+        self._tables: dict = {}
+        self._tables_lock = threading.Lock()
+
+    def _cached_tables(self, kind: str, length: int, device: torch.device,
+                       build: Callable[[int], Tuple[np.ndarray, ...]]
+                       ) -> Tuple[torch.Tensor, ...]:
+        """The device copies of ``build(length)``'s arrays, built and copied
+        once per (length, device) and kept for the ``TABLE_LENGTHS`` lengths
+        of ``kind`` used last; counts each table as ``dsp_table_builds`` or
+        ``dsp_table_hits``."""
+        key = (length, device)
+        with self._tables_lock:
+            lru = self._tables.setdefault(kind, OrderedDict())
+            tables = lru.get(key)
+            if tables is not None:
+                lru.move_to_end(key)
+                count("dsp_table_hits", len(tables))
+                return tables
+            tables = tuple(torch.from_numpy(a).to(device) for a in build(length))
+            count("dsp_table_builds", len(tables))
+            lru[key] = tables
+            if len(lru) > TABLE_LENGTHS:
+                lru.popitem(last=False)
+            return tables
 
     # -- bf16 DFT products (griffin_lim_bf16) --------------------------------
-
-    def _live_span(self) -> Tuple[int, int]:
-        """(n0, n_live): the first sample and the count of the padded
-        window's live hop-chunks (JaxDSP's tap_j0 * hop and its span)."""
-        j0, _, n_live = live_tap_span(self.cfg)
-        return j0 * self.cfg.hop_length, n_live
 
     def bf16_bases(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The windowed real-pair DFT bases of ``JaxDSP``'s two conv kernels
@@ -172,7 +206,7 @@ class TorchDSP:
         if not low_precision:
             return self.stft_ri_precentered(wav)
         cfg = self.cfg
-        n0, n_live = self._live_span()
+        n0, n_live = self._live_span
         t = 1 + (wav.shape[-1] - cfg.n_fft) // cfg.hop_length
         frames = wav[:, n0:].unfold(-1, n_live, cfg.hop_length)[:, :t]
         out = self._bf16_product(frames, self.bf16_bases()[0])
@@ -218,13 +252,18 @@ class TorchDSP:
 
     # -- inverse ------------------------------------------------------------
 
-    def _win_norm(self, num_frames: int) -> torch.Tensor:
+    def _win_norm_np(self, num_frames: int) -> Tuple[np.ndarray]:
+        """The overlap-add window-square norm of ``num_frames`` frames,
+        float32 (summed in float64, floored at 1e-10)."""
         cfg = self.cfg
         total = cfg.n_fft + cfg.hop_length * (num_frames - 1)
         norm = np.zeros(total, np.float64)
         for t in range(num_frames):
             norm[t * cfg.hop_length: t * cfg.hop_length + cfg.n_fft] += self._winsq
-        return torch.from_numpy(np.maximum(norm, 1e-10).astype(np.float32)).to(self.device)
+        return (np.maximum(norm, 1e-10).astype(np.float32),)
+
+    def _win_norm(self, num_frames: int) -> torch.Tensor:
+        return self._cached_tables("win_norm", num_frames, self.device, self._win_norm_np)[0]
 
     def istft_ri(self, re: torch.Tensor, im: torch.Tensor,
                  low_precision: bool = False) -> torch.Tensor:
@@ -237,7 +276,7 @@ class TorchDSP:
         b, t, _ = re.shape
         hop, k = cfg.hop_length, cfg.n_fft // cfg.hop_length
         if low_precision:
-            n0, n_live = self._live_span()
+            n0, n_live = self._live_span
             frames = self._bf16_product(torch.cat([re, im], -1), self.bf16_bases()[1])
             j0, nk = n0 // hop, n_live // hop
         else:
@@ -296,6 +335,23 @@ class TorchDSP:
             return wav
         return wav - coef * F.pad(wav, (1, 0))[:, :-1]
 
+    def _iir_tables_np(self, nb: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``inv_preemphasis``'s tables for ``nb`` blocks, float32: the
+        in-block triangle (transposed, (blk, blk)), the carries' triangle
+        (transposed, (nb, nb)) and the decay coef^(i+1), (blk,)."""
+        coef, blk = self.cfg.preemphasis, IIR_BLOCK
+        i = np.arange(blk)
+        tri = np.where(i[:, None] >= i[None, :],
+                       np.power(coef, np.maximum(i[:, None] - i[None, :], 0)), 0.0)
+        # carries: the true last sample of block m is sum_{m' <= m} a^(m-m')
+        # times the local last of block m', with a = coef ** blk
+        m = np.arange(nb)
+        with np.errstate(under="ignore"):
+            tri2 = np.where(m[:, None] >= m[None, :],
+                            np.power(coef ** blk, np.maximum(m[:, None] - m[None, :], 0)), 0.0)
+        return (tri.T.astype(np.float32), tri2.T.astype(np.float32),
+                np.power(coef, i + 1).astype(np.float32))
+
     def inv_preemphasis(self, wav: torch.Tensor) -> torch.Tensor:
         """y[t] = x[t] + coef * y[t-1], blockwise."""
         coef = self.cfg.preemphasis
@@ -305,18 +361,9 @@ class TorchDSP:
         blk = IIR_BLOCK
         nb = -(-n // blk)
         x = F.pad(wav, (0, nb * blk - n)).reshape(b, nb, blk)
-        i = np.arange(blk)
-        tri = np.where(i[:, None] >= i[None, :],
-                       np.power(coef, np.maximum(i[:, None] - i[None, :], 0)), 0.0)
-        y = x @ torch.from_numpy(tri.T.astype(np.float32)).to(wav.device)
-        # carries: the true last sample of block m is sum_{m' <= m} a^(m-m')
-        # times the local last of block m', with a = coef ** blk
-        m = np.arange(nb)
-        with np.errstate(under="ignore"):
-            tri2 = np.where(m[:, None] >= m[None, :],
-                            np.power(coef ** blk, np.maximum(m[:, None] - m[None, :], 0)), 0.0)
-        last = y[:, :, -1] @ torch.from_numpy(tri2.T.astype(np.float32)).to(wav.device)
+        tri, tri2, decay = self._cached_tables("iir", nb, wav.device, self._iir_tables_np)
+        y = x @ tri
+        last = y[:, :, -1] @ tri2
         carry = F.pad(last, (1, 0))[:, :-1]                       # into block m
-        decay = torch.from_numpy(np.power(coef, i + 1).astype(np.float32)).to(wav.device)
         y = y + carry[:, :, None] * decay
         return y.reshape(b, nb * blk)[:, :n]

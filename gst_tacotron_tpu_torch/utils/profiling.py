@@ -22,7 +22,8 @@ write it into that event's ``args`` as ``call``, and the stages of the call
 are the spans nested in it on its thread. ``count``, ``counters`` and
 ``reset_counters`` are the program's counters (bytes copied to the host,
 blocking copies, calls and steps begun, decoder steps run, train steps
-captured in a CUDA graph and replayed from one), always on, as the kernels'
+captured in a CUDA graph and replayed from one, Griffin-Lim's shape-only
+tables built and taken from their cache), always on, as the kernels'
 launch counters are.
 """
 
