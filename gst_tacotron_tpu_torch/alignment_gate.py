@@ -11,8 +11,8 @@ teacher-forced diagonality on the loader's first batch ends above
 ``GATE_THRESHOLD`` and more than ``GATE_MARGIN`` above the untrained
 model's.
 
-It runs on the card (``chip_smoke.py``'s ``alignment_gate`` phase, the
-``cuda``-marked test) unless ``device="cpu"`` is passed:
+It runs on the card (``tests/test_torch_cuda.py::test_alignment_gate_on_the_card``)
+unless ``device="cpu"`` is passed:
 
     from gst_tacotron_tpu_torch.alignment_gate import gate_failures, run_gate
     result = run_gate("/tmp/gate")

@@ -24,6 +24,10 @@ is the one value fetched (one sync a timed loop), and each iteration draws
 a fresh dropout seed. The timed loop runs ``repeats`` times; the headline is
 the median, the spread goes to ``--details``.
 
+``benchmark/`` (``python3 -m benchmark.run``) is the port's measure;
+``bench_fused``, ``bench_reference_style`` and ``vs_baseline`` stay as ports
+of the JAX bench, held to it by tests/test_torch_bench.py.
+
 ``vs_baseline`` divides by ``bench_reference_style``: the same weights driven
 as the reference drives them, one host-dispatched ``ops/decode.py::
 decode_step`` a step with its output copied to the host (the per-step cost
@@ -381,7 +385,7 @@ def wavernn_workload(cpu: bool) -> Tuple[Config, int, int]:
     """(config, rows a rank, mel frames) of the WaveRNN row: on the CPU the
     JAX child's vocoder (GRU 16, fc 16, hop 4) on 2 rows of 6 frames; on the
     card ``gst_wavernn``'s (GRU 512, fc 512, hop 256) on 32 rows of 128
-    frames, ``chip_smoke.py``'s K5 workload."""
+    frames."""
     if cpu:
         return apply_overrides(get_preset("gst_lj"), {**TINY, **CPU_VOCODER}), 2, 6
     return get_preset("gst_wavernn"), 32, 128

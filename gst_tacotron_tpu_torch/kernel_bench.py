@@ -31,8 +31,8 @@ Timings on the card are CUDA events around a run of calls after a warm-up,
 a synchronize at each end; a marginal is the difference of two loop
 lengths over their difference. The work counts (``*_work``) are the
 function's unpadded least work from its shapes (no TPU padding to 8 and
-128), each bounded by operations or by bytes (``bound``); ``chip_smoke.py``
-takes its kernel lines' bounds from them. Without a card the module exits
+128), each bounded by operations or by bytes (``bound``); the kernel table's
+bounds in ``PERF.md`` come from them. Without a card the module exits
 non-zero unless ``--device cpu`` is given; a CPU run (plain versions, host
 clock) reports ``device: "cpu"``, peaks null and no roofline share.
 ``--quick`` runs every section at a few layers and narrow widths.
@@ -356,7 +356,7 @@ DECODE_TOL = 1e-4        # tests/test_decode_pallas.py
 STFT_TOL = 5e-3          # tests/test_pallas.py, normalized dB
 REFENC_TOL = 1e-5        # tests/test_refenc_pallas.py
 REFENC_BF16_TOL = 0.05   # tests/test_refenc_pallas.py, the bf16 operand mode
-WAVERNN_GAP_TOL = 1e-3   # chip_smoke.py's score gap (greedy classes exact in JAX's test)
+WAVERNN_GAP_TOL = 1e-3   # the card tests' score gap (greedy classes exact in JAX's test)
 
 
 class Bench:
@@ -429,7 +429,8 @@ class Bench:
 
     def _decoder(self, cfg: Config, batch: int, seed: int):
         """A seeded decoder cell of ``cfg`` and its packed weights, random
-        memory of ``batch`` rows (as chip_smoke's K4 check makes it), its
+        memory of ``batch`` rows (as tests/test_torch_cuda.py's main-path K4
+        test makes it), its
         keys and full lengths."""
         from .models.decoder import DecoderCell
         from .weights import init_weights

@@ -3,8 +3,8 @@ against the JAX gate, ``tests/test_alignment_gate.py`` (loaded by path,
 unedited), on the CPU: the same config, field by field; the same corpus,
 metadata and every array bit for bit; from the JAX trainer's initial
 weights, the same untrained teacher-forced diagonality on the loader's
-first batch (1e-5). Its 800 steps run on the card (``chip_smoke.py``'s
-``alignment_gate`` phase, ``tests/test_torch_cuda.py``); here a 5-step run
+first batch (1e-5). Its 800 steps run on the card
+(``tests/test_torch_cuda.py::test_alignment_gate_on_the_card``); here a 5-step run
 shows the function runs end to end."""
 
 import importlib.util

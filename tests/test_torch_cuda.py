@@ -1,11 +1,14 @@
-"""The port's CUDA kernels against their plain versions on the card, at
-small and ragged shapes that chip_smoke.py's main-path shapes do not reach
-(tiny widths, odd lengths, length-0 rows, a frame count off the kernel's
-tile), and the STFT extractor's routes. Needs an NVIDIA GPU and nvcc;
-skipped without a card. On the GPU machine, which has no JAX
-(tests/conftest.py imports it), run:
+"""The port's CUDA kernels against their plain versions on the card: at the
+main path's shapes (B=32, 64 tokens, 128 reference frames, the configs'
+decode lengths), at small and ragged shapes (tiny widths, odd lengths,
+length-0 rows, a frame count off the kernel's tile), and the STFT
+extractor's routes. Needs an NVIDIA GPU and nvcc; skipped without a card.
+On the GPU machine, which has no JAX (tests/conftest.py imports it), run
+this module with the other card modules:
 
-    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py \
+        tests/test_torch_card_paths.py tests/test_torch_card_train.py \
+        tests/test_torch_gl_tables.py tests/test_torch_train_graph.py -q
 """
 
 import pytest
@@ -16,10 +19,16 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture(scope="module")
 def dev():
+    """The card, TF32 off, every kernel built (one nvcc a source, all at
+    once); the other card modules import this fixture."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU or interpret mode")
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.ops.build import build_all
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    build_all(ops.all_kernels())
     return torch.device("cuda", 0)
 
 
@@ -61,18 +70,24 @@ def test_gru_scan_kernel(dev, b, t, d, h, reverse):
         assert torch.equal(x, z)
 
 
-@pytest.mark.parametrize("b,t,d,h", [(33, 400, 128, 128), (3, 7, 5, 45), (2, 5, 3, 4)])
+# the main path's BiGRUs at B = 32: the encoder's (64 tokens) and the
+# post-net's (400 frames); the encoder's shape at H = 256 and 512
+@pytest.mark.parametrize("b,t,d,h", [(33, 400, 128, 128), (3, 7, 5, 45), (2, 5, 3, 4),
+                                     (32, 64, 128, 128), (32, 400, 128, 128),
+                                     (32, 64, 128, 256), (32, 64, 128, 512)])
 @pytest.mark.parametrize("with_lengths", [True, False])
 def test_bigru_scan_kernel_is_two_scans(dev, b, t, d, h, with_lengths):
     """Both directions in one launch: the bits of a forward and a reverse
-    gru_scan, and the plain version's values; without lengths every step
-    counts."""
+    gru_scan, and the plain version's values; the same bits on a second
+    run; without lengths every step counts."""
     from gst_tacotron_tpu_torch.ops.gru import KERNEL, bigru_scan, gru_scan, gru_scan_plain
 
     g = torch.Generator().manual_seed(b * t + h)
     xs = rand(g, b, t, d).to(dev)
+    # past H = 128 the recurrent weights shrink as 1/H (test_gru_scan_kernel)
+    wh_scale = 0.1 * min(1.0, 128 / h)
     fwd, bwd = ([a.to(dev) for a in (rand(g, b, h, scale=0.5), rand(g, d, 3 * h, scale=0.1),
-                                    rand(g, 3 * h, scale=0.1), rand(g, h, 3 * h, scale=0.1),
+                                    rand(g, 3 * h, scale=0.1), rand(g, h, 3 * h, scale=wh_scale),
                                     rand(g, 3 * h, scale=0.1))] for _ in range(2))
     lengths = torch.tensor(([t, 0, max(1, t // 2)] * b)[:b], device=dev) if with_lengths \
         else None
@@ -84,6 +99,9 @@ def test_bigru_scan_kernel_is_two_scans(dev, b, t, d, h, with_lengths):
     r = gru_scan(xs, *bwd, lengths=lengths, reverse=True)
     assert torch.equal(ys, torch.cat([f[0], r[0]], -1))
     assert torch.equal(f_final, f[1]) and torch.equal(b_final, r[1])
+    again, (f_again, b_again) = bigru_scan(xs, fwd, bwd, lengths=lengths)
+    assert torch.equal(ys, again) and torch.equal(f_final, f_again)
+    assert torch.equal(b_final, b_again)
     pf = gru_scan_plain(xs, *fwd, lengths=lengths)
     pr = gru_scan_plain(xs, *bwd, lengths=lengths, reverse=True)
     for x, y in zip((ys, f_final, b_final), (torch.cat([pf[0], pr[0]], -1), pf[1], pr[1])):
@@ -106,9 +124,81 @@ def test_refenc_stack_kernel(dev, t, f, channels):
     lengths = torch.tensor([t, 1, t // 2 + 1], device=dev)
     got = refenc_stack(mel, ks, sc, bi, lengths=lengths)
     ref = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths)
-    # chip_smoke.py's K2 tolerance: float32 sums over up to 9*C_in terms in
-    # another order, several layers deep
+    # K2's tolerance: float32 sums over up to 9*C_in terms in another order,
+    # several layers deep
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+# the reference encoder's six layers, as the main path runs them on a
+# (32, 128, 80) reference mel
+REFENC_CHANNELS = (32, 32, 64, 64, 128, 128)
+
+
+def device_launches(fn, name):
+    """Device-side launches of the kernels whose name holds ``name`` in one
+    call of ``fn``, from torch.profiler (profiled once more where it saw
+    none: it has lost every event of a call before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if name in e.key)
+        if n:
+            break
+    return n
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_refenc_stack_kernel_at_the_main_shape(dev, bf16):
+    """K2 on the main path's (32, 128, 80) stack, Glorot-scaled kernels,
+    ragged, full and no lengths, the same bits twice. float32: within 1e-4
+    of the plain version, also at T = 101 (off the 64-frame multiple), and
+    layers 0-2 launch at least one block an SM. The bf16 mode: the plain
+    version's bf16 rounding within 0.05 and far closer on average than to
+    float32, rows 16-31 alone give the 32-row launch's bits, and a stack
+    launches its plan's kernels, at most 2."""
+    from gst_tacotron_tpu_torch.ops.refenc import (bf16_plan, layer_plan, refenc_stack,
+                                                   refenc_stack_plain)
+
+    b, t, f = 32, 128, 80
+    g = torch.Generator().manual_seed(t + bf16)
+    ks, c_in = [], 1
+    for c in REFENC_CHANNELS:
+        lim = (6 / (9 * c_in + 9 * c)) ** 0.5
+        ks.append(((torch.rand(3, 3, c_in, c, generator=g) * 2 - 1) * lim).to(dev))
+        c_in = c
+    sc = [(torch.rand(k.shape[-1], generator=g) + 0.5).to(dev) for k in ks]
+    bi = [rand(g, k.shape[-1], scale=0.1).to(dev) for k in ks]
+    mel = torch.rand(b, t, f, generator=g).to(dev)
+    ragged = torch.randint(1, t + 1, (b,), generator=g).to(dev)
+    for lengths in (ragged, torch.full((b,), t, device=dev), None):
+        got = refenc_stack(mel, ks, sc, bi, lengths=lengths, bf16=bf16)
+        assert torch.equal(got, refenc_stack(mel, ks, sc, bi, lengths=lengths, bf16=bf16))
+        ref = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths, bf16=bf16)
+        if not bf16:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+            continue
+        f32 = refenc_stack_plain(mel, ks, sc, bi, lengths=lengths)
+        assert float((got - ref).abs().max()) < 0.05
+        assert float((got - ref).abs().mean()) < float((got - f32).abs().mean()) / 5
+        rows = None if lengths is None else lengths[b // 2:]
+        half = refenc_stack(mel[b // 2:].contiguous(), ks, sc, bi, lengths=rows, bf16=True)
+        assert torch.equal(half, got[b // 2:])
+    if bf16:
+        launches = len(bf16_plan(t, f, REFENC_CHANNELS)["launches"])
+        assert launches <= 2
+        assert device_launches(lambda: refenc_stack(mel, ks, sc, bi, bf16=True),
+                               "refenc_bf16_kernel") == launches
+        return
+    odd = mel[:, :101]
+    torch.testing.assert_close(refenc_stack(odd, ks, sc, bi), refenc_stack_plain(odd, ks, sc, bi),
+                               atol=1e-4, rtol=0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert min(p["blocks"] for p in layer_plan(b, t, f, REFENC_CHANNELS, sms)[:3]) >= sms
 
 
 @pytest.mark.parametrize("n_fft,hop,win,b,frames,normalize_linear", [
@@ -116,6 +206,7 @@ def test_refenc_stack_kernel(dev, t, f, channels):
     (512, 128, 256, 3, 21, True),
     (2048, 256, 1024, 3, 21, True),      # the configs' STFT
     (2048, 256, 1024, 2, 128, True),     # the main path's 128 frames
+    (2048, 256, 1024, 8, 128, True),     # a main-path launch: 8 wavs of 128 frames
     (2048, 256, 1024, 3, 21, False),     # the raw magnitude
     (2048, 256, 1024, 1, 128, True),     # one wav
     (1024, 256, 1024, 2, 37, True),      # log2(n_fft / 2) odd: the radix-2 stage
@@ -217,14 +308,17 @@ def test_stft_fused_kernel_bf16(dev):
 
 # n_fft 1200 (600 = 4·2·3·5·5) and 1536 (768 = 4⁴·3) run the mixed-radix
 # stages, 1026 (513 = 3³·19) the generic one, odd 1575 (3²·5²·7) the
-# unpacked real transform; 512 and 2048 radix 4 and 2 only
-MIXED_STFT = [(512, 128, 512), (1200, 300, 1200), (1536, 256, 1024), (2048, 256, 1024),
-              (1026, 342, 1000), (1575, 525, 1500)]
+# unpacked real transform; 512 and 2048 radix 4 and 2 only; 3 wavs of 37
+# frames (not a multiple of any frames a block), and a main-path launch:
+# 8 wavs of 128 frames at n_fft 2048
+MIXED_STFT = [(512, 128, 512, 3, 37), (1200, 300, 1200, 3, 37), (1536, 256, 1024, 3, 37),
+              (2048, 256, 1024, 3, 37), (1026, 342, 1000, 3, 37), (1575, 525, 1500, 3, 37),
+              (2048, 256, 1024, 8, 128)]
 
 
-@pytest.mark.parametrize("n_fft,hop,win", MIXED_STFT)
+@pytest.mark.parametrize("n_fft,hop,win,b,t", MIXED_STFT)
 @pytest.mark.parametrize("form", ["frames", "fused", "fused_bf16"])
-def test_stft_mixed_radix_kernels(dev, n_fft, hop, win, form):
+def test_stft_mixed_radix_kernels(dev, n_fft, hop, win, b, t, form):
     """K3″ and K3′ (both modes) at any n_fft: one launch a call, the plain
     version's features (bf16: the plain version's bf16 rounding, and near
     float32 on loud bins), the same bits on a second run."""
@@ -233,9 +327,8 @@ def test_stft_mixed_radix_kernels(dev, n_fft, hop, win, form):
     from gst_tacotron_tpu_torch.ops import stft
 
     cfg = AudioConfig(n_fft=n_fft, hop_length=hop, win_length=win)
-    g = torch.Generator().manual_seed(n_fft + len(form))
-    t = 37                                # not a multiple of any frames a block
-    wav = (torch.rand(3, n_fft + hop * (t - 1) + 77, generator=g) - 0.5).to(dev)
+    g = torch.Generator().manual_seed(n_fft + len(form) + t)
+    wav = (torch.rand(b, n_fft + hop * (t - 1) + 77, generator=g) - 0.5).to(dev)
     bf16 = form == "fused_bf16"
     if form == "frames":
         x = TorchDSP(cfg, dev).frame_precentered(wav).reshape(-1, n_fft).contiguous()
@@ -634,6 +727,66 @@ def test_decode_scan_phases_at_config_widths(dev, config, b, t):
         assert torch.equal(x, z)
 
 
+# the main path's decodes: 32 utterances of up to 64 tokens (one of each
+# end's length), gst_lj's 200 steps at r=2 and gst_r1_location's 1000 at
+# r=1. 1e-3: float32 sums in another order fed back through every step (the
+# last frame re-enters the prenet, and the alignment LSA's location taps)
+@pytest.mark.parametrize("config,steps", [("gst_lj", 200), ("gst_r1_location", 1000)])
+def test_decode_scan_at_the_main_paths_length(dev, config, steps):
+    """One launch a decode on the config's branch; within 1e-3 of the plain
+    version with dropout off and on (one Philox stream); with dropout every
+    value finite, the same seed the same bits, another seed another mel;
+    rows 16-31 alone at ``row0`` 16 within 1e-3 of the plain version there
+    and of those rows of the 32-row launch."""
+    import numpy as np
+
+    from gst_tacotron_tpu_torch.config import load_config
+    from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+    from gst_tacotron_tpu_torch.ops.decode import KERNEL, decode_scan, decode_scan_plain
+    from gst_tacotron_tpu_torch.weights import init_weights
+
+    m = load_config(f"configs/{config}.json").model
+    b, t = 32, 64
+    mem_dim = m.encoder.output_dim + m.gst.style_dim
+    cell = DecoderCell(m.decoder, m.attention, m.num_mels, mem_dim)
+    init_weights(cell, seed=7)
+    cell = cell.to(dev)
+    packed = cell.pack()
+    rng = np.random.default_rng(steps)
+    memory = torch.from_numpy(rng.normal(0, 0.5, (b, t, mem_dim)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        keys = cell.precompute_keys(memory).contiguous()
+    lens = rng.integers(t // 2, t + 1, b)
+    lens[0], lens[1] = t, 1
+    lengths = torch.from_numpy(lens).to(dev)
+    kw = dict(dec_cfg=m.decoder, attn_cfg=m.attention, num_mels=m.num_mels, steps=steps)
+
+    def close(got, ref):
+        for x, y in zip(got, ref):
+            torch.testing.assert_close(x, y, atol=1e-3, rtol=0)
+
+    lsa = m.attention.kind == "location_sensitive"
+    before, branch = KERNEL.launches, KERNEL.branch_launches["location_sensitive"]
+    got = decode_scan(packed, memory, keys, lengths, **kw)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert KERNEL.branch_launches["location_sensitive"] == branch + lsa
+    close(got, decode_scan_plain(packed, memory, keys, lengths, **kw))
+    drop = dict(kw, use_dropout=True)
+    d1 = decode_scan(packed, memory, keys, lengths, seed=1, **drop)
+    d2 = decode_scan(packed, memory, keys, lengths, seed=2, **drop)
+    assert all(bool(torch.isfinite(x).all()) for x in d1 + d2)
+    assert all(torch.equal(x, y) for x, y in zip(d1, decode_scan(packed, memory, keys, lengths,
+                                                                 seed=1, **drop)))
+    assert not torch.equal(d1[0], d2[0])
+    close(d1, decode_scan_plain(packed, memory, keys, lengths, seed=1, **drop))
+    half = b // 2
+    shard = (memory[half:].contiguous(), keys[half:].contiguous(), lengths[half:])
+    rows = decode_scan(packed, *shard, seed=1, row0=half, **drop)
+    close(rows, decode_scan_plain(packed, *shard, seed=1, row0=half, **drop))
+    close(rows, [x[half:] for x in d1])
+
+
 # widths off every multiple of 4 (each product input padded), two row groups
 @pytest.mark.parametrize("kind,r", [("bahdanau", 2), ("location_sensitive", 3)])
 @pytest.mark.parametrize("use_dropout", [False, True])
@@ -671,7 +824,8 @@ def test_decode_scan_phases_at_ragged_widths(dev, kind, r, use_dropout):
 def test_decode_scan_resumes_in_chunks(dev, config, b, chunk):
     """One launcher call a chunk, each resuming where the one before left the
     workspace, gives the bits of one call over the same steps, dropout on;
-    the chunked decode with early exit as well, at stop threshold 1.0."""
+    the chunked decode with early exit as well, at stop threshold 1.0 (one
+    launch a chunk, on the config's branch), and one chunk at 0.0."""
     import math
 
     import numpy as np
@@ -708,15 +862,24 @@ def test_decode_scan_resumes_in_chunks(dev, config, b, chunk):
         assert KERNEL.launches == before + math.ceil(steps / chunk)
         for x, y in zip((carry.mel, carry.stop_logits, carry.aligns), one):
             assert torch.equal(x, y)
-        before = KERNEL.launches
+        before, branch = KERNEL.launches, KERNEL.branch_launches["location_sensitive"]
         out = chunked_decode(model, memory, lengths, chunk_steps=chunk, max_steps=steps,
                              seed=9)
         torch.cuda.synchronize()
         assert out["chunks_run"] == math.ceil(steps / chunk)
         assert KERNEL.launches == before + out["chunks_run"]
+        lsa = dec.attn_cfg.kind == "location_sensitive"
+        assert KERNEL.branch_launches["location_sensitive"] == branch + lsa * out["chunks_run"]
         n = one[0].shape[1]
+        assert torch.equal(out["mel"][:, :n], one[0])
         assert torch.equal(out["stop_logits"][:, :n], one[1])
         assert torch.equal(out["alignments"][:, :steps], one[2])
+        zero = build_model(apply_overrides(cfg, {"model.decoder.stop_threshold": 0.0}),
+                           seed=b, device=dev)
+        before = KERNEL.launches
+        out = chunked_decode(zero, memory, lengths, chunk_steps=chunk, max_steps=steps, seed=9)
+        torch.cuda.synchronize()
+        assert out["chunks_run"] == 1 and KERNEL.launches == before + 1
 
 
 @pytest.mark.parametrize("b,t,c,h,bits", [(3, 5, 16, 16, 8), (2, 4, 12, 13, 5), (2, 0, 8, 8, 3),
@@ -758,6 +921,45 @@ def test_wavernn_sample_kernel(dev, b, t, c, h, bits, greedy):
         assert int(classes.min()) >= 0 and int(classes.max()) < 2 ** bits
         gaps = score_gaps(packed, cond, classes, **kw)
         assert float(gaps.max()) <= 1e-4
+
+
+def test_wavernn_sample_kernel_at_config_widths(dev):
+    """K5 at gst_wavernn's widths (GRU 512, fc 512, 256 classes, hop 256),
+    32 streams of 16 frames, held teacher-forced: greedy and sampled, every
+    class within 1e-3 of its step's best, also for rows 16-31 alone at
+    ``row0`` 16; one launch a call. Sampling is causal: on the first 4
+    frames the same seed repeats the first 4 * hop classes, another seed
+    does not."""
+    from gst_tacotron_tpu_torch.config import load_config
+    from gst_tacotron_tpu_torch.ops.wavernn import KERNEL, score_gaps, wavernn_sample
+    from gst_tacotron_tpu_torch.weights import build_wavernn
+
+    cfg = load_config("configs/gst_wavernn.json")
+    b, frames, hop = 32, 16, cfg.model.vocoder.wavernn_hop
+    model = build_wavernn(cfg, seed=3, device=dev)
+    g = torch.Generator().manual_seed(frames)
+    mel = torch.rand(b, frames, cfg.model.num_mels, generator=g).to(dev)
+    with torch.no_grad():
+        cond = model.cond_frames(mel).contiguous()
+    packed = model.pack()
+    before = KERNEL.launches
+    greedy = wavernn_sample(packed, cond, hop=hop, greedy=True)
+    sampled = wavernn_sample(packed, cond, hop=hop, seed=1)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 2
+    for c in (greedy, sampled):
+        assert c.shape == (b, frames * hop)
+        assert int(c.min()) >= 0 and int(c.max()) < model.num_classes
+    head = cond[:, :4].contiguous()
+    assert torch.equal(wavernn_sample(packed, head, hop=hop, seed=1), sampled[:, :4 * hop])
+    assert not torch.equal(wavernn_sample(packed, head, hop=hop, seed=2), sampled[:, :4 * hop])
+    half = b // 2
+    rows = wavernn_sample(packed, cond[half:].contiguous(), hop=hop, seed=1, row0=half)
+    with torch.no_grad():
+        assert float(score_gaps(packed, cond, greedy, hop=hop, greedy=True).max()) <= 1e-3
+        assert float(score_gaps(packed, cond, sampled, hop=hop, seed=1).max()) <= 1e-3
+        assert float(score_gaps(packed, cond[half:], rows, hop=hop, seed=1,
+                                row0=half).max()) <= 1e-3
 
 
 def test_kernels_at_row0_draw_the_whole_batchs_rows(dev):
@@ -873,12 +1075,36 @@ def test_alignment_gate_on_the_card(dev, tmp_path):
     """tests/test_alignment_gate.py's gate on the port's ``Trainer`` on the
     card: config 3 at the JAX gate's widths, its token-pattern corpus, 800
     steps; the trained teacher-forced diagonality above 0.85 and more than
-    0.3 above the untrained, the loss finite."""
+    0.3 above the untrained, the loss finite. Then the probe batch's tokens
+    synthesized from the trained state (GST off, stop threshold 1.0, the
+    probe's frames as the step budget, prenets deterministic): the kernel
+    path launches K1 for the two BiGRUs and K4's location-sensitive branch
+    once, the plain path nothing, and their mels agree within 2e-3."""
+    from gst_tacotron_tpu_torch import ops
     from gst_tacotron_tpu_torch.alignment_gate import GATE_STEPS, gate_failures, run_gate
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.weights import build_model
 
     res = run_gate(str(tmp_path), device=dev)
     assert res.steps == GATE_STEPS
     assert not gate_failures(res), res.summary()
+    cfg = apply_overrides(res.trainer.cfg, {"model.decoder.stop_threshold": 1.0})
+    model = build_model(cfg, seed=0, device=dev).eval()
+    model.load_state_dict(res.trainer.state.model.state_dict())
+    tok, tok_len = res.probe["tokens"].long(), res.probe["token_lengths"].long()
+    steps = res.probe["mel"].shape[1] // cfg.model.decoder.reduction_factor
+    mels, launches = [], []
+    for plain in (False, True):
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            mels.append(model.infer(tok, tok_len, max_steps=steps, deterministic_prenet=True,
+                                    seed=0, plain=plain)["mel"])
+        torch.cuda.synchronize()
+        launches.append({k: n for k, n in ops.launch_counts().items() if n})
+    assert launches == [{"gru_scan": 2, "decode_scan": 1, "decode_scan:location_sensitive": 1},
+                        {}]
+    assert bool(torch.isfinite(mels[0]).all())
+    torch.testing.assert_close(mels[0], mels[1], atol=2e-3, rtol=0)
 
 
 def test_spans_place_kernels_and_count_copies_on_the_card(dev, tmp_path, monkeypatch):

@@ -2,8 +2,8 @@
 on the port's ``Trainer`` on the CPU, at tests/test_torch_train.py's
 widths: two trainers with ``train.seed=7`` give bit-identical parameters,
 BatchNorm statistics and Adam moments after 3 steps; ``train.seed=8``
-diverges. ``chip_smoke.py``'s ``determinism`` phase holds the same on the
-card at gst_lj's published widths."""
+diverges. ``tests/test_torch_card_train.py`` holds the same on the card at
+gst_lj's published widths, with the step's CUDA graph replayed."""
 
 import pytest
 import torch

@@ -8,8 +8,8 @@ the synthesize CLI on the trainers' workdirs; the parallel subpackage: its
 mesh, sharding rules and ``DistributedSynthesizer`` on a one-rank mesh; the
 exported JAX workdir of tests/fixtures/jax_export, served and resumed; the
 Keras importer's module and the trace server; the kernel microbenchmark's
-quick CPU report), and no file of the port
-(nor chip_smoke.py) imports jax or the JAX package."""
+quick CPU report), and no file of the port (nor a card test module)
+imports jax or the JAX package."""
 
 import ast
 import os
@@ -25,8 +25,11 @@ PORT = ROOT / "gst_tacotron_tpu_torch"
 
 def _sources():
     # _build/ holds what the kernels' build writes, not sources of the port
+    # and the card test modules, which run where JAX is not installed
     return sorted(p for p in PORT.rglob("*.py")
-                  if "_build" not in p.relative_to(PORT).parts) + [ROOT / "chip_smoke.py"]
+                  if "_build" not in p.relative_to(PORT).parts) + [
+        ROOT / "tests" / name for name in ("test_torch_cuda.py", "test_torch_card_paths.py",
+                                           "test_torch_card_train.py")]
 
 
 def _imported_roots(path):

@@ -1,8 +1,8 @@
 """The port's kernel microbenchmark (``gst_tacotron_tpu_torch/kernel_bench.py``,
 the counterpart of ``tools/tpu_kernel_bench.py``): its decode FLOP count
 against the JAX tool's own function, the roofline fields, the peaks lookup,
-the work counts at the main path's shapes (the bounds ``chip_smoke.py``'s
-kernel lines report, ``PERF.md`` §6), a ``--device cpu --quick`` report, and
+the work counts at the main path's shapes (the bounds of ``PERF.md`` §6's
+kernel table), a ``--device cpu --quick`` report, and
 the refusal to run without a card."""
 
 import importlib.util
@@ -77,7 +77,7 @@ def test_card_peaks():
 
 def test_work_counts_give_the_kernel_lines_bounds():
     """At the main path's shapes (B=32, 64 tokens, 128 reference frames) the
-    counts give the bounds that PERF.md §6 records from chip_smoke.py's lines
+    counts give the bounds that PERF.md §6's kernel table records
     (the packed weight counts are the configs' own: 2004864 gst_lj, 2020480
     gst_r1_location, 2100992 for gst_wavernn's vocoder)."""
     b = 32

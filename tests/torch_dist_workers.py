@@ -6,7 +6,8 @@ only, so a child starts in seconds (a test module would import JAX).
 the CPU, each calling ``name(rank, *args)`` of this module, and returns
 their results by rank; a rank that raises fails the call with its
 traceback. With ``join=False`` the ranks join no group (the function
-starts its own: the CLIs)."""
+starts its own: the CLIs). ``card_ranks`` runs on a card that the ranks
+share (gloo, as NCCL refuses two ranks on one device)."""
 
 import multiprocessing
 import traceback
@@ -257,3 +258,80 @@ def dsynth_spans(rank, cfg, kwargs, log_dir):
     return ([(e["name"], e["ts"], e["ts"] + e["dur"], e["args"]) for e in events
              if e.get("cat") == "user_annotation" and e["name"].startswith("gst.")],
             profiling.counters())
+
+
+def card_train(cfg, device, batch, mesh=None, steps=1):
+    """The first loss of ``steps`` train steps from the seeded init on
+    ``batch`` (this rank's rows under ``mesh``) on ``device``, and the state
+    after them."""
+    from gst_tacotron_tpu_torch.parallel import place_state, shard_batch
+    from gst_tacotron_tpu_torch.train import init_state, make_optimizer, train_step
+
+    _, state = init_state(cfg, device)
+    if mesh is not None:
+        place_state(state, mesh)
+        batch = shard_batch(batch, mesh)
+    tx = make_optimizer(cfg.optimizer)
+    rows = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    losses = [float(train_step(tx, cfg, state, rows)["loss"]) for _ in range(steps)]
+    return losses[0], state
+
+
+def card_ranks(rank, cfg, cfg5, inputs, device, chunk_steps, tp_steps):
+    """On ``device``, every launch counter at 0 first: the seed-0 model's
+    ``DistributedSynthesizer`` at dp = world on the texts and reference wavs
+    of ``inputs`` (dropout on), and chunked at stop thresholds 1.0 and 0.0;
+    one train step at dp = world and ``tp_steps`` at tp = world on its batch;
+    ``cfg5``'s WaveRNN sampling its mel at dp = world -> {"mel", "chunks_run"
+    by threshold, "losses" (each run's first), "digests" (sha256 of the
+    replicated parameters and of the buffers after the tp steps),
+    "classes", "launches"}."""
+    import hashlib
+
+    from gst_tacotron_tpu_torch import ops
+    from gst_tacotron_tpu_torch.config import apply_overrides
+    from gst_tacotron_tpu_torch.models.modules import data_parallel
+    from gst_tacotron_tpu_torch.parallel import DistributedSynthesizer, make_mesh, shard_batch
+    from gst_tacotron_tpu_torch.parallel.mesh import all_gather
+    from gst_tacotron_tpu_torch.parallel.sharding import named_parameters
+    from gst_tacotron_tpu_torch.weights import build_model, build_wavernn
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    texts, wavs, batch, mel5 = inputs
+    ops.reset_launch_counts()
+    mesh = make_mesh(1)
+    out = {"mel": DistributedSynthesizer(cfg, build_model(cfg, seed=0, device=dev), mesh,
+                                         device=dev).synthesize(
+        texts, reference_wavs=wavs, seed=5)["mel"], "chunks_run": {}}
+    for t in (1.0, 0.0):
+        c = apply_overrides(cfg, {"model.decoder.stop_threshold": t})
+        out["chunks_run"][t] = DistributedSynthesizer(
+            c, build_model(c, seed=0, device=dev), mesh, device=dev).synthesize(
+            texts, reference_wavs=wavs, seed=5, chunked=True,
+            chunk_steps=chunk_steps)["chunks_run"]
+    tp_loss, tp_state = card_train(cfg, dev, batch, make_mesh(torch.distributed.get_world_size()),
+                                   steps=tp_steps)
+    out["losses"] = {"dp": card_train(cfg, dev, batch, mesh)[0], "tp": tp_loss}
+
+    def digest(tree):
+        h = hashlib.sha256()
+        for k in sorted(tree):
+            h.update(k.encode())
+            h.update(tree[k].detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out["digests"] = {
+        "params": digest({k: p for k, p in named_parameters(tp_state.model).items()
+                          if k not in tp_state.sharded}),
+        "buffers": digest(dict(tp_state.model.named_buffers()))}
+    wavernn = build_wavernn(cfg5, seed=1, device=dev)
+    local = shard_batch({"mel": torch.from_numpy(mel5).to(dev)}, mesh)["mel"]
+    with torch.no_grad(), data_parallel(wavernn, mesh.data_shard()):
+        classes = all_gather(wavernn.sample_classes(local, seed=9), mesh.data_group)
+    out["classes"] = classes.cpu().numpy()
+    torch.cuda.synchronize(dev)
+    out["launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+    return out
