@@ -40,21 +40,30 @@ import torch
 from scipy.io import wavfile
 
 from .config import Config
-from .device import resolve_device, to_numpy
+from .device import HostCopies, resolve_device
 from .dsp.device_features import DeviceFeatureExtractor
 from .dsp.torch_dsp import TorchDSP
 from .metrics import synthesis_metrics
 from .models.attention import alignment_diagonality
 from .models.tacotron import GSTTacotron
 from .text import batch_text_to_ids
-from .utils.profiling import next_call, span
+from .utils.profiling import count, next_call, span
 
 # the vocoder's seed offset from the call's seed (the JAX package's)
 VOCODER_SEED_OFFSET = 104729
+# the key under which ``__call__`` hands ``to_host`` the copies it started
+_STARTED = "_host_copies"
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _start_copies(out: Dict, copies: HostCopies) -> int:
+    """Start the host copies of ``out``'s tensors that ``copies`` lacks,
+    floating ones as float32; the bytes enqueued from the card."""
+    return copies.start({k: v.float() if v.is_floating_point() else v
+                         for k, v in out.items() if torch.is_tensor(v) and k not in copies})
 
 
 class Synthesizer:
@@ -137,14 +146,21 @@ class Synthesizer:
               ref_mel: Optional[torch.Tensor], ref_lengths: Optional[torch.Tensor],
               token_weights: Optional[torch.Tensor], speaker_ids: Optional[torch.Tensor], *,
               max_steps: int, seed: int, deterministic_prenet: bool,
-              chunk_steps: Optional[int], stop_all_reduce=None) -> Dict[str, torch.Tensor]:
+              chunk_steps: Optional[int], stop_all_reduce=None,
+              copies: Optional[HostCopies] = None) -> Dict[str, torch.Tensor]:
         """The model's ``infer`` on device inputs, then the waveform
-        (``wav``): every output on the device."""
+        (``wav``): every output on the device. Given ``copies``, the copies
+        to the host of every output but the waveform, with the alignments'
+        ``diagonality``, start before the vocoder, which they overlap
+        (counted as ``d2h_early_bytes``)."""
         out = self.model.infer(
             tok, tok_len, ref_mel, ref_lengths, token_weights, speaker_ids=speaker_ids,
             max_steps=max_steps, deterministic_prenet=deterministic_prenet, seed=seed,
             plain=self.plain, chunk_steps=chunk_steps, stop_all_reduce=stop_all_reduce,
             bf16=self.bf16)
+        if copies is not None:
+            out["diagonality"] = self._diagonality(out, tok_len)
+            count("d2h_early_bytes", _start_copies(out, copies))
         with span("gst.synth.vocoder"):
             if self._inline_gl:
                 out["wav"] = self.dsp.inv_linear_spectrogram(out["linear"].float())
@@ -153,16 +169,27 @@ class Synthesizer:
                                           plain=self.plain)
         return out
 
+    def _diagonality(self, out: Dict[str, torch.Tensor], tok_len: torch.Tensor
+                     ) -> torch.Tensor:
+        r = self.cfg.model.decoder.reduction_factor
+        return alignment_diagonality(out["alignments"], tok_len,
+                                     torch.clamp(out["frame_lengths"] // r, min=1))
+
     def to_host(self, out: Dict[str, torch.Tensor], tok_len: torch.Tensor
                 ) -> Dict[str, np.ndarray]:
         """Outputs -> host arrays, with the alignments' diagonality and the
-        waveforms' lengths. Each copy from the card is counted
-        (``d2h_bytes``, ``host_syncs``)."""
-        r = self.cfg.model.decoder.reduction_factor
-        out["diagonality"] = alignment_diagonality(
-            out["alignments"], tok_len, torch.clamp(out["frame_lengths"] // r, min=1))
-        result = {k: to_numpy(v.float() if v.is_floating_point() else v)
-                  if torch.is_tensor(v) else v for k, v in out.items()}
+        waveforms' lengths. The copies ``__call__`` started before the
+        vocoder are joined by the rest, and the host waits once for all of
+        them (``device.HostCopies``; ``d2h_bytes``, ``host_syncs``)."""
+        copies = out.pop(_STARTED, None)
+        if copies is None:
+            copies = HostCopies()
+        if "diagonality" not in out:
+            out["diagonality"] = self._diagonality(out, tok_len)
+        _start_copies(out, copies)
+        arrays = copies.wait()
+        result = {k: arrays.get(k, v) for k, v in out.items() if k != "diagonality"}
+        result["diagonality"] = arrays["diagonality"]
         result["wav_lengths"] = result["frame_lengths"] * self.cfg.audio.hop_length
         return result
 
@@ -189,10 +216,12 @@ class Synthesizer:
                     None if host[k] is None else torch.from_numpy(host[k]).to(dev)
                     for k in ("tokens", "token_lengths", "token_weights", "speaker_ids"))
             with span("gst.synth.infer"):
+                copies = HostCopies()
                 out = self.infer(tok, tok_len, ref_mel, ref_lengths, weights, spk,
                                  max_steps=max_steps or cfg.model.decoder.max_decode_steps,
                                  seed=seed, deterministic_prenet=self.deterministic_prenet,
-                                 chunk_steps=self.chunk_steps)
+                                 chunk_steps=self.chunk_steps, copies=copies)
+                out[_STARTED] = copies
             with span("gst.synth.to_host"):
                 return self.to_host(out, tok_len)
 
