@@ -3,6 +3,11 @@
 A copy of ``gst_tacotron_tpu/config.py`` (the port imports nothing of the JAX
 package): the same dataclasses, JSON load, dotted-path overrides and five
 presets, so one config file drives both packages and gives the same dict.
+
+Beyond the JAX package (``PORT_ONLY``): the keys that select Tacotron 2's
+modules (``model.encoder.rnn``, ``model.decoder.kind``, ``model.postnet.kind``
+and the conv post-net's sizes), whose defaults are the modules every JAX
+configuration runs, and the preset ``gst_taco2`` that sets them.
 """
 
 from __future__ import annotations
@@ -68,10 +73,13 @@ class EncoderConfig:
     """Text encoder (SURVEY.md §2.1 "CBHG", "Tacotron-1 encoder").
 
     kind selects the reference's Taco_Version switch: "taco1" (prenet+CBHG)
-    or "taco2" (conv stack + BiGRU).
+    or "taco2" (conv stack + BiGRU). rnn is the taco2 stack's recurrent
+    layer: "gru" (the JAX package's BiGRU) or "lstm" (Tacotron 2's BiLSTM),
+    ``cbhg_gru_dim`` units a direction either way.
     """
 
     kind: str = "taco1"
+    rnn: str = "gru"
     embedding_dim: int = 256
     prenet_dims: Tuple[int, ...] = (256, 128)
     prenet_dropout: float = 0.5
@@ -119,8 +127,15 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class DecoderConfig:
-    """Autoregressive decoder (SURVEY.md §2.1 "Autoregressive decoder")."""
+    """Autoregressive decoder (SURVEY.md §2.1 "Autoregressive decoder").
 
+    kind "taco1": an attention GRU, an input projection and
+    ``num_decoder_rnn_layers`` residual GRUs; "taco2": Tacotron 2's attention
+    LSTM over [prenet ; context] and one decoder LSTM over [attention
+    state ; context] (``num_decoder_rnn_layers`` is not read).
+    """
+
+    kind: str = "taco1"
     prenet_dims: Tuple[int, ...] = (256, 128)
     prenet_dropout: float = 0.5
     attention_rnn_dim: int = 256
@@ -134,8 +149,15 @@ class DecoderConfig:
 
 @dataclass(frozen=True)
 class PostnetConfig:
-    """Post-CBHG mel->linear (SURVEY.md §2.1 "Post-net")."""
+    """Post-net. kind "cbhg": Post-CBHG mel->linear (SURVEY.md §2.1
+    "Post-net"); "conv": Tacotron 2's ``conv_layers`` x (conv1d of
+    ``conv_kernel_size`` taps, ``conv_channels`` wide, BatchNorm, tanh but
+    the last) to a mel residual added to the decoder's mel."""
 
+    kind: str = "cbhg"
+    conv_channels: int = 512
+    conv_layers: int = 5
+    conv_kernel_size: int = 5
     cbhg_bank_k: int = 8
     cbhg_bank_channels: int = 128
     cbhg_proj_channels: Tuple[int, ...] = (256, 80)
@@ -385,7 +407,7 @@ def parse_cli_overrides(args: list[str]) -> dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# Presets: the five driver configs (BASELINE.json:7-11)
+# Presets: the five driver configs (BASELINE.json:7-11) and Tacotron 2
 # ---------------------------------------------------------------------------
 
 
@@ -457,12 +479,71 @@ def preset_gst_wavernn() -> Config:
     return apply_overrides(cfg, {"name": "gst_wavernn", "model.vocoder.kind": "wavernn"})
 
 
+def preset_gst_taco2() -> Config:
+    """Tacotron 2 at NVIDIA's published widths (github.com/NVIDIA/tacotron2
+    hparams.py) with GST as in Mellotron: a 512-wide conv encoder and
+    BiLSTM, location-sensitive attention of 128, 1024-unit attention and
+    decoder LSTMs, r=1, the 5-layer conv post-net, Griffin-Lim from the
+    pseudo-inverse of the mel basis. Not a JAX preset."""
+    cfg = preset_gst_lj()
+    return apply_overrides(
+        cfg,
+        {
+            "name": "gst_taco2",
+            "model.encoder.kind": "taco2",
+            "model.encoder.rnn": "lstm",
+            "model.encoder.embedding_dim": 512,
+            "model.encoder.cbhg_gru_dim": 256,
+            "model.attention.kind": "location_sensitive",
+            "model.attention.dim": 128,
+            "model.decoder.kind": "taco2",
+            "model.decoder.prenet_dims": [256, 256],
+            "model.decoder.attention_rnn_dim": 1024,
+            "model.decoder.decoder_rnn_dim": 1024,
+            "model.decoder.num_decoder_rnn_layers": 1,
+            "model.decoder.reduction_factor": 1,
+            "model.decoder.max_decode_steps": 1000,
+            "model.postnet.kind": "conv",
+        },
+    )
+
+
+# the keys the JAX package lacks, at the values every JAX configuration means
+PORT_ONLY = {
+    "model.encoder.rnn": "gru",
+    "model.decoder.kind": "taco1",
+    "model.postnet.kind": "cbhg",
+    "model.postnet.conv_channels": 512,
+    "model.postnet.conv_layers": 5,
+    "model.postnet.conv_kernel_size": 5,
+}
+# the presets the JAX package lacks
+PORT_ONLY_PRESETS = ("gst_taco2",)
+
+
+def to_jax_dict(cfg: Config) -> dict:
+    """``to_dict(cfg)`` without the keys the JAX package lacks: the dict the
+    JAX package's ``to_dict`` gives for the same configuration. Raises
+    ValueError where one of those keys selects a module the JAX package
+    does not have."""
+    data = to_dict(cfg)
+    for path, default in PORT_ONLY.items():
+        *parents, leaf = path.split(".")
+        node = data
+        for p in parents:
+            node = node[p]
+        if node.pop(leaf) != default:
+            raise ValueError(f"{path} is not {default!r}: the JAX package has no such module")
+    return data
+
+
 PRESETS = {
     "taco1_lj": preset_taco1_lj,
     "gst_lj": preset_gst_lj,
     "gst_r1_location": preset_gst_r1_location,
     "gst_multispeaker": preset_gst_multispeaker,
     "gst_wavernn": preset_gst_wavernn,
+    "gst_taco2": preset_gst_taco2,
 }
 
 

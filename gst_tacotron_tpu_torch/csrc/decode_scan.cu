@@ -1,9 +1,11 @@
 // K4 — the whole fixed-length autoregressive decode (Bahdanau or
-// location-sensitive attention), all rows of the batch stepping together,
-// as nine ordinary phase launches a step over the whole card.
+// location-sensitive attention; GRU or, Tacotron 2's, LSTM cells), all rows
+// of the batch stepping together, as ordinary phase launches a step over the
+// whole card.
 //
 // Replaces: gst_tacotron_tpu/ops/decode_pallas.py::decode_scan_pallas
-//           (kernel _decode_kernel), both branches.
+//           (kernel _decode_kernel), both branches. The LSTM branch has no
+//           TPU counterpart.
 //
 // Each step, per utterance: prenet (2 x dense + ReLU, optional inverted
 // dropout) of the last frame -> attention GRU over [prenet ; context] ->
@@ -69,6 +71,24 @@
 // cooperative launch and no grid barrier: the launch boundaries order the
 // phases.
 //
+// The LSTM branch (Tacotron 2; cell 1 in the header): prenet -> attention
+// LSTM over [prenet ; context] -> the same attention -> decoder LSTM over
+// [h_attn ; context] -> frame and stop of [h_dec ; context]. An LSTM unit's
+// gates are i, f, g, o; c' = sig(f) c + sig(i) tanh(g), h' = sig(o) tanh(c').
+// Each LSTM's input and recurrent rows are one packed matrix and its two
+// biases one sum, so a unit's pre-activation is [x ; h] @ W + b:
+//   P3  attention LSTM: p2 @ awi[prenet rows] plus the state product; a CTA
+//       owns units and so the i, f, g and o columns of each
+//   P7  decoder LSTM: [h_attn ; ctx] @ dwi[those rows] plus its state
+//       product, beside the attention LSTM's state product [ctx ; h_attn]
+//       @ awi[the rest] + abi (ctx is final after P5, h_attn after P3)
+//   P9  frame and stop, beside the decoder LSTM's state product h_dec @
+//       dwi[h_dec rows] + dbi
+// P6 and P8 do not launch. At the cell's width (B=32, T=192, memory 768,
+// LSTMs of 1024, attention 128, r=1, 1000 steps) the packed weights are
+// about 81 MB, past the card's 50 MB L2: a step streams them from HBM
+// (about 24 us at 3.35 TB/s), and a step is about 44 MFLOP a row.
+//
 // Resuming (the chunked decode): a call runs steps [step0, step0 + nsteps)
 // of a decode of S steps, S the row stride of the outputs (B, S * r, M),
 // (B, S * r) and (B, S, T). The first call (prepared 0) zeroes the state,
@@ -83,17 +103,17 @@
 #define DEC_THREADS 256
 #define DEC_WARPS (DEC_THREADS / 32)
 #define DEC_ROWS 32   // rows a CTA: a row group
-#define NHDR 17       // ops/decode.py::decode_launch_ints, in order
-#define NBUF 18
-#define NPROD 12
+#define NHDR 19       // ops/decode.py::decode_launch_ints, in order
+#define NBUF 23
+#define NPROD 12      // the most products a branch has
 #define PROD_INTS 14
 
 // the workspace's state buffers (ops/decode.py BUFFERS)
 enum Buf { H_ATTN, H_D1, H_D2, CTX, P1B, P2B, LAST, HDEC0, HDEC1, HDEC2, GHA, GXC, GH1, GH2,
-           PREV, CUM, PART, KEYS_T };
-// the products (ops/decode.py::decode_products)
+           PREV, CUM, PART, KEYS_T, C_ATTN, H_DEC, C_DEC, GSA, GSD };
+// the products (ops/decode.py::KINDS)
 enum Kind { K_PRE1, K_GHA, K_GXC, K_GH1, K_GH2, K_PRE2, K_ATTN, K_QUERY, K_DEC, K_G1, K_G2,
-            K_OUT };
+            K_OUT, K_LATTN, K_GSA, K_LDEC, K_GSD };
 
 struct DecodeWeights {
   const float *pw1, *pb1, *pw2, *pb2;
@@ -107,7 +127,7 @@ struct DecodeWeights {
 
 struct DecodeDims {
   int B, T, S, r, NM, P1, P2, Ha, A, Hd, Md, loc_k, loc_c;
-  int chunks, slice_w, slices, state_floats;
+  int chunks, slice_w, slices, state_floats, cell, nprod;
 };
 
 struct State {
@@ -247,15 +267,16 @@ struct EpiIn {
   float a[8];
 };
 
-// A CTA's job: quads q0 .. q0 + nq - 1 of product p (each gate of a GRU unit
-// quad) for rows row0 .. row0 + nr - 1. The tiles go round the warps; with
-// fewer tiles than warps, ks warps split each tile's k and their sums are
-// added in warp order. For each output: in = load(b, j) first, then
-// emit(b, j, v[gates], in).
-template <class Load, class Emit>
+// A CTA's job: quads q0 .. q0 + nq - 1 of product p (each gate of a GRU or
+// LSTM unit quad) for rows row0 .. row0 + nr - 1. The tiles go round the
+// warps; with fewer tiles than warps, ks warps split each tile's k and their
+// sums are added in warp order. For each output: in = load(b, j) first, then
+// emit(b, j, v[gates], in). GMAX is the most gates the launch's products
+// have: 3 (GRU) or 4 (LSTM).
+template <int GMAX, class Load, class Emit>
 __device__ __forceinline__ void cta_products(const Prod& p, int q0, int nq, int row0, int nr,
                                              int B, Load load, Emit emit) {
-  __shared__ float red[DEC_WARPS][3][32];
+  __shared__ float red[DEC_WARPS][GMAX][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rsub = (nr + 7) >> 3, tiles = nq * rsub;
   const int ks = max(1, DEC_WARPS / tiles), per = DEC_WARPS / ks;
@@ -268,20 +289,20 @@ __device__ __forceinline__ void cta_products(const Prod& p, int q0, int nq, int 
     EpiIn in;
     if (out) in = load(b, j);
     if (live) {
-      float r[3];
-      if (p.gates == 3)
-        warp_tile<3>(p, q, b0, B, part, ks, r);
+      float r[GMAX];
+      if (p.gates == GMAX)
+        warp_tile<GMAX>(p, q, b0, B, part, ks, r);
       else
         warp_tile<1>(p, q, b0, B, part, ks, r);
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
+      for (int g = 0; g < GMAX; ++g)
         if (g < p.gates) red[warp][g][lane] = r[g];
     }
     __syncthreads();
     if (out) {
-      float v[3] = {0.0f, 0.0f, 0.0f};
+      float v[GMAX] = {};
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
+      for (int g = 0; g < GMAX; ++g)
         if (g < p.gates)
           for (int u = 0; u < ks; ++u) v[g] += red[warp + u][g][lane];
       emit(b, j, v, in);
@@ -342,8 +363,33 @@ __device__ __forceinline__ EpiIn epi_load(const Ctx& c, int kind, int b, int j) 
     case K_OUT:
       e.a[0] = w.fb[j];
       break;
+    case K_GSA:
+    case K_GSD: {
+      const float* bias = kind == K_GSA ? w.abi : w.dbi;
+      const int H = kind == K_GSA ? d.Ha : d.Hd;
+      for (int g = 0; g < 4; ++g) e.a[g] = bias[g * H + j];
+      break;
+    }
+    case K_LATTN:
+    case K_LDEC: {
+      const bool att = kind == K_LATTN;
+      const int H4 = ((att ? d.Ha : d.Hd) + 3) & ~3;
+      const int gs = att ? GSA : GSD, cb = att ? C_ATTN : C_DEC;
+      const float* st = s.buf[gs] + (size_t)b * s.ld[gs];
+      for (int g = 0; g < 4; ++g) e.a[g] = st[g * H4 + j];
+      e.a[4] = s.buf[cb][(size_t)b * s.ld[cb] + j];
+      break;
+    }
   }
   return e;
+}
+
+// One LSTM unit (gate order i, f, g, o): the new (h, c) from its summed
+// pre-activations and its cell state.
+__device__ __forceinline__ void lstm_update(float gi, float gf, float gg, float go, float c,
+                                            float& h_out, float& c_out) {
+  c_out = sigmoidf_(gf) * c + sigmoidf_(gi) * tanhf(gg);
+  h_out = sigmoidf_(go) * tanhf(c_out);
 }
 
 // What each product does with output (b, j): its sums v and operands e.
@@ -397,19 +443,38 @@ __device__ __forceinline__ void epilogue(const Ctx& c, int kind, int b, int j, c
       }
       break;
     }
+    case K_GSA:
+    case K_GSD: {
+      const int buf = kind == K_GSA ? GSA : GSD;
+      const int H4 = ((kind == K_GSA ? d.Ha : d.Hd) + 3) & ~3;
+      float* out = s.buf[buf] + (size_t)b * s.ld[buf];
+      for (int g = 0; g < 4; ++g) out[g * H4 + j] = v[g] + e.a[g];
+      break;
+    }
+    case K_LATTN:
+    case K_LDEC: {
+      const bool att = kind == K_LATTN;
+      const int hb = att ? H_ATTN : H_DEC, cb = att ? C_ATTN : C_DEC;
+      float h, cn;
+      lstm_update(v[0] + e.a[0], v[1] + e.a[1], v[2] + e.a[2], v[3] + e.a[3], e.a[4], h, cn);
+      s.buf[hb][(size_t)b * s.ld[hb] + j] = h;
+      s.buf[cb][(size_t)b * s.ld[cb] + j] = cn;
+      break;
+    }
   }
 }
 
 // P1, P2, P3, P6, P7, P8, P9: the phase's products, one job a CTA (the
-// products' CTAs in order along grid.x), a row group on grid.y.
-template <int PH>
+// products' CTAs in order along grid.x), a row group on grid.y; GMAX as
+// cta_products takes it.
+template <int PH, int GMAX>
 __global__ void __launch_bounds__(DEC_THREADS) decode_phase(Phase ph, Ctx c) {
   int cta = blockIdx.x, i = 0;
   while (i + 1 < ph.n && cta >= ph.p[i].ncta) cta -= ph.p[i++].ncta;
   const Prod p = ph.p[i];
   const int q0 = cta * p.qpc, nq = min(p.qpc, p.n4 / 4 - q0);
   const int row0 = blockIdx.y * DEC_ROWS, nr = min(DEC_ROWS, c.d.B - row0);
-  cta_products(
+  cta_products<GMAX>(
       p, q0, nq, row0, nr, c.d.B, [&](int b, int j) { return epi_load(c, p.kind, b, j); },
       [&](int b, int j, const float* v, const EpiIn& e) { epilogue(c, p.kind, b, j, v, e); });
 }
@@ -440,7 +505,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_scores(Prod p, Ctx c) {
     const int a = 4 * q0 + i;
     vs[i] = a < d.A ? c.w.vvec[a] : 0.0f;
   }
-  cta_products(
+  cta_products<3>(
       p, q0, nq, row0, nr, d.B, [](int, int) { return EpiIn(); },
       [&](int b, int j, const float* v, const EpiIn&) { qs[(b - row0) * nas + j - 4 * q0] = v[0]; });
 
@@ -566,15 +631,19 @@ __global__ void decode_prep(Ctx c, const float* __restrict__ keys) {
   }
   for (size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x; b < (size_t)d.B; b += stride)
     c.s.buf[PREV][b * d.T] = 1.0f;
-  // the state products of the zero state: their biases
-  const int bufs[4] = {GHA, GXC, GH1, GH2};
-  const float* bias[4] = {c.w.abh, c.w.abi, c.w.g1bh, c.w.g2bh};
-  for (int k = 0; k < 4; ++k) {
-    const int H = k < 2 ? d.Ha : d.Hd, H4 = (H + 3) & ~3;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)d.B * 3 * H;
+  // the state products of the zero state: their biases (GRU: 3 gates of
+  // four products; LSTM: 4 gates of two)
+  const bool lstm = d.cell == 1;
+  const int nk = lstm ? 2 : 4, G = lstm ? 4 : 3;
+  const int bufs[4] = {lstm ? GSA : GHA, lstm ? GSD : GXC, GH1, GH2};
+  const float* bias[4] = {lstm ? c.w.abi : c.w.abh, lstm ? c.w.dbi : c.w.abi, c.w.g1bh,
+                          c.w.g2bh};
+  for (int k = 0; k < nk; ++k) {
+    const int H = (lstm ? k == 0 : k < 2) ? d.Ha : d.Hd, H4 = (H + 3) & ~3;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)d.B * G * H;
          i += stride) {
-      const size_t b = i / (3 * H);
-      const int gj = (int)(i - b * 3 * H), g = gj / H, j = gj - g * H;
+      const size_t b = i / (G * H);
+      const int gj = (int)(i - b * G * H), g = gj / H, j = gj - g * H;
       c.s.buf[bufs[k]][b * c.s.ld[bufs[k]] + g * H4 + j] = bias[k][gj];
     }
   }
@@ -644,8 +713,9 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
     decode_prep<<<264, 256, 0, stream>>>(c, keys);
   }
 
+  if (d.nprod < 1 || d.nprod > NPROD) return (int)cudaErrorInvalidValue;
   Phase ph[10] = {};
-  for (int k = 0; k < NPROD; ++k) {
+  for (int k = 0; k < d.nprod; ++k) {
     const int* q = dims + NHDR + 2 * NBUF + k * PROD_INTS;
     Prod p;
     p.kind = q[0];
@@ -681,17 +751,31 @@ extern "C" int decode_scan_launch(const float* memory, const float* keys,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const dim3 blk(DEC_THREADS);
+  if (d.cell == 1) {
+    for (int step = step0; step < step0 + nsteps; ++step) {
+      c.step = step;
+      decode_phase<1, 3><<<dim3(grid[1], groups), blk, 0, stream>>>(ph[1], c);
+      decode_phase<2, 3><<<dim3(grid[2], groups), blk, 0, stream>>>(ph[2], c);
+      decode_phase<3, 4><<<dim3(grid[3], groups), blk, 0, stream>>>(ph[3], c);
+      decode_scores<<<dim3(grid[4], groups), blk, smem_scores, stream>>>(ph[4].p[0], c);
+      decode_attend<<<dim3(d.slices, B), blk, smem_attend, stream>>>(c);
+      decode_phase<7, 4><<<dim3(grid[7], groups), blk, 0, stream>>>(ph[7], c);
+      decode_phase<9, 4><<<dim3(grid[9], groups), blk, 0, stream>>>(ph[9], c);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
   for (int step = step0; step < step0 + nsteps; ++step) {
     c.step = step;
-    decode_phase<1><<<dim3(grid[1], groups), blk, 0, stream>>>(ph[1], c);
-    decode_phase<2><<<dim3(grid[2], groups), blk, 0, stream>>>(ph[2], c);
-    decode_phase<3><<<dim3(grid[3], groups), blk, 0, stream>>>(ph[3], c);
+    decode_phase<1, 3><<<dim3(grid[1], groups), blk, 0, stream>>>(ph[1], c);
+    decode_phase<2, 3><<<dim3(grid[2], groups), blk, 0, stream>>>(ph[2], c);
+    decode_phase<3, 3><<<dim3(grid[3], groups), blk, 0, stream>>>(ph[3], c);
     decode_scores<<<dim3(grid[4], groups), blk, smem_scores, stream>>>(ph[4].p[0], c);
     decode_attend<<<dim3(d.slices, B), blk, smem_attend, stream>>>(c);
-    decode_phase<6><<<dim3(grid[6], groups), blk, 0, stream>>>(ph[6], c);
-    decode_phase<7><<<dim3(grid[7], groups), blk, 0, stream>>>(ph[7], c);
-    decode_phase<8><<<dim3(grid[8], groups), blk, 0, stream>>>(ph[8], c);
-    decode_phase<9><<<dim3(grid[9], groups), blk, 0, stream>>>(ph[9], c);
+    decode_phase<6, 3><<<dim3(grid[6], groups), blk, 0, stream>>>(ph[6], c);
+    decode_phase<7, 3><<<dim3(grid[7], groups), blk, 0, stream>>>(ph[7], c);
+    decode_phase<8, 3><<<dim3(grid[8], groups), blk, 0, stream>>>(ph[8], c);
+    decode_phase<9, 3><<<dim3(grid[9], groups), blk, 0, stream>>>(ph[9], c);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;

@@ -12,6 +12,11 @@ inverse is float32 either way. The inverse preemphasis IIR runs blockwise: a
 lower-triangular product inside each block, then the carries across blocks
 as a second triangular product.
 
+``mel_to_linear`` is Tacotron 2's way back from a mel (Rayhane-mamah's
+``inv_mel_spectrogram``): the mel basis's pseudo-inverse over the amplitudes,
+floored at 1e-10, before Griffin-Lim's power and iterations
+(``inv_amplitude``).
+
 The tables that depend only on the config and a length (the window-square
 norm of ``istft_ri`` by frame count, and the inverse preemphasis's three
 tables by padded block count) are built on the host once per length and
@@ -118,6 +123,7 @@ class TorchDSP:
             cfg.mel_fmax)).to(self.device)                     # (M, F)
         self._winsq = win * win
         self._bf16_bases = None
+        self._mel_pinv: Optional[torch.Tensor] = None
         # (n0, n_live): the first sample and the count of the padded
         # window's live hop-chunks (JaxDSP's tap_j0 * hop and its span)
         j0, _, n_live = live_tap_span(cfg)
@@ -324,7 +330,27 @@ class TorchDSP:
         """Normalized linear spectrogram (B, T, F) -> waveform (B, S)."""
         cfg = self.cfg
         s = db_to_amp(denormalize_db(spect, cfg) + cfg.ref_level_db)
-        return self.inv_preemphasis(self.griffin_lim(s ** cfg.griffin_lim_power, generator))
+        return self.inv_amplitude(s, generator)
+
+    def inv_amplitude(self, amp: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Linear amplitudes (B, T, F) -> waveform (B, S): Griffin-Lim on
+        their ``griffin_lim_power``, then the inverse preemphasis."""
+        return self.inv_preemphasis(self.griffin_lim(amp ** self.cfg.griffin_lim_power,
+                                                     generator))
+
+    def mel_to_linear(self, mel: torch.Tensor) -> torch.Tensor:
+        """Normalized mel (B, T, M) -> linear amplitudes (B, T, F): the
+        amplitudes of the denormalized dB through the mel basis's
+        pseudo-inverse (float64 ``np.linalg.pinv``, kept in float32),
+        floored at 1e-10."""
+        cfg = self.cfg
+        if self._mel_pinv is None:
+            basis = self.mel_basis.double().cpu().numpy()
+            self._mel_pinv = torch.from_numpy(
+                np.ascontiguousarray(np.linalg.pinv(basis).T).astype(np.float32)).to(self.device)
+        amp = db_to_amp(denormalize_db(mel, cfg) + cfg.ref_level_db)
+        return torch.clamp(amp @ self._mel_pinv, min=1e-10)
 
     # -- preemphasis --------------------------------------------------------
 

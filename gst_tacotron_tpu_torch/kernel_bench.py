@@ -24,6 +24,9 @@ to record which kernels served it:
                library of the stack; marginals; the floor analysis; parity;
   lsa_decode   gst_r1_location, B=8, 1000 steps (K4's location-sensitive
                branch), both roofline views;
+  lstm_decode  gst_taco2 at its cell's shapes, B=32, 192 memory positions,
+               1000 steps (K4's LSTM branch, Tacotron 2's 1024-unit LSTMs):
+               kernel and plain ms, µs a step, roofline, parity over 50 steps;
   wavernn      4, 16 and 32 streams of 24 frames (K5): µs a sample step,
                samples a second, real-time factor.
 
@@ -181,6 +184,41 @@ def decode_scan_work(cfg: Config, batch: int, t_mem: int, steps: int, n_weights:
     nbytes = 4.0 * (n_weights + batch * t_mem * (enc + m.attention.dim) + batch
                     + batch * steps * r * (m.num_mels + 1) + batch * steps * t_mem)
     return Work(float(steps * decode_step_flops(cfg, batch, t_mem, dense_band)), nbytes)
+
+
+# operations a unit and step that carry an LSTM's cell state besides its
+# gates' products: f * c, i * g, their sum, o * tanh(c')
+LSTM_CELL_OPS = 4
+
+
+def lstm_decode_step_flops(cfg: Config, batch: int, t_mem: int) -> float:
+    """FLOPs of one step of K4's LSTM branch (Tacotron 2's decoder): the
+    prenet, the attention LSTM's four gates over [prenet ; context ; h], the
+    query, the scores and the location term as its band's folded taps, the
+    context, the decoder LSTM's gates over [h_attn ; context ; h], the frame
+    and stop projection, and each LSTM unit's cell arithmetic."""
+    d, a, m = cfg.model.decoder, cfg.model.attention, cfg.model.num_mels
+    r = d.reduction_factor
+    enc = cfg.model.encoder.output_dim + (cfg.model.gst.style_dim if cfg.model.gst.enabled
+                                          else 0)
+    p1, p2 = d.prenet_dims
+    ha, hd = d.attention_rnn_dim, d.decoder_rnn_dim
+    c = 2 if a.cumulative else 1
+    mm = m * p1 + p1 * p2
+    mm += (p2 + enc + ha) * 4 * ha
+    mm += ha * a.dim + t_mem * a.dim
+    mm += c * t_mem * min(a.location_kernel_size, t_mem) * a.dim
+    mm += t_mem * enc
+    mm += (ha + enc + hd) * 4 * hd
+    mm += (hd + enc) * (r * m + r)
+    return 2.0 * batch * mm + LSTM_CELL_OPS * batch * (ha + hd)
+
+
+def lstm_decode_scan_work(cfg: Config, batch: int, t_mem: int, steps: int,
+                          n_weights: int) -> Work:
+    """K4's LSTM branch: ``steps`` steps; bytes as ``decode_scan_work``'s."""
+    nbytes = decode_scan_work(cfg, batch, t_mem, steps, n_weights).bytes
+    return Work(steps * lstm_decode_step_flops(cfg, batch, t_mem), nbytes)
 
 
 def gru_scan_work(batch: int, t: int, d: int, h: int, directions: int = 1) -> Work:
@@ -344,11 +382,11 @@ SHAPES = {
     "full": dict(text=64, marginal_steps=(1000, 2000), stft_frames=1024, route_batch=8,
                  route_frames=512, stft_cycles=8, stft_loops=(4, 34), refenc=(8, 256),
                  refenc_loops=(2, 10), lsa_steps=1000, streams=(4, 16, 32),
-                 wavernn_frames=24, iters=10),
+                 wavernn_frames=24, iters=10, lstm=(32, 192, 1000, 50)),
     "quick": dict(text=8, marginal_steps=(4, 8), stft_frames=16, route_batch=2,
                   route_frames=8, stft_cycles=2, stft_loops=(1, 3), refenc=(2, 64),
                   refenc_loops=(1, 2), lsa_steps=6, streams=(1, 2), wavernn_frames=2,
-                  iters=1),
+                  iters=1, lstm=(2, 8, 6, 3)),
 }
 
 # the JAX package's kernel-test tolerances (ROADMAP.md, "Each tuning PR keeps")
@@ -373,6 +411,7 @@ class Bench:
             **over, "model.decoder.max_decode_steps": steps,
             "model.decoder.stop_threshold": 1.0})
         self.cfg3 = apply_overrides(get_preset("gst_r1_location"), over)
+        self.cfg_taco2 = apply_overrides(get_preset("gst_taco2"), over)
         if dev.type == "cuda":
             card = card_line()
             self.peaks = card_peaks(card.split(",")[0].strip())
@@ -427,21 +466,21 @@ class Bench:
 
     # -- decode (K4) --------------------------------------------------------
 
-    def _decoder(self, cfg: Config, batch: int, seed: int):
-        """A seeded decoder cell of ``cfg`` and its packed weights, random
-        memory of ``batch`` rows (as tests/test_torch_cuda.py's main-path K4
-        test makes it), its
-        keys and full lengths."""
-        from .models.decoder import DecoderCell
+    def _decoder(self, cfg: Config, batch: int, seed: int, t: Optional[int] = None):
+        """A seeded decoder cell of ``cfg`` (its ``decoder.kind``) and its
+        packed weights, random memory of ``batch`` rows of ``t`` positions
+        (the shape's text by default; as tests/test_torch_cuda.py's main-path
+        K4 test makes it), its keys and full lengths."""
+        from .models.decoder import CELLS
         from .weights import init_weights
 
         m = cfg.model
         mem_dim = m.encoder.output_dim + m.gst.style_dim
-        cell = DecoderCell(m.decoder, m.attention, m.num_mels, mem_dim)
+        cell = CELLS[m.decoder.kind](m.decoder, m.attention, m.num_mels, mem_dim)
         init_weights(cell, seed=seed)
         cell = cell.to(self.dev)
         packed = cell.pack()
-        t = self.shape["text"]
+        t = t or self.shape["text"]
         memory = self.t32(self.rng.normal(0, 0.5, (batch, t, mem_dim)))
         with torch.no_grad():
             keys = cell.precompute_keys(memory).contiguous()
@@ -504,6 +543,26 @@ class Bench:
         r["lsa_decode_parity_max_err"] = self.check(
             "lsa_decode", "kernel_vs_plain_mel", max_err(kernel(steps)[0], plain(steps)[0]),
             DECODE_TOL, "tests/test_decode_pallas.py's tolerance")
+
+    def lstm_decode(self) -> None:
+        cfg, r = self.cfg_taco2, self.report
+        b, t, steps, parity_steps = self.shape["lstm"]
+        packed, memory, keys, lengths = self._decoder(cfg, b, seed=9, t=t)
+        kernel, plain = self._decode_fns(cfg, packed, memory, keys, lengths)
+        dt_k = self.time(lambda: kernel(steps), 3 if not self.quick else 1,
+                         "kernel LSTM decode")
+        dt_p = self.time(lambda: plain(steps), 1, "plain LSTM decode", warmup=0)
+        r["kernel_lstm_decode_ms"], r["kernel_lstm_us_per_step"] = 1e3 * dt_k, 1e6 * dt_k / steps
+        r["plain_lstm_decode_ms"], r["lstm_decode_speedup"] = 1e3 * dt_p, dt_p / dt_k
+        r["lstm_decode_shape"] = {"batch": b, "memory_positions": t, "steps": steps}
+        n_w = sum(x.numel() for x in packed.values())
+        r["lstm_decode_weight_mb"] = 4e-6 * n_w
+        self.roof("kernel_lstm_decode", lstm_decode_scan_work(cfg, b, t, steps, n_w), dt_k)
+        r["lstm_decode_parity_max_err"] = self.check(
+            "lstm_decode", "kernel_vs_plain_mel",
+            max_err(kernel(parity_steps)[0], plain(parity_steps)[0]), DECODE_TOL,
+            "tests/test_decode_pallas.py's tolerance, over the card test's 50 steps: float32 "
+            "sums of up to 1792 terms in another order, carried by the cell states")
 
     # -- STFT (K3, K3′, K3″) ------------------------------------------------
 
@@ -776,6 +835,7 @@ def run(device=None, steps: int = 200, batch: int = 8, quick: bool = False) -> d
                       bench.refenc)
         bench.section("lsa_decode", ["decode_scan", "decode_scan:location_sensitive"],
                       bench.lsa_decode)
+        bench.section("lstm_decode", ["decode_scan", "decode_scan:lstm"], bench.lstm_decode)
         bench.section("wavernn", ["wavernn_sample"], bench.wavernn)
     bench.report["failures"] = bench.failures()
     return bench.report

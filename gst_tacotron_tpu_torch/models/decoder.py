@@ -1,5 +1,7 @@
 """Mel decoder (counterpart of ``gst_tacotron_tpu/models/decoder.py``),
-Bahdanau or location-sensitive attention.
+Bahdanau or location-sensitive attention; with ``model.decoder.kind =
+"taco2"`` Tacotron 2's LSTM decoder (``Taco2DecoderCell``, no JAX
+counterpart), which K4's LSTM branch runs.
 
 ``DecoderCell`` holds the step's parameters under the flax names. The step
 itself is ``ops.decode.decode_step`` over the packed weights of
@@ -29,10 +31,10 @@ from torch import nn
 
 from ..config import AttentionConfig, DecoderConfig
 from ..ops.decode import (decode_scan, decode_scan_plain, pack_decoder_weights,
-                          teacher_forced_scan)
+                          pack_lstm_decoder_weights, teacher_forced_scan)
 from .attention import make_attention
 from .modules import Dense, Prenet, compute_dtype, length_mask, shard_row0
-from .rnn import GRUCell
+from .rnn import GRUCell, LSTMCell
 
 
 class DecoderCell(nn.Module):
@@ -65,6 +67,37 @@ class DecoderCell(nn.Module):
                                     differentiable=differentiable)
 
 
+class Taco2DecoderCell(nn.Module):
+    """Parameters of Tacotron 2's step (NVIDIA's ``Decoder.decode``):
+    prenet -> attention LSTM over [prenet ; context] -> attention over its
+    state -> decoder LSTM over [attention state ; context] -> frame and stop
+    projections of [decoder state ; context]. The LSTMs' dropout (0.1 in
+    training) is off at inference."""
+
+    def __init__(self, cfg: DecoderConfig, attn_cfg: AttentionConfig,
+                 num_mels: int, memory_dim: int):
+        super().__init__()
+        self.cfg, self.attn_cfg = cfg, attn_cfg
+        self.num_mels, self.memory_dim = num_mels, memory_dim
+        self.prenet = Prenet(num_mels, cfg.prenet_dims, cfg.prenet_dropout)
+        self.attention_rnn = LSTMCell(cfg.prenet_dims[-1] + memory_dim, cfg.attention_rnn_dim)
+        self.attention = make_attention(attn_cfg, cfg.attention_rnn_dim, memory_dim)
+        self.decoder_rnn = LSTMCell(cfg.attention_rnn_dim + memory_dim, cfg.decoder_rnn_dim)
+        proj_in = cfg.decoder_rnn_dim + memory_dim
+        self.frame_proj = Dense(proj_in, cfg.reduction_factor * num_mels)
+        self.stop_proj = Dense(proj_in, cfg.reduction_factor)
+
+    def precompute_keys(self, memory: torch.Tensor) -> torch.Tensor:
+        return self.attention.precompute(memory)
+
+    def pack(self, differentiable: bool = False):
+        return pack_lstm_decoder_weights(self, self.num_mels, self.cfg.reduction_factor,
+                                         differentiable=differentiable)
+
+
+CELLS = {"taco1": DecoderCell, "taco2": Taco2DecoderCell}
+
+
 def stop_frame_lengths(stop_logits: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """Frames up to and including the first stop (sigmoid > threshold), or
     all frames when no stop fired."""
@@ -86,7 +119,9 @@ class Decoder(nn.Module):
                  num_mels: int, memory_dim: int):
         super().__init__()
         self.cfg, self.attn_cfg, self.num_mels = cfg, attn_cfg, num_mels
-        self.cell = DecoderCell(cfg, attn_cfg, num_mels, memory_dim)
+        if cfg.kind not in CELLS:
+            raise ValueError(f"unknown decoder kind {cfg.kind!r}")
+        self.cell = CELLS[cfg.kind](cfg, attn_cfg, num_mels, memory_dim)
 
     def decode(self, memory: torch.Tensor, memory_lengths: torch.Tensor, *,
                max_steps: Optional[int] = None, deterministic_prenet: bool = False,

@@ -1,6 +1,7 @@
 """Text encoders (counterparts of ``gst_tacotron_tpu/models/encoder.py``):
-``Taco1Encoder`` (prenet + CBHG) and ``Taco2Encoder`` (conv stack + BiGRU),
-the ``model.encoder.kind`` switch."""
+``Taco1Encoder`` (prenet + CBHG) and ``Taco2Encoder`` (conv stack + BiGRU,
+or Tacotron 2's BiLSTM with ``model.encoder.rnn = "lstm"``), the
+``model.encoder.kind`` switch."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from torch import nn
 
 from ..config import EncoderConfig
 from .modules import CBHG, Conv1dBNStack, Embed, Prenet, mask_sequence
-from .rnn import BiGRU
+from .rnn import BiGRU, BiLSTM
 
 
 class Taco1Encoder(nn.Module):
@@ -40,13 +41,20 @@ class Taco2Encoder(nn.Module):
     """embedding -> 3 x (5-tap conv + BatchNorm + ReLU) -> BiGRU -> (B, T,
     2*gru_dim) encoder states. No prenet. The BiGRU takes K1 on the card at
     inference (``models/rnn.py``), the plain scans in training and on the
-    CPU; the stack's dropout draws from ``generator`` in training only."""
+    CPU; the stack's dropout draws from ``generator`` in training only.
+    With ``cfg.rnn == "lstm"`` a BiLSTM (module name ``bilstm``) takes the
+    BiGRU's place: the library's LSTM on the card at inference."""
 
     def __init__(self, cfg: EncoderConfig, num_symbols: int):
         super().__init__()
         self.embedding = Embed(num_symbols, cfg.embedding_dim)
         self.convs = Conv1dBNStack(cfg.embedding_dim, [cfg.embedding_dim] * 3, kernel_size=5)
-        self.bigru = BiGRU(cfg.embedding_dim, cfg.cbhg_gru_dim)
+        if cfg.rnn == "gru":
+            self.bigru = BiGRU(cfg.embedding_dim, cfg.cbhg_gru_dim)
+        elif cfg.rnn == "lstm":
+            self.bilstm = BiLSTM(cfg.embedding_dim, cfg.cbhg_gru_dim)
+        else:
+            raise ValueError(f"unknown encoder rnn {cfg.rnn!r}")
 
     def forward(self, tokens: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 *, deterministic_prenet: bool = False,
@@ -54,7 +62,8 @@ class Taco2Encoder(nn.Module):
                 plain: bool = False, train: bool = False) -> torch.Tensor:
         x = self.embedding(tokens)
         x = self.convs(x, lengths, train=train, generator=generator)
-        x, _ = self.bigru(x, lengths, plain=plain, train=train)
+        rnn = self.bigru if hasattr(self, "bigru") else self.bilstm
+        x, _ = rnn(x, lengths, plain=plain, train=train)
         return mask_sequence(x, lengths)
 
 

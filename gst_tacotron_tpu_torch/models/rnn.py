@@ -1,5 +1,6 @@
 """Keras-v2 GRU cell, masked GRU scan, BiGRU and the zoneout cell
-(counterparts of ``gst_tacotron_tpu/models/rnn.py``).
+(counterparts of ``gst_tacotron_tpu/models/rnn.py``), and Tacotron 2's LSTM
+cell and BiLSTM, which have no JAX counterpart.
 
 Layout as in the JAX package: ``kernel`` (in, 3H) and ``recurrent_kernel``
 (H, 3H) with gate order z, r, n, separate ``bias`` and ``recurrent_bias``,
@@ -19,6 +20,11 @@ route (inference on the card) is float32 whatever the dtype, with casts at
 its entry and exit; the scan (training, ``plain``, and inference on the CPU,
 where JAX's GRU takes its scan too) runs in the compute dtype. In float32
 the two are the same function.
+
+``LSTMCell``, ``LSTM`` and ``BiLSTM`` keep the GRUs' layout with four gates,
+i, f, g, o (``ops/lstm.py``). At inference on the card ``LSTM`` runs the
+library's fused LSTM (float32, TF32 off); in training, with ``plain`` and on
+the CPU its plain masked scan.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.gru import bigru_scan, gru_scan, gru_scan_plain, gru_update
+from ..ops.lstm import lstm_scan, lstm_update
 from .modules import compute_dtype
 
 
@@ -136,3 +143,53 @@ class ZoneoutGRUCell(nn.Module):
         elif self.zoneout > 0.0:
             h_new = self.zoneout * h + (1.0 - self.zoneout) * h_new
         return h_new, h_new
+
+
+class _LSTMParams(nn.Module):
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.features = features
+        self.kernel = nn.Parameter(torch.empty(in_dim, 4 * features))
+        self.recurrent_kernel = nn.Parameter(torch.empty(features, 4 * features))
+        self.bias = nn.Parameter(torch.empty(4 * features))
+        self.recurrent_bias = nn.Parameter(torch.empty(4 * features))
+
+
+class LSTMCell(_LSTMParams):
+    """One LSTM step, gate order i, f, g, o (``torch.nn.LSTMCell``'s):
+    (x, (h, c)) -> (h', c')."""
+
+    def forward(self, x: torch.Tensor, state: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h, c = state
+        gates = x @ self.kernel + self.bias + h @ self.recurrent_kernel + self.recurrent_bias
+        return lstm_update(gates, c)
+
+
+class LSTM(_LSTMParams):
+    """Unidirectional masked LSTM over (B, T, D) -> (B, T, H), zero initial
+    state; a step at or past a row's length holds the state. Float32."""
+
+    def __init__(self, in_dim: int, features: int, reverse: bool = False):
+        super().__init__(in_dim, features)
+        self.reverse = reverse
+
+    def forward(self, xs: torch.Tensor, lengths: Optional[torch.Tensor] = None, *,
+                plain: bool = False, train: bool = False) -> torch.Tensor:
+        return lstm_scan(xs.float(), self.kernel, self.bias, self.recurrent_kernel,
+                         self.recurrent_bias, lengths, self.reverse,
+                         plain=not kernel_route(xs, plain, train))
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional masked LSTM; output concat -> (B, T, 2H)."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.fwd = LSTM(in_dim, features, reverse=False)
+        self.bwd = LSTM(in_dim, features, reverse=True)
+
+    def forward(self, xs: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                *, plain: bool = False, train: bool = False):
+        ys = [m(xs, lengths, plain=plain, train=train) for m in (self.fwd, self.bwd)]
+        return torch.cat(ys, dim=-1).to(compute_dtype(self)), None

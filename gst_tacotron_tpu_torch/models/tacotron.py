@@ -5,7 +5,8 @@ tokens -> Taco1Encoder | Taco2Encoder (model.encoder.kind) -> encoder states (B,
 [multi-speaker: speaker id -> embedding (B, P)]
 memory = concat([encoder states, style and speaker broadcast over T])
 memory -> Decoder (teacher-forced | AR decode, K4) -> mel, stops, alignments
-mel -> PostCBHG -> linear
+mel -> PostCBHG -> linear, or (model.postnet.kind "conv", Tacotron 2)
+mel -> ConvPostnet -> mel_postnet = mel + the post-net's residual
 
 ``forward`` is the teacher-forced pass of training and eval (the JAX
 ``__call__``); ``infer`` is synthesis, the composition of the JAX
@@ -14,6 +15,10 @@ style path): the style from ``ops/refenc.py::gst_style_from_params`` (K2 and
 K1, float32), the decode through K4 (float32), the rest of the model in the
 compute dtype (the Taco2 encoder's BiGRU, like every GRU at inference, on
 K1).
+
+Tacotron 2's modules (``model.decoder.kind = "taco2"``, ``model.postnet.kind
+= "conv"``) serve synthesis only: ``forward`` refuses them, since no train
+step of theirs is ported.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from .decoder import Decoder
 from .encoder import ENCODERS
 from .gst import GST
 from .modules import Embed, set_compute_dtype
-from .postnet import PostCBHG
+from .postnet import make_postnet
 
 
 def _generator(seed, device, deterministic: bool) -> Optional[torch.Generator]:
@@ -60,7 +65,7 @@ class GSTTacotron(nn.Module):
         self.speaker_embedding = (Embed(cfg.num_speakers, cfg.speaker_dim)
                                   if cfg.num_speakers > 1 else None)
         self.decoder = Decoder(cfg.decoder, cfg.attention, cfg.num_mels, self.memory_dim)
-        self.postnet = PostCBHG(cfg.postnet, cfg.num_mels, cfg.num_freq)
+        self.postnet = make_postnet(cfg.postnet, cfg.num_mels, cfg.num_freq)
         set_compute_dtype(self, dtype)
 
     @property
@@ -122,6 +127,11 @@ class GSTTacotron(nn.Module):
         ``ref_mel=mel_targets``. ``seed`` is an int, or the
         ``ops.philox.DeviceSeed`` of a train step captured in a CUDA
         graph."""
+        if self.cfg.decoder.kind != "taco1" or self.cfg.postnet.kind != "cbhg":
+            raise NotImplementedError(
+                "the teacher-forced pass covers the taco1 decoder and the CBHG post-net; "
+                f"decoder {self.cfg.decoder.kind!r} and postnet {self.cfg.postnet.kind!r} "
+                "run synthesis only")
         # training draws the Taco2 conv stack's dropout from it even with the
         # prenets deterministic
         gen = _generator(seed, tokens.device, deterministic_prenet and not train)
@@ -149,7 +159,8 @@ class GSTTacotron(nn.Module):
               stop_all_reduce=None, bf16: Optional[bool] = None
               ) -> Dict[str, torch.Tensor]:
         """Autoregressive synthesis: encode (prenet dropout from ``seed``),
-        decode (dropout stream ``seed + 1``), post-net. ``chunk_steps``
+        decode (dropout stream ``seed + 1``), post-net: ``linear`` (CBHG)
+        or ``mel_postnet`` (conv). ``chunk_steps``
         decodes in chunks with early exit (``decode.chunked_decode``, whose
         ``all_reduce`` is ``stop_all_reduce``; the result then has
         ``chunks_run``). The style is the JAX synthesis fast path's: K2 in
@@ -180,8 +191,10 @@ class GSTTacotron(nn.Module):
                     dec["mel"], dec["stop_logits"], dec["alignments"], dec["frame_lengths"])
                 aux["chunks_run"] = dec["chunks_run"]
         with span("gst.model.postnet"):
-            linear = self.postnet(mel, frame_lengths, plain=plain)
+            post = self.postnet(mel, frame_lengths, plain=plain)
         if style_attn is not None:
             aux["style_attention"] = style_attn
-        return {"mel": mel, "linear": linear, "stop_logits": stops,
+        # the CBHG's linear spectrogram, or the conv post-net's refined mel
+        out = {"linear": post} if self.cfg.postnet.kind == "cbhg" else {"mel_postnet": mel + post}
+        return {"mel": mel, **out, "stop_logits": stops,
                 "alignments": aligns, "frame_lengths": frame_lengths, **aux}

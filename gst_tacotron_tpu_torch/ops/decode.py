@@ -1,5 +1,6 @@
 """K4: the fused fixed-length AR decode, Bahdanau and location-sensitive
-branches (counterpart of ``ops/decode_pallas.py``).
+branches (counterpart of ``ops/decode_pallas.py``), and Tacotron 2's LSTM
+decoder (no JAX counterpart).
 
 ``decode_scan`` launches ``csrc/decode_scan.cu`` for CUDA tensors and runs
 ``decode_scan_plain`` for CPU tensors. Both take the packed weights of
@@ -41,6 +42,18 @@ global step, so any split into calls gives the bits of one call. Every call
 of one carry takes the same weights, memory, keys, lengths and seed.
 Each call that decodes adds its ``steps`` to the program's counter
 ``decode_steps`` (``utils/profiling.py``), on either route.
+
+The LSTM branch (``model.decoder.kind = "taco2"``, ``pack_lstm_decoder_weights``)
+runs Tacotron 2's step under the same attention: prenet -> attention LSTM
+over [prenet ; context] -> attention -> decoder LSTM over [attention
+state ; context] -> frame and stop projection of [decoder state ; context].
+Each LSTM's two products are one packed matrix, its input rows over its
+recurrent rows (``awi``, ``dwi``), and one bias, the two summed (``abi``,
+``dbi``); its cell state is one more state buffer. The kernel keeps the
+phase design: P3 is the attention LSTM, P7 the decoder LSTM, P9 the
+projection; the products of the state alone ([context ; h_attn] and h_dec
+over their rows, plus the bias) run beside P7 and P9; P6 and P8 do not
+launch.
 """
 
 from __future__ import annotations
@@ -59,11 +72,12 @@ from ..utils import profiling
 from .build import (F, I, P, U64, CudaKernel, check_cuda, ptr, refuse_grad, sm_count,
                     stream_ptr)
 from .gru import gru_update
+from .lstm import lstm_update
 from .philox import stream_uniforms
 
 KERNEL = CudaKernel("decode_scan.cu", "decode_scan_launch",
                     [P, P, P, P, P, P, P, P, P, U64, F, I, I, I, I, I, P],
-                    branches=("location_sensitive",))
+                    branches=("location_sensitive", "lstm"))
 
 LANE = 128
 # order of the kernel's DecodeWeights struct
@@ -81,19 +95,14 @@ def location_taps(attn_cfg: AttentionConfig) -> Tuple[int, int]:
     return 1, 1
 
 
-def pack_decoder_weights(cell, num_mels: int, r: int, *,
-                         differentiable: bool = False) -> Dict[str, torch.Tensor]:
-    """Pad and pack a ``models.decoder.DecoderCell`` into the kernel's operand
-    layout (the layout of the JAX ``pack_decoder_weights``): the prenet input
-    padded to 128 rows, the frame and stop projections packed side by side
-    into 256 output columns, and ``loca``, the location conv (k, c, F) folded
-    with the location projection (F, A) into (k*c, A) (zeros (1, A) for
-    Bahdanau attention). Every operand is a torch op on the parameters, so
-    with ``differentiable`` the pack stays in the graph and a loss on the
-    plain decode reaches every decoder parameter (the teacher-forced step);
-    otherwise the operands are detached, contiguous copies (the kernel's)."""
-    if len(cell.cfg.prenet_dims) != 2 or cell.cfg.num_decoder_rnn_layers != 2:
-        raise ValueError("the decode kernel covers a 2-layer prenet and 2 decoder GRUs")
+def _pack_shared(cell, num_mels: int, r: int) -> Dict[str, torch.Tensor]:
+    """The operands every branch packs alike: the prenet (its input padded
+    to 128 rows), the query, v and ``loca`` (the location conv (k, c, F)
+    folded with the location projection (F, A) into (k*c, A); zeros (1, A)
+    for Bahdanau attention), and the frame and stop projections side by
+    side in 256 output columns."""
+    if len(cell.cfg.prenet_dims) != 2:
+        raise ValueError("the decode kernel covers a 2-layer prenet")
     if cell.attn_cfg.kind not in _KINDS:
         raise ValueError(f"unknown attention kind {cell.attn_cfg.kind!r}")
     out_dim = 2 * LANE
@@ -106,22 +115,64 @@ def pack_decoder_weights(cell, num_mels: int, r: int, *,
     loca = att.loca()
     if loca is None:
         loca = att.query_proj.kernel.new_zeros(1, att.query_proj.kernel.shape[1])
-    packed = dict(
+    return dict(
         pw1=Fn.pad(d1.kernel, (0, 0, 0, LANE - num_mels)), pb1=d1.bias,
         pw2=cell.prenet.dense_1.kernel, pb2=cell.prenet.dense_1.bias,
-        awi=cell.attention_rnn.kernel, abi=cell.attention_rnn.bias,
-        awh=cell.attention_rnn.recurrent_kernel,
-        abh=cell.attention_rnn.recurrent_bias,
         qproj=att.query_proj.kernel, vvec=att.score_v.kernel[:, 0], loca=loca,
-        dwi=cell.decoder_input_proj.kernel, dbi=cell.decoder_input_proj.bias,
         fw=Fn.pad(torch.cat([fp.kernel, sp.kernel], 1), (0, pad)),
         fb=Fn.pad(torch.cat([fp.bias, sp.bias]), (0, pad)))
-    for i, g in enumerate((cell.decoder_rnn_0, cell.decoder_rnn_1), start=1):
-        packed.update({f"g{i}wi": g.kernel, f"g{i}bi": g.bias,
-                       f"g{i}wh": g.recurrent_kernel, f"g{i}bh": g.recurrent_bias})
+
+
+def _finish_pack(packed: Dict[str, torch.Tensor], differentiable: bool
+                 ) -> Dict[str, torch.Tensor]:
     if differentiable:
         return packed
     return {k: v.detach().to(torch.float32).contiguous() for k, v in packed.items()}
+
+
+def pack_decoder_weights(cell, num_mels: int, r: int, *,
+                         differentiable: bool = False) -> Dict[str, torch.Tensor]:
+    """Pad and pack a ``models.decoder.DecoderCell`` into the kernel's operand
+    layout (the layout of the JAX ``pack_decoder_weights``): ``_pack_shared``'s
+    operands and the GRUs' kernels and biases. Every operand is a torch op on
+    the parameters, so with ``differentiable`` the pack stays in the graph
+    and a loss on the plain decode reaches every decoder parameter (the
+    teacher-forced step); otherwise the operands are detached, contiguous
+    copies (the kernel's)."""
+    if cell.cfg.num_decoder_rnn_layers != 2:
+        raise ValueError("the decode kernel covers a 2-layer prenet and 2 decoder GRUs")
+    packed = _pack_shared(cell, num_mels, r)
+    packed.update(awi=cell.attention_rnn.kernel, abi=cell.attention_rnn.bias,
+                  awh=cell.attention_rnn.recurrent_kernel,
+                  abh=cell.attention_rnn.recurrent_bias,
+                  dwi=cell.decoder_input_proj.kernel, dbi=cell.decoder_input_proj.bias)
+    for i, g in enumerate((cell.decoder_rnn_0, cell.decoder_rnn_1), start=1):
+        packed.update({f"g{i}wi": g.kernel, f"g{i}bi": g.bias,
+                       f"g{i}wh": g.recurrent_kernel, f"g{i}bh": g.recurrent_bias})
+    return _finish_pack(packed, differentiable)
+
+
+def pack_lstm_decoder_weights(cell, num_mels: int, r: int, *,
+                              differentiable: bool = False) -> Dict[str, torch.Tensor]:
+    """Pack a ``models.decoder.Taco2DecoderCell`` (Tacotron 2's LSTM decoder)
+    into the kernel's LSTM operands: ``_pack_shared``'s; ``awi`` the
+    attention LSTM's input rows ([prenet ; context]) over its recurrent
+    rows, (P2 + M + Ha, 4 Ha), ``abi`` its two biases summed; ``dwi`` the
+    decoder LSTM's ([h_attn ; context] over h_dec), (Ha + M + Hd, 4 Hd),
+    ``dbi`` its biases summed."""
+    packed = _pack_shared(cell, num_mels, r)
+    ar, dr = cell.attention_rnn, cell.decoder_rnn
+    packed.update(awi=torch.cat([ar.kernel, ar.recurrent_kernel], 0),
+                  abi=ar.bias + ar.recurrent_bias,
+                  dwi=torch.cat([dr.kernel, dr.recurrent_kernel], 0),
+                  dbi=dr.bias + dr.recurrent_bias)
+    return _finish_pack(packed, differentiable)
+
+
+def packed_cell(packed: Dict[str, torch.Tensor]) -> str:
+    """"gru" for ``pack_decoder_weights``' operands, "lstm" for
+    ``pack_lstm_decoder_weights``'."""
+    return "gru" if "awh" in packed else "lstm"
 
 
 def dropout_uniforms(seed: int, steps: int, layer: int, batch: int,
@@ -147,13 +198,31 @@ class DecodeState(NamedTuple):
     cum: torch.Tensor
 
 
-def initial_decode_state(packed: Dict[str, torch.Tensor], memory: torch.Tensor) -> DecodeState:
-    """Zero GRU states and context; the alignment a delta at position 0; in
-    the packed weights' dtype (the step's compute dtype)."""
+class LSTMDecodeState(NamedTuple):
+    """The LSTM branch's state: each LSTM's h and c, the context and the
+    alignment state (previous, cumulative)."""
+    h_attn: torch.Tensor
+    c_attn: torch.Tensor
+    h_dec: torch.Tensor
+    c_dec: torch.Tensor
+    ctx: torch.Tensor
+    prev: torch.Tensor
+    cum: torch.Tensor
+
+
+def initial_decode_state(packed: Dict[str, torch.Tensor], memory: torch.Tensor):
+    """Zero recurrent states and context; the alignment a delta at position
+    0; in the packed weights' dtype (the step's compute dtype). A
+    ``DecodeState``, or an ``LSTMDecodeState`` for the LSTM branch's
+    operands."""
     b, t, m_dim = memory.shape
     zeros = lambda n: memory.new_zeros(b, n, dtype=packed["pw1"].dtype)
     prev = zeros(t)
     prev[:, 0] = 1.0
+    if packed_cell(packed) == "lstm":
+        ha, hd = packed["awi"].shape[1] // 4, packed["dwi"].shape[1] // 4
+        return LSTMDecodeState(zeros(ha), zeros(ha), zeros(hd), zeros(hd), zeros(m_dim), prev,
+                               zeros(t))
     return DecodeState(zeros(packed["awh"].shape[0]), zeros(packed["g1wh"].shape[0]),
                        zeros(packed["g2wh"].shape[0]), zeros(m_dim), prev, zeros(t))
 
@@ -172,15 +241,15 @@ def prenet_keep(seed, steps: int, batch: int, p1: int, p2: int, rate: float,
 def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor,
                 memory: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor, *,
                 attn_cfg: AttentionConfig, num_mels: int, rate: float = 0.0,
-                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> Tuple[DecodeState, torch.Tensor, torch.Tensor]:
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One decoder step (the JAX ``DecoderCell.__call__``) over packed weights:
     prenet of ``frame`` (B, num_mels) -> attention GRU -> attention -> input
-    projection -> two residual GRUs -> packed frame and stop projection.
-    ``keep`` holds this step's prenet keep masks (None: no dropout).
-    Every product runs in the packed weights' dtype, the input frame and the
-    context cast to it (the JAX cell's casts); the context itself is taken
-    in the promoted dtype of the alignment and ``memory``.
+    projection -> two residual GRUs -> packed frame and stop projection; or,
+    with the LSTM branch's operands and state, Tacotron 2's step
+    (``_lstm_step``). ``keep`` holds this step's prenet keep masks (None: no
+    dropout). Every product runs in the packed weights' dtype, the input
+    frame and the context cast to it (the JAX cell's casts); the context
+    itself is taken in the promoted dtype of the alignment and ``memory``.
     Returns (state, out (B, 256): r frames then r stop logits, alignment)."""
     frame = frame.to(w["pw1"].dtype)
     h1 = torch.relu(frame @ w["pw1"][:num_mels] + w["pb1"])
@@ -189,6 +258,8 @@ def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor
     h2 = torch.relu(h1 @ w["pw2"] + w["pb2"])
     if keep is not None:
         h2 = torch.where(keep[1], h2 / (1.0 - rate), torch.zeros_like(h2))
+    if isinstance(st, LSTMDecodeState):
+        return _lstm_step(w, st, h2, memory, keys, valid, attn_cfg)
     h_attn = _gru(torch.cat([h2, st.ctx], -1), st.h_attn, w["awi"], w["abi"],
                   w["awh"], w["abh"])
     loc_k, loc_c = location_taps(attn_cfg)
@@ -203,6 +274,26 @@ def decode_step(w: Dict[str, torch.Tensor], st: DecodeState, frame: torch.Tensor
     h = h + h_d2
     out = torch.cat([h, ctx], -1) @ w["fw"] + w["fb"]
     return DecodeState(h_attn, h_d1, h_d2, ctx, prev, cum), out, align
+
+
+def _lstm_step(w: Dict[str, torch.Tensor], st: LSTMDecodeState, h2: torch.Tensor,
+               memory: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
+               attn_cfg: AttentionConfig) -> Tuple[LSTMDecodeState, torch.Tensor, torch.Tensor]:
+    """Tacotron 2's step after the prenet (``h2``): the attention LSTM over
+    [h2 ; context] from (h_attn, c_attn), the attention, the decoder LSTM
+    over [h_attn ; context] from (h_dec, c_dec), the projection of [h_dec ;
+    context]."""
+    h_attn, c_attn = lstm_update(torch.cat([h2, st.ctx, st.h_attn], -1) @ w["awi"] + w["abi"],
+                                 st.c_attn)
+    loc_k, loc_c = location_taps(attn_cfg)
+    loca = w["loca"] if attn_cfg.kind == "location_sensitive" else None
+    ctx, align, prev, cum = attention_step(h_attn @ w["qproj"], keys, memory, valid,
+                                           st.prev, st.cum, w["vvec"], loca, loc_k, loc_c)
+    ctx = ctx.to(w["pw1"].dtype)
+    h_dec, c_dec = lstm_update(torch.cat([h_attn, ctx, st.h_dec], -1) @ w["dwi"] + w["dbi"],
+                               st.c_dec)
+    out = torch.cat([h_dec, ctx], -1) @ w["fw"] + w["fb"]
+    return LSTMDecodeState(h_attn, c_attn, h_dec, c_dec, ctx, prev, cum), out, align
 
 
 @dataclass
@@ -340,9 +431,17 @@ ROWS = 32           # rows of the batch a CTA steps (a row group: grid.y)
 WARPS = 8           # warps a CTA (csrc/decode_scan.cu DEC_WARPS)
 MAX_SLICE = 256     # context columns a P5 CTA at most (its threads)
 
-# the workspace's state buffers, in the kernel's order (enum Buf)
+# the workspace's state buffers, in the kernel's order (enum Buf): the GRU
+# branch's, the shared ones, then the LSTM branch's (a branch's buffers of
+# the other are zero wide)
 BUFFERS = ("h_attn", "h_d1", "h_d2", "ctx", "p1", "p2", "last", "hdec0", "hdec1",
-           "hdec2", "gha", "gxc", "gh1", "gh2", "prev", "cum", "part", "keys_t")
+           "hdec2", "gha", "gxc", "gh1", "gh2", "prev", "cum", "part", "keys_t",
+           "c_attn", "h_dec", "c_dec", "gsa", "gsd")
+# every product kind, in the kernel's order (enum Kind)
+KINDS = ("pre1", "gha", "gxc", "gh1", "gh2", "pre2", "attn", "query", "dec", "g1", "g2",
+         "out", "lattn", "gsa", "ldec", "gsd")
+# the launcher's header: ``decode_launch_ints``' first integers (NHDR)
+NHDR = 19
 
 
 class DecodeDims(NamedTuple):
@@ -360,6 +459,7 @@ class DecodeDims(NamedTuple):
     loc_k: int  # location taps
     loc_c: int  # location feature channels
     ld_fw: int  # columns of the packed frame + stop projection
+    cell: str = "gru"   # "gru" or "lstm" (the decoder's recurrent cells)
 
     @property
     def n_out(self) -> int:
@@ -369,7 +469,8 @@ class DecodeDims(NamedTuple):
 class Product(NamedTuple):
     """One product of a phase: Y = [X0 ; X1] @ W[rows of each segment]. A
     GRU product (gates 3) owns units: unit k takes columns k, H + k, 2H + k
-    of W, so a CTA holds the z, r and n columns of each unit it owns."""
+    of W, so a CTA holds the z, r and n columns of each unit it owns; an
+    LSTM product (gates 4) the i, f, g and o columns k + gH."""
     kind: str
     phase: int
     weight: str                 # key of the packed weights
@@ -387,10 +488,14 @@ def decode_dims(packed: Dict[str, torch.Tensor], memory: torch.Tensor, keys: tor
                 *, r: int, num_mels: int, steps: int, attn_cfg: AttentionConfig) -> DecodeDims:
     b, t, m_dim = memory.shape
     loc_k, loc_c = location_taps(attn_cfg)
+    cell = packed_cell(packed)
+    if cell == "lstm":
+        ha, hd = packed["awi"].shape[1] // 4, packed["dwi"].shape[1] // 4
+    else:
+        ha, hd = packed["awh"].shape[0], packed["g1wh"].shape[0]
     return DecodeDims(B=b, T=t, S=steps, r=r, NM=num_mels, P1=packed["pw1"].shape[1],
-                      P2=packed["pw2"].shape[1], Ha=packed["awh"].shape[0],
-                      A=keys.shape[-1], Hd=packed["g1wh"].shape[0], Md=m_dim,
-                      loc_k=loc_k, loc_c=loc_c, ld_fw=packed["fw"].shape[1])
+                      P2=packed["pw2"].shape[1], Ha=ha, A=keys.shape[-1], Hd=hd, Md=m_dim,
+                      loc_k=loc_k, loc_c=loc_c, ld_fw=packed["fw"].shape[1], cell=cell)
 
 
 def decode_products(d: DecodeDims) -> List[Product]:
@@ -402,7 +507,25 @@ def decode_products(d: DecodeDims) -> List[Product]:
     awi[ctx rows] + abi, h_d1 @ g1wh + g1bh, h_d2 @ g2wh + g2bh), which the
     next step's GRUs add, run on the spare CTAs of the first launch after
     their state is final (P7, P6, P8, P9); the launcher writes their values
-    for the zero state, the biases, before step 0."""
+    for the zero state, the biases, before step 0.
+
+    The LSTM branch: P1, P2 the prenet; P3 the attention LSTM's prenet rows
+    (``lattn``); P4 the query; P7 the decoder LSTM's [h_attn ; ctx] rows
+    (``ldec``) beside the attention LSTM's state product [ctx ; h_attn]
+    (``gsa``); P9 the projection beside the decoder LSTM's state product
+    h_dec (``gsd``)."""
+    if d.cell == "lstm":
+        return [
+            Product("pre1", 1, "pw1", 1, d.P1, ((0, d.NM),), ("last",)),
+            Product("pre2", 2, "pw2", 1, d.P2, ((0, d.P1),), ("p1",)),
+            Product("lattn", 3, "awi", 4, d.Ha, ((0, d.P2),), ("p2",)),
+            Product("query", 4, "qproj", 1, d.A, ((0, d.Ha),), ("h_attn",)),
+            Product("gsa", 7, "awi", 4, d.Ha, ((d.P2, d.Md), (d.P2 + d.Md, d.Ha)),
+                    ("ctx", "h_attn")),
+            Product("ldec", 7, "dwi", 4, d.Hd, ((0, d.Ha), (d.Ha, d.Md)), ("h_attn", "ctx")),
+            Product("gsd", 9, "dwi", 4, d.Hd, ((d.Ha + d.Md, d.Hd),), ("h_dec",)),
+            Product("out", 9, "fw", 1, d.n_out, ((0, d.Hd), (d.Hd, d.Md)), ("h_dec", "ctx")),
+        ]
     return [
         Product("pre1", 1, "pw1", 1, d.P1, ((0, d.NM),), ("last",)),
         Product("gha", 7, "awh", 3, d.Ha, ((0, d.Ha),), ("h_attn",)),
@@ -479,12 +602,17 @@ def decode_phase_plan(d: DecodeDims, sms: int) -> dict:
 
 def _buffer_widths(d: DecodeDims, plan: dict) -> Dict[str, int]:
     """Row stride (floats) of each state buffer; k-side buffers padded to a
-    multiple of 4 (zeros past the width) for the products' float4 loads."""
-    return {"h_attn": _r4(d.Ha), "h_d1": _r4(d.Hd), "h_d2": _r4(d.Hd), "ctx": _r4(d.Md),
-            "p1": _r4(d.P1), "p2": _r4(d.P2), "last": _r4(d.NM), "hdec0": _r4(d.Hd),
-            "hdec1": _r4(d.Hd), "hdec2": _r4(d.Hd), "gha": 3 * _r4(d.Ha),
-            "gxc": 3 * _r4(d.Ha), "gh1": 3 * _r4(d.Hd), "gh2": 3 * _r4(d.Hd),
-            "prev": d.T, "cum": d.T, "part": plan["chunks"] * d.T, "keys_t": d.A * d.T}
+    multiple of 4 (zeros past the width) for the products' float4 loads; the
+    other branch's buffers zero wide."""
+    gru, lstm = int(d.cell == "gru"), int(d.cell == "lstm")
+    return {"h_attn": _r4(d.Ha), "h_d1": gru * _r4(d.Hd), "h_d2": gru * _r4(d.Hd),
+            "ctx": _r4(d.Md), "p1": _r4(d.P1), "p2": _r4(d.P2), "last": _r4(d.NM),
+            "hdec0": gru * _r4(d.Hd), "hdec1": gru * _r4(d.Hd), "hdec2": gru * _r4(d.Hd),
+            "gha": gru * 3 * _r4(d.Ha), "gxc": gru * 3 * _r4(d.Ha), "gh1": gru * 3 * _r4(d.Hd),
+            "gh2": gru * 3 * _r4(d.Hd), "prev": d.T, "cum": d.T, "part": plan["chunks"] * d.T,
+            "keys_t": d.A * d.T, "c_attn": lstm * _r4(d.Ha), "h_dec": lstm * _r4(d.Hd),
+            "c_dec": lstm * _r4(d.Hd), "gsa": lstm * 4 * _r4(d.Ha),
+            "gsd": lstm * 4 * _r4(d.Hd)}
 
 
 def decode_workspace_layout(d: DecodeDims, plan: dict) -> Dict[str, Tuple[int, int, int]]:
@@ -510,19 +638,23 @@ def decode_workspace_floats(d: DecodeDims, plan: dict) -> int:
 
 
 def decode_launch_ints(d: DecodeDims, plan: dict) -> List[int]:
-    """The launcher's ``dims``: a header, (offset, stride) of each state
-    buffer, then per product (enum Kind order) kind, weights offset, source
-    index in ``_WEIGHT_ORDER``, source row stride, n, gates, two (first row,
-    rows) segments, the two input buffers (-1: none), qpc and phase."""
+    """The launcher's ``dims``: a header (``NHDR`` integers, the cell 0 GRU
+    or 1 LSTM and the count of products last), (offset, stride) of each
+    state buffer, then per product (the branch's order) kind (its index in
+    ``KINDS``), weights offset, source index in ``_WEIGHT_ORDER``, source row
+    stride, n, gates, two (first row, rows) segments, the two input buffers
+    (-1: none), qpc and phase."""
     lay = decode_workspace_layout(d, plan)
+    prods = decode_products(d)
     out = [d.B, d.T, d.S, d.r, d.NM, d.P1, d.P2, d.Ha, d.A, d.Hd, d.Md, d.loc_k, d.loc_c,
-           plan["chunks"], plan["slice_width"], plan["slices"], lay["state"][2]]
+           plan["chunks"], plan["slice_width"], plan["slices"], lay["state"][2],
+           int(d.cell == "lstm"), len(prods)]
     for name in BUFFERS:
         out += [lay[name][0], lay[name][2]]
-    for i, p in enumerate(decode_products(d)):
+    for p in prods:
         segs = list(p.segs) + [(0, 0)] * (2 - len(p.segs))
         ins = [BUFFERS.index(x) for x in p.inputs] + [-1] * (2 - len(p.inputs))
-        out += [i, lay[f"wt_{p.kind}"][0], _WEIGHT_ORDER.index(p.weight),
+        out += [KINDS.index(p.kind), lay[f"wt_{p.kind}"][0], _WEIGHT_ORDER.index(p.weight),
                 d.ld_fw if p.weight == "fw" else p.gates * p.n, p.n, p.gates,
                 *segs[0], *segs[1], *ins, plan["qpc"][p.kind], p.phase]
     if lay["total"][2] >= 2 ** 31:
@@ -557,8 +689,10 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
                          f"fit k={loc_k}, c={loc_c}, A={keys.shape[-1]}")
     memory, keys = memory.contiguous(), keys.contiguous()
     lens = lengths.to(memory.device, torch.int32).contiguous()
-    ws = [packed[k] for k in _WEIGHT_ORDER]
+    # the LSTM branch's operands leave the GRU-only pointers null
+    ws = [packed.get(k) for k in _WEIGHT_ORDER]
     check_cuda("decode_scan", memory, keys, lens, *ws)
+    lstm = packed_cell(packed) == "lstm"
 
     def run(c: DecodeCarry) -> None:
         check_cuda("decode_scan", c.mel, c.stop_logits, c.aligns)
@@ -569,12 +703,13 @@ def decode_scan(packed: Dict[str, torch.Tensor], memory: torch.Tensor,
         prepared = c.state is not None
         if not prepared:
             c.state = torch.empty(decode_workspace_floats(d, plan), device=memory.device)
-        wptrs = (ctypes.c_void_p * len(ws))(*[x.data_ptr() for x in ws])
+        wptrs = (ctypes.c_void_p * len(ws))(*[ptr(x) for x in ws])
         dptrs = (ctypes.c_int * len(ints))(*ints)
         KERNEL(ptr(memory), ptr(keys), ptr(lens), wptrs, dptrs, ptr(c.mel),
                ptr(c.stop_logits), ptr(c.aligns), ptr(c.state), seed & 0xFFFFFFFFFFFFFFFF,
                float(dec_cfg.prenet_dropout), int(use_dropout), c.step, steps, int(prepared),
                row0, stream_ptr(memory.device),
-               branch="location_sensitive" if attn_cfg.kind == "location_sensitive" else None)
+               branch="lstm" if lstm else
+               "location_sensitive" if attn_cfg.kind == "location_sensitive" else None)
 
     return _run_carried(carry, memory, steps, dec_cfg, num_mels, run)

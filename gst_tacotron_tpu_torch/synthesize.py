@@ -10,6 +10,11 @@ waveforms, in the three stages of the JAX ``use_pallas_decoder`` mode:
   3. finish: frame lengths from the stop logits, frame masking, post-net
      (its BiGRU through K1), Griffin-Lim, alignment diagonality.
 
+Tacotron 2's conv post-net refines the mel (``mel_postnet``) instead of
+predicting a linear spectrogram; Griffin-Lim then starts from the mel
+basis's pseudo-inverse of it (``TorchDSP.mel_to_linear``, span
+``gst.synth.mel_to_linear``).
+
 With a ``WaveRNNVocoder`` the waveform comes from the masked decoded mel
 through the sampling kernel (K5) instead of Griffin-Lim, drawn with seed
 ``seed + 104729``, as the JAX package offsets its vocoder's key.
@@ -162,8 +167,12 @@ class Synthesizer:
             out["diagonality"] = self._diagonality(out, tok_len)
             count("d2h_early_bytes", _start_copies(out, copies))
         with span("gst.synth.vocoder"):
-            if self._inline_gl:
+            if self._inline_gl and "linear" in out:
                 out["wav"] = self.dsp.inv_linear_spectrogram(out["linear"].float())
+            elif self._inline_gl:
+                with span("gst.synth.mel_to_linear"):
+                    amp = self.dsp.mel_to_linear(out["mel_postnet"].float())
+                out["wav"] = self.dsp.inv_amplitude(amp)
             else:
                 out["wav"] = self.vocoder(out, seed=seed + VOCODER_SEED_OFFSET,
                                           plain=self.plain)

@@ -49,7 +49,7 @@ def corpora(jgate, tmp_path_factory):
 
 def test_gate_constants_and_config_match_jax(jgate):
     assert (gate.GATE_STEPS, gate.GATE_THRESHOLD) == (jgate.GATE_STEPS, jgate.GATE_THRESHOLD)
-    assert tconfig.to_dict(gate.gate_config()) == jconfig.to_dict(jgate.gate_config())
+    assert tconfig.to_jax_dict(gate.gate_config()) == jconfig.to_dict(jgate.gate_config())
 
 
 def test_corpus_matches_jax(corpora):

@@ -8,7 +8,8 @@ this module with the other card modules:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py \
         tests/test_torch_card_paths.py tests/test_torch_card_train.py \
-        tests/test_torch_gl_tables.py tests/test_torch_train_graph.py -q
+        tests/test_torch_gl_tables.py tests/test_torch_train_graph.py \
+        tests/test_torch_card_taco2.py -q
 """
 
 import pytest

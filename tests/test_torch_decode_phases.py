@@ -19,6 +19,10 @@ card:
   odd and the ragged widths, and
   gives the same result with the CTAs of each launch run in reverse order
   (no CTA reads what another CTA of its launch writes);
+- the LSTM branch (Tacotron 2's decoder): its plan, layout and emulation
+  (P3 the attention LSTM, P7 the decoder LSTM beside the attention LSTM's
+  state product, P9 the projection beside the decoder LSTM's) against
+  ``decode_scan_plain`` at odd and ragged widths, resumed, CTAs reversed;
 - resuming: two emulated launcher calls on one carried workspace (the
   second skipping the prologue, its dropout keyed by the global step) give
   the bits of one call, both branches, dropout on and off;
@@ -34,9 +38,10 @@ import torch
 import torch.nn.functional as Fn
 
 from gst_tacotron_tpu_torch.config import AttentionConfig, DecoderConfig, load_config
-from gst_tacotron_tpu_torch.models.decoder import DecoderCell
+from gst_tacotron_tpu_torch.models.decoder import DecoderCell, Taco2DecoderCell
 from gst_tacotron_tpu_torch.ops import decode as D
 from gst_tacotron_tpu_torch.ops.gru import gru_update
+from gst_tacotron_tpu_torch.ops.lstm import lstm_update
 from gst_tacotron_tpu_torch.weights import init_weights
 
 torch.set_num_threads(2)
@@ -63,12 +68,17 @@ SMALL = {"odd": dict(T=37, S=9, r=3, NM=10, P1=16, P2=8, Ha=16, A=12, Hd=24, Md=
                      loc_c=2, ld_fw=2 * D.LANE),
          "ragged": dict(T=37, S=9, r=2, NM=7, P1=15, P2=9, Ha=13, A=11, Hd=22, Md=19, loc_k=7,
                         loc_c=2, ld_fw=2 * D.LANE)}
-DIMS = [(name, b) for name in ("gst_lj", "gst_r1_location", "gst_wavernn", "odd", "ragged")
+SMALL.update({f"{k}_lstm": dict(v, r=1, cell="lstm") for k, v in list(SMALL.items())})
+DIMS = [(name, b) for name in ("gst_lj", "gst_r1_location", "gst_wavernn", "gst_taco2", "odd",
+                               "ragged", "odd_lstm", "ragged_lstm")
         for b in (1, 5, 32, 33)]
 
 
 def dims_of(name, b):
-    return D.DecodeDims(B=b, **SMALL[name]) if name in SMALL else config_dims(name, b)
+    if name in SMALL:
+        return D.DecodeDims(B=b, **SMALL[name])
+    d = config_dims(name, b)
+    return d._replace(cell="lstm") if name == "gst_taco2" else d
 
 
 @pytest.mark.parametrize("name,b", DIMS)
@@ -78,7 +88,9 @@ def test_phase_plan_owns_every_column_once(name, b, sms):
     plan = D.decode_phase_plan(d, sms)
     prods = {p.kind: p for p in D.decode_products(d)}
     assert plan["row_groups"] * D.ROWS >= b > (plan["row_groups"] - 1) * D.ROWS
-    for phase in (1, 2, 3, 4, 6, 7, 8, 9):
+    phases = (1, 2, 3, 4, 7, 9) if d.cell == "lstm" else (1, 2, 3, 4, 6, 7, 8, 9)
+    assert sorted(plan["jobs"]) == list(phases)
+    for phase in phases:
         owned = {}
         jobs = plan["jobs"][phase]
         for kind, q0, q1 in jobs:
@@ -103,8 +115,10 @@ def test_phase_plan_owns_every_column_once(name, b, sms):
     assert w % 32 == 0 and 32 <= w <= D.MAX_SLICE
     cols = [m for s in range(plan["slices"]) for m in range(s * w, min(d.Md, (s + 1) * w))]
     assert cols == list(range(d.Md))
-    # no more than about one CTA an SM: a phase's jobs a row group
-    if name not in SMALL and sms == 132:
+    # no more than about one CTA an SM: a phase's jobs a row group (the
+    # 1024-unit LSTMs hold 256 unit quads a phase, each CTA as many as give
+    # its warps one tile each, so their P3 and P7 run in two waves)
+    if name not in SMALL and sms == 132 and d.cell == "gru":
         assert max(len(j) for j in plan["jobs"].values()) <= 1.5 * sms
 
 
@@ -156,7 +170,7 @@ def test_reduce_scatter_leaves_lane_l_output_l():
 
 
 @pytest.mark.parametrize("name,b", [("gst_lj", 32), ("gst_r1_location", 33), ("odd", 5),
-                                    ("ragged", 5)])
+                                    ("ragged", 5), ("gst_taco2", 32), ("ragged_lstm", 5)])
 def test_workspace_layout(name, b):
     d = dims_of(name, b)
     plan = D.decode_phase_plan(d, 132)
@@ -172,9 +186,10 @@ def test_workspace_layout(name, b):
         for x, (_, n) in zip(p.inputs, p.segs):
             assert lay[x][2] % 4 == 0 and lay[x][2] >= r4(n)
     ints = D.decode_launch_ints(d, plan)
-    assert len(ints) == 17 + 2 * len(D.BUFFERS) + 14 * len(D.decode_products(d))
-    assert ints[13:17] == [plan["chunks"], plan["slice_width"], plan["slices"],
-                           lay["state"][2]]
+    assert len(ints) == D.NHDR + 2 * len(D.BUFFERS) + 14 * len(D.decode_products(d))
+    assert ints[13:D.NHDR] == [plan["chunks"], plan["slice_width"], plan["slices"],
+                               lay["state"][2], int(d.cell == "lstm"),
+                               len(D.decode_products(d))]
 
 
 # --- the emulation ------------------------------------------------------------
@@ -208,12 +223,15 @@ def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps
     B, T, A = d.B, d.T, d.A
     prods = {p.kind: p for p in D.decode_products(d)}
     # decode_prep and decode_prep_weights, on the first call only
+    lstm = d.cell == "lstm"
+    seeds = ((("gsa", "abi", d.Ha), ("gsd", "dbi", d.Hd)) if lstm else
+             (("gha", "abh", d.Ha), ("gxc", "abi", d.Ha), ("gh1", "g1bh", d.Hd),
+              ("gh2", "g2bh", d.Hd)))
     if not prepared:
         buf("keys_t").view(B, A, T)[:] = keys.transpose(1, 2)
         buf("prev")[:, 0] = 1.0
-        for name, bias, h in (("gha", "abh", d.Ha), ("gxc", "abi", d.Ha), ("gh1", "g1bh", d.Hd),
-                              ("gh2", "g2bh", d.Hd)):
-            for g in range(3):            # the state products of the zero state
+        for name, bias, h in seeds:
+            for g in range(4 if lstm else 3):    # the state products of the zero state
                 buf(name)[:, g * r4(h): g * r4(h) + h] = packed[bias][g * h: (g + 1) * h]
     for p in (prods.values() if not prepared else ()):
         n4, kp = r4(p.n), D.product_kp(p)
@@ -275,6 +293,18 @@ def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps
             gh = buf("gha")[rows]
             hh = torch.cat([gh[:, g * h4 + j] for g in range(3)], -1)
             buf("h_attn")[rows, j] = gru_update(x, hh, buf("h_attn")[rows, j])
+        elif k in ("gsa", "gsd"):
+            bias = packed["abi" if k == "gsa" else "dbi"]
+            h4 = r4(p.n)
+            for g in range(4):
+                buf(k)[rows, g * h4 + j] = v[:, g] + bias[g * p.n + j]
+        elif k in ("lattn", "ldec"):
+            gs, hb, cb = ("gsa", "h_attn", "c_attn") if k == "lattn" else \
+                ("gsd", "h_dec", "c_dec")
+            h4 = r4(p.n)
+            st = buf(gs)[rows]
+            gates = torch.cat([v[:, g] + st[:, g * h4 + j] for g in range(4)], -1)
+            buf(hb)[rows, j], buf(cb)[rows, j] = lstm_update(gates, buf(cb)[rows, j])
         elif k == "dec":
             buf("hdec0")[rows, j] = v[:, 0] + packed["dbi"][j]
         elif k in ("g1", "g2"):
@@ -295,7 +325,8 @@ def emulate(packed, memory, keys, lengths, *, dec_cfg, attn_cfg, num_mels, steps
                     stop[rows, step * r + col - r * d.NM] = oc
 
     def run_jobs(phase, step):
-        ctas = [(job, g) for g in range(plan["row_groups"]) for job in plan["jobs"][phase]]
+        ctas = [(job, g) for g in range(plan["row_groups"])
+                for job in plan["jobs"].get(phase, [])]
         for (kind, q0, q1), g in (reversed(ctas) if reverse else ctas):
             p = prods[kind]
             rows = slice(D.ROWS * g, min(B, D.ROWS * (g + 1)))
@@ -475,3 +506,77 @@ def test_plain_decodes_of_a_shard_are_the_whole_batchs_rows(kind, r, cumulative)
                                     row0=2, **kw)
     for x, y in zip(tf_part, tf):
         torch.testing.assert_close(x, y[2:], atol=1e-5, rtol=0)
+
+
+def lstm_case(b, widths="odd"):
+    """A Tacotron 2 decoder cell at small widths (r = 1, location-sensitive
+    attention over [prev ; cum]), nonzero biases, memory and lengths as
+    ``odd_case``'s."""
+    prenet, ha, hd, a, nm, md = WIDTHS[widths]
+    dec = DecoderConfig(kind="taco2", prenet_dims=prenet, attention_rnn_dim=ha,
+                        decoder_rnn_dim=hd, reduction_factor=1, max_decode_steps=6)
+    attn = AttentionConfig(kind="location_sensitive", dim=a, location_filters=5,
+                           location_kernel_size=7, cumulative=True)
+    cell = Taco2DecoderCell(dec, attn, nm, md)
+    init_weights(cell, seed=5)
+    with torch.no_grad():
+        for prm in cell.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.2 * torch.randn(prm.shape, generator=torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(6)
+    t = 37
+    memory = torch.from_numpy(rng.standard_normal((b, t, md)).astype(np.float32))
+    with torch.no_grad():
+        keys = cell.precompute_keys(memory).contiguous()
+    lengths = torch.tensor(([t, 0, 1, 20, 5] * b)[:b])
+    return cell.pack(), memory, keys, lengths, dec, attn, nm
+
+
+@pytest.mark.parametrize("widths", ["odd", "ragged"])
+@pytest.mark.parametrize("use_dropout", [False, True])
+def test_lstm_emulation_matches_plain(widths, use_dropout):
+    """The LSTM branch's phases, CTA by CTA and in reverse, against the
+    plain Tacotron 2 step; resumed in two calls, the bits of one."""
+    packed, memory, keys, lengths, dec, attn, nm = lstm_case(5, widths)
+    assert D.packed_cell(packed) == "lstm"
+    kw = dict(dec_cfg=dec, attn_cfg=attn, num_mels=nm, seed=11, use_dropout=use_dropout)
+    ref = D.decode_scan_plain(packed, memory, keys, lengths, steps=6, **kw)
+    got = emulate(packed, memory, keys, lengths, sms=7, steps=6, **kw)
+    back = emulate(packed, memory, keys, lengths, sms=7, steps=6, reverse=True, **kw)
+    carry = new_carry(6)
+    emulate(packed, memory, keys, lengths, sms=7, steps=4, carry=carry, **kw)
+    two = emulate(packed, memory, keys, lengths, sms=7, steps=2, carry=carry, **kw)
+    for x, y, z, w in zip(got, ref, back, two):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+        torch.testing.assert_close(z, x, atol=0, rtol=0)
+        torch.testing.assert_close(w, x, atol=0, rtol=0)
+
+
+def test_lstm_plain_step_is_tacotron2s():
+    """One plain step of the LSTM branch against Tacotron 2's equations on
+    the cell's own modules: the attention LSTM over [prenet ; context], the
+    decoder LSTM over [h_attn ; context], the projection of [h_dec ;
+    context] (the pack's summed biases and stacked rows are the same
+    function)."""
+    packed, memory, keys, lengths, dec, attn, nm = lstm_case(3)
+    cell = Taco2DecoderCell(dec, attn, nm, memory.shape[-1])
+    init_weights(cell, seed=5)
+    with torch.no_grad():
+        for prm in cell.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.2 * torch.randn(prm.shape, generator=torch.Generator().manual_seed(1)))
+        st = D.initial_decode_state(packed, memory)
+        frame = torch.randn(3, nm, generator=torch.Generator().manual_seed(2))
+        valid = torch.arange(memory.shape[1])[None, :] < torch.tensor([37, 1, 20])[:, None]
+        new, out, align = D.decode_step(packed, st, frame, memory, keys, valid,
+                                        attn_cfg=attn, num_mels=nm)
+        x = cell.prenet(frame, deterministic=True)
+        h_a, c_a = cell.attention_rnn(torch.cat([x, st.ctx], -1), (st.h_attn, st.c_attn))
+        ctx, al, _ = cell.attention(h_a, memory, keys, valid,
+                                    {"alignment": st.prev, "cumulative": st.cum})
+        h_d, _ = cell.decoder_rnn(torch.cat([h_a, ctx], -1), (st.h_dec, st.c_dec))
+        hc = torch.cat([h_d, ctx], -1)
+    for got, want in ((new.h_attn, h_a), (new.c_attn, c_a), (new.ctx, ctx), (align, al),
+                      (new.h_dec, h_d), (out[:, :nm], cell.frame_proj(hc)),
+                      (out[:, nm: nm + 1], cell.stop_proj(hc))):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

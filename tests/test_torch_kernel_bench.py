@@ -122,13 +122,13 @@ def test_quick_cpu_report(tmp_path):
     r = json.loads(out.read_text())
     assert r["device"] == "cpu" and r["card"] is None and r["card_peaks"] is None
     assert set(r["sections"]) == {"decode", "stft_frames", "stft_routes", "refenc",
-                                  "lsa_decode", "wavernn"}
+                                  "lsa_decode", "lstm_decode", "wavernn"}
     # the CPU runs the plain versions: no kernel launches
     assert all(s["launches"] == {} for s in r["sections"].values())
     for key in ("kernel_decode_ms", "plain_decode_ms", "bahdanau_marginal",
                 "kernel_stft_ms_1024frames", "stft_paths_ms", "stft_marginal_us",
                 "ref_encoder_marginal_us", "ref_encoder_floor_analysis",
-                "kernel_lsa_decode_ms", "wavernn_scaling"):
+                "kernel_lsa_decode_ms", "kernel_lstm_decode_ms", "wavernn_scaling"):
         assert key in r, key
     assert {c["section"] for c in r["checks"]} == set(r["sections"])
     assert all(c["max_err"] <= c["tol"] for c in r["checks"])
