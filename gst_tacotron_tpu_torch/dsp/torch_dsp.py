@@ -8,7 +8,9 @@ feature path of the wav-transport step and of the extractor's plain route
 ``AudioConfig.griffin_lim_bf16`` as ``JaxDSP`` does: with it set, both
 transforms are the real-pair DFT products over the window's live taps, on
 operands rounded to bfloat16 with float32 sums (``low_precision``); the last
-inverse is float32 either way. The inverse preemphasis IIR runs blockwise: a
+inverse is float32 either way. On the card the bf16 iterations run on
+``ops/griffin_lim.py``'s kernels; the plain loop here is the CPU's route,
+their oracle, and the float32 one. The inverse preemphasis IIR runs blockwise: a
 lower-triangular product inside each block, then the carries across blocks
 as a second triangular product.
 
@@ -307,14 +309,29 @@ class TorchDSP:
         """(B, T, F) magnitude -> (B, S) waveform. Zero start phase unless a
         generator is given; fast Griffin-Lim momentum
         ``griffin_lim_momentum`` (0 is the plain iteration); the iterations'
-        transforms on bfloat16 operands when ``griffin_lim_bf16`` is set."""
-        cfg = self.cfg
+        transforms on bfloat16 operands when ``griffin_lim_bf16`` is set, on
+        the card through ``ops/griffin_lim.py``'s kernels."""
         if generator is None:
             re, im = magnitude, torch.zeros_like(magnitude)
         else:
             ang = torch.rand(magnitude.shape, generator=generator,
                              device=magnitude.device) * (2.0 * np.pi)
             re, im = magnitude * torch.cos(ang), magnitude * torch.sin(ang)
+        if magnitude.device.type == "cuda" and self.cfg.griffin_lim_bf16:
+            from ..ops.griffin_lim import griffin_lim_iterations
+
+            re, im = griffin_lim_iterations(self, magnitude, re, im)
+        else:
+            re, im = self.griffin_lim_iterations_plain(magnitude, re, im)
+        return self.istft_ri(re, im)
+
+    def griffin_lim_iterations_plain(self, magnitude: torch.Tensor, re: torch.Tensor,
+                                     im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Griffin-Lim's iterations in plain PyTorch from the start spectrum
+        (``re``, ``im``): the last projected (re, im). The CPU's route (the
+        kernels' oracle) and the float32 one; each iteration counts
+        ``griffin_lim_plain_iters``."""
+        cfg = self.cfg
         alpha, lp = cfg.griffin_lim_momentum, bool(cfg.griffin_lim_bf16)
         pre, pim = re, im
         for _ in range(cfg.griffin_lim_iters):
@@ -323,7 +340,8 @@ class TorchDSP:
             re2, im2 = self.stft_ri(self.istft_ri(cre, cim, lp), lp)
             scale = magnitude / torch.clamp(torch.sqrt(re2 * re2 + im2 * im2), min=1e-16)
             re, im, pre, pim = re2 * scale, im2 * scale, re, im
-        return self.istft_ri(re, im)
+            count("griffin_lim_plain_iters")
+        return re, im
 
     def inv_linear_spectrogram(self, spect: torch.Tensor,
                                generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -28,7 +28,11 @@ to record which kernels served it:
                1000 steps (K4's LSTM branch, Tacotron 2's 1024-unit LSTMs):
                kernel and plain ms, µs a step, roofline, parity over 50 steps;
   wavernn      4, 16 and 32 streams of 24 frames (K5): µs a sample step,
-               samples a second, real-time factor.
+               samples a second, real-time factor;
+  griffin_lim  gst_lj's 30 bf16 Griffin-Lim iterations of B=32 rows of 1000
+               frames (``ops/griffin_lim.py``): the kernels' loop against the
+               torch loop it replaced, the products' bound and the design's
+               bytes, parity after one iteration.
 
 Timings on the card are CUDA events around a run of calls after a warm-up,
 a synchronize at each end; a marginal is the difference of two loop
@@ -249,6 +253,31 @@ def refenc_stack_work(batch: int, t: int, f: int, channels: Sequence[int],
     return Work(flops, nbytes, "bf16" if bf16 else "f32")
 
 
+def griffin_lim_work(audio: AudioConfig, batch: int, frames: int) -> Work:
+    """Griffin-Lim's bf16 iterations of (batch, frames, F) magnitudes: the two
+    real-pair DFT products of every iteration over the live taps (bf16
+    operands); bytes the magnitudes and the start spectrum read, the last
+    spectrum written. Operations bound it."""
+    from .ops.griffin_lim import gl_plan
+
+    bins = batch * frames * audio.num_freq
+    flops = 2.0 * 2 * batch * frames * 2 * audio.num_freq * gl_plan(audio)["n_live"]
+    return Work(flops * audio.griffin_lim_iters, 20.0 * bins, "bf16")
+
+
+def griffin_lim_design_bytes(audio: AudioConfig, batch: int, frames: int) -> float:
+    """Bytes an iteration of ``csrc/griffin_lim.cu`` must move: G1 reads the
+    bf16 operand and writes the float32 frames, G2 reads those and writes the
+    bf16 wave, G3 reads it and, a bin, the magnitude and the old state and
+    writes the new state and the next operand (24 bytes)."""
+    from .ops.griffin_lim import gl_plan
+
+    plan, m = gl_plan(audio), batch * frames
+    wave = 2.0 * batch * (frames + plan["nk"] - 1) * audio.hop_length
+    return (2.0 * m * 2 * audio.num_freq + 2 * 4.0 * m * plan["n_live"] + 2 * wave
+            + 24.0 * m * audio.num_freq)
+
+
 def _stft_sizes(audio: AudioConfig):
     from .ops.stft import live_tap_span, stft_bases
 
@@ -382,11 +411,12 @@ SHAPES = {
     "full": dict(text=64, marginal_steps=(1000, 2000), stft_frames=1024, route_batch=8,
                  route_frames=512, stft_cycles=8, stft_loops=(4, 34), refenc=(8, 256),
                  refenc_loops=(2, 10), lsa_steps=1000, streams=(4, 16, 32),
-                 wavernn_frames=24, iters=10, lstm=(32, 192, 1000, 50)),
+                 wavernn_frames=24, iters=10, lstm=(32, 192, 1000, 50),
+                 griffin_lim=(32, 1000)),
     "quick": dict(text=8, marginal_steps=(4, 8), stft_frames=16, route_batch=2,
                   route_frames=8, stft_cycles=2, stft_loops=(1, 3), refenc=(2, 64),
                   refenc_loops=(1, 2), lsa_steps=6, streams=(1, 2), wavernn_frames=2,
-                  iters=1, lstm=(2, 8, 6, 3)),
+                  iters=1, lstm=(2, 8, 6, 3), griffin_lim=(2, 16)),
 }
 
 # the JAX package's kernel-test tolerances (ROADMAP.md, "Each tuning PR keeps")
@@ -395,6 +425,7 @@ STFT_TOL = 5e-3          # tests/test_pallas.py, normalized dB
 REFENC_TOL = 1e-5        # tests/test_refenc_pallas.py
 REFENC_BF16_TOL = 0.05   # tests/test_refenc_pallas.py, the bf16 operand mode
 WAVERNN_GAP_TOL = 1e-3   # the card tests' score gap (greedy classes exact in JAX's test)
+GL_L2_TOL = 1e-3         # Griffin-Lim, one iteration's L2 from another summation order: 1e-4-3e-4
 
 
 class Bench:
@@ -563,6 +594,55 @@ class Bench:
             max_err(kernel(parity_steps)[0], plain(parity_steps)[0]), DECODE_TOL,
             "tests/test_decode_pallas.py's tolerance, over the card test's 50 steps: float32 "
             "sums of up to 1792 terms in another order, carried by the cell states")
+
+    # -- Griffin-Lim's bf16 iterations ---------------------------------------
+
+    def griffin_lim(self) -> None:
+        """gst_lj's Griffin-Lim iterations (30, momentum 0.99, bf16 operands)
+        of (B, T) magnitudes from a zero phase: the kernels' loop on the card
+        against the torch loop it replaced (on the card, its bf16 GEMMs), the
+        bound, parity after one iteration (on the CPU the kernels' layout
+        emulation against the plain loop)."""
+        import dataclasses
+
+        from .dsp.torch_dsp import TorchDSP
+        from .ops import griffin_lim as gl
+
+        audio, r = self.cfg.audio, self.report
+        b, t = self.shape["griffin_lim"]
+        dsp = TorchDSP(audio, self.dev)
+        mag = self.t32(self.rng.uniform(0.0, 1.0, (b, t, audio.num_freq)) ** 1.5)
+        zeros = torch.zeros_like(mag)
+        work = griffin_lim_work(audio, b, t)
+        r["griffin_lim_shape"] = {"batch": b, "frames": t, "iters": audio.griffin_lim_iters}
+        r["griffin_lim_design_bytes_per_iter"] = griffin_lim_design_bytes(audio, b, t)
+        dt_p = self.time(lambda: dsp.griffin_lim_iterations_plain(mag, mag, zeros), 1,
+                         "griffin_lim torch loop", warmup=0 if self.dev.type == "cpu" else 1)
+        r["griffin_lim_plain_ms"] = 1e3 * dt_p
+        one = TorchDSP(dataclasses.replace(audio, griffin_lim_iters=1), self.dev)
+        want = one.griffin_lim_iterations_plain(mag, mag, zeros)
+        if self.dev.type == "cuda":
+            dt_k = self.time(lambda: gl.griffin_lim_iterations(dsp, mag, mag, zeros), 3,
+                             "griffin_lim kernel loop")
+            r["griffin_lim_kernel_ms"], r["griffin_lim_speedup"] = 1e3 * dt_k, dt_p / dt_k
+            self.roof("kernel_griffin_lim", work, dt_k)
+            got = gl.griffin_lim_iterations(one, mag, mag, zeros)
+            name = "kernel_vs_plain_one_iteration"
+        else:
+            self.roof("plain_griffin_lim", work, dt_p)
+            start = torch.stack((mag, zeros), -1)
+            state, _ = gl.emulate_iteration(one, mag, start, gl.spectrum_operand(start, audio))
+            got = (state[..., 0], state[..., 1])
+            name = "emulation_vs_plain_one_iteration"
+        l2 = float(torch.linalg.norm(torch.stack(got) - torch.stack(want))
+                   / torch.linalg.norm(torch.stack(want)))
+        peak = max(float(x.abs().max()) for x in want)
+        r["griffin_lim_parity_max_of_peak"] = max_err(got, want) / peak
+        r["griffin_lim_parity_l2"] = self.check(
+            "griffin_lim", name, l2, GL_L2_TOL,
+            "L2 over the L2 of the plain loop's spectrum: the same bf16 operands, float32 sums "
+            "in another order; its largest bin (reported beside it) is a heavy tail, where a "
+            "sum moved a wave sample across a bf16 rounding step and the projection carried it")
 
     # -- STFT (K3, K3′, K3″) ------------------------------------------------
 
@@ -837,6 +917,7 @@ def run(device=None, steps: int = 200, batch: int = 8, quick: bool = False) -> d
                       bench.lsa_decode)
         bench.section("lstm_decode", ["decode_scan", "decode_scan:lstm"], bench.lstm_decode)
         bench.section("wavernn", ["wavernn_sample"], bench.wavernn)
+        bench.section("griffin_lim", ["griffin_lim"], bench.griffin_lim)
     bench.report["failures"] = bench.failures()
     return bench.report
 

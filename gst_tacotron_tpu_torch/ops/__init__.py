@@ -7,6 +7,8 @@
              K3″ stft_features_frames  <- the same file, pre-framed form
   decode.py  K4  decode_scan           <- gst_tacotron_tpu/ops/decode_pallas.py
   wavernn.py K5  wavernn_sample        <- gst_tacotron_tpu/ops/wavernn_pallas.py
+  griffin_lim.py  griffin_lim          Griffin-Lim's bf16 iterations (no TPU kernel:
+                                       JaxDSP runs them as XLA convolutions)
 
 ``philox.py`` is the kernels' random stream for their plain versions.
 
@@ -19,11 +21,12 @@ differentiable.
 
 
 def all_kernels():
-    """Every CUDA kernel of the port, in K1..K5 order (K3′, K3″ after K3)."""
-    from . import decode, gru, refenc, stft, wavernn
+    """Every CUDA kernel of the port, in K1..K5 order (K3′, K3″ after K3),
+    then Griffin-Lim's."""
+    from . import decode, griffin_lim, gru, refenc, stft, wavernn
 
     return [gru.KERNEL, refenc.KERNEL, stft.KERNEL, stft.FUSED_KERNEL, stft.FRAMES_KERNEL,
-            decode.KERNEL, wavernn.KERNEL]
+            decode.KERNEL, wavernn.KERNEL, griffin_lim.KERNEL]
 
 
 def launch_counts():

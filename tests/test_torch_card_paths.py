@@ -89,10 +89,13 @@ def test_every_kernel_builds_and_the_card_is_read(dev):
 # their bf16 branches on the card, and K4 once
 GST_LAUNCHES = {"gru_scan": 3, "refenc_stack": 1, "refenc_stack:bf16": 1, "stft_features": 4,
                 "stft_features:bf16": 4, "decode_scan": 1}
+# Griffin-Lim's kernel: one launcher call an iteration, 30 in the presets
+GL_LAUNCHES = {"griffin_lim": 30}
 # (preset, overrides, decode steps, launches beside GST_LAUNCHES)
-PATHS = {"gst_lj": ("gst_lj", {}, 32, {}),
-         "gst_lj_taco2": ("gst_lj", {"model.encoder.kind": "taco2"}, 32, {}),
-         "gst_r1_location": ("gst_r1_location", {}, 64, {"decode_scan:location_sensitive": 1}),
+PATHS = {"gst_lj": ("gst_lj", {}, 32, GL_LAUNCHES),
+         "gst_lj_taco2": ("gst_lj", {"model.encoder.kind": "taco2"}, 32, GL_LAUNCHES),
+         "gst_r1_location": ("gst_r1_location", {}, 64,
+                             {"decode_scan:location_sensitive": 1, **GL_LAUNCHES}),
          "gst_wavernn": ("gst_wavernn", {}, 16, {"wavernn_sample": 1})}
 
 
@@ -189,7 +192,7 @@ def test_bf16_compute_synthesis_on_the_card(dev):
         ops.reset_launch_counts()
         outs[dtype] = synth(texts, reference_wavs=wavs)
         counts[dtype] = launched()
-    assert counts["bfloat16"] == counts["float32"] == GST_LAUNCHES
+    assert counts["bfloat16"] == counts["float32"] == {**GST_LAUNCHES, **GL_LAUNCHES}
     assert all(np.all(np.isfinite(outs["bfloat16"][k])) for k in ("mel", "linear", "wav"))
     assert 0.0 < float(np.abs(outs["bfloat16"]["mel"] - outs["float32"]["mel"]).mean()) < 0.05
 

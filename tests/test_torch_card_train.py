@@ -162,7 +162,7 @@ def test_synthesis_from_the_trained_state(dev, trained):
     ops.reset_launch_counts()
     out = Synthesizer(cfg, trained["model"], device=dev)(texts, reference_wavs=wavs,
                                                          max_steps=32)
-    assert launched() == GST_LAUNCHES
+    assert launched() == {**GST_LAUNCHES, "griffin_lim": cfg.audio.griffin_lim_iters}
     assert all(np.all(np.isfinite(out[k])) for k in ("mel", "linear", "wav"))
 
 

@@ -123,7 +123,7 @@ def test_port_imports_and_runs_with_jax_blocked():
         "assert maybe_start_server(None) is None\n"
         "from gst_tacotron_tpu_torch import kernel_bench\n"
         "kr = kernel_bench.run('cpu', steps=4, batch=2, quick=True)\n"
-        "assert len(kr['sections']) == 7 and kr['failures'] == [], kr['sections']\n"
+        "assert len(kr['sections']) == 8 and kr['failures'] == [], kr['sections']\n"
         "assert 'gst_tacotron_tpu' not in sys.modules and sys.modules['tensorflow'] is None\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
